@@ -1,0 +1,667 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of COBS (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from a checkout of the repository on a machine with one CUDA card. It
+
+1. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and checks
+   a small build and small searches on the card against the CPU;
+2. builds a compact COBS index on the card: 2048 synthetic documents with
+   log-normal sizes (sigma 1.0, mean 100 kb, seed 0), k = 31, one hash
+   function, FPR 0.3, blocks of 1024 documents;
+3. holds every kernel against its plain PyTorch version on the card, on
+   rows and indices drawn from that index and on the shapes of
+   ``tests/test_kernels.py``;
+4. runs the main path with every launch counter at 0: 128 queries of the
+   serving traffic mix (40/80/160/320 bp, half true positives, half
+   verified negatives) through ``search``, ``search_batch`` (batches of 32)
+   and ``top_k`` for each method, then a classic index and a two-hash
+   compact index. All methods must agree, no positive query may miss its
+   origin document, and each kernel must have been launched;
+5. traces 32 lookup searches with torch.profiler (device time per search,
+   the top device and host operations), and times each kernel at the main
+   path's shapes beside its bound and its plain version.
+
+It prints the card's name and power limit and a ``{"kernels": ...}`` line,
+writes its measurements to ``chiprun_out/chip_smoke.json``, and ends with
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
+line. Without CUDA, or outside a checkout, it exits non-zero at once.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+DEV = "cuda"
+
+N_DOCS, KMER, MEAN_LEN, SIGMA, SEED = 2048, 31, 100_000, 1.0, 0
+BLOCK_DOCS = 1024
+N_QUERIES, BATCH, THRESHOLD, TOP = 128, 32, 0.8, 10
+METHODS = ("lookup", "vertical", "unpack", "ref")
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+INT32_OPS_PER_S = 67e12       # the data sheet's 32-bit rate outside tensor cores
+SOURCE = "src/repro_torch/kernels/csrc/bitslice_score.cu"
+PALLAS = "src/repro/kernels/bitslice_score.py"
+# wrapper -> (its line in PALLAS, the Pallas kernel body, the CUDA kernel)
+KERNELS = {
+    "unpack_score": (65, "_unpack_kernel", "unpack_kernel"),
+    "vertical_score": (126, "_vertical_kernel", "vertical_kernel"),
+    "lookup_score_blocks": (208, "_lookup_blocks_kernel", "lookup_kernel"),
+    "lookup_score_multi": (278, "_lookup_multi_kernel", "lookup_kernel"),
+    "lookup_score": (836, "_lookup_kernel", "lookup_kernel"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def make_workload(make_queries, corpus, n_queries: int, seed: int = 100):
+    """The serving traffic mix of ``repro.launch.serve.make_workload``:
+    exactly n_queries of lengths 40/80/160/320 bp, half true positives and
+    half verified negatives, shuffled."""
+    queries, origin = [], []
+    lengths = (40, 80, 160, 320)
+    for i, length in enumerate(lengths):
+        count = n_queries // len(lengths) + (i < n_queries % len(lengths))
+        if count == 0:
+            continue
+        q, o = make_queries(corpus, n_pos=count - count // 2,
+                            n_neg=count // 2, length=length, seed=seed + i)
+        queries.extend(q)
+        origin.extend(o)
+    perm = np.random.default_rng(seed).permutation(len(queries))
+    return [queries[i] for i in perm], [int(origin[i]) for i in perm]
+
+
+def same_result(a, b) -> bool:
+    return (np.array_equal(a.doc_ids, b.doc_ids)
+            and np.array_equal(a.scores, b.scores)
+            and a.n_terms == b.n_terms and a.threshold == b.threshold)
+
+
+def same_results(xs, ys) -> bool:
+    return len(xs) == len(ys) and all(map(same_result, xs, ys))
+
+
+# --------------------------------------------------------------------------
+# Phases
+# --------------------------------------------------------------------------
+
+def phase_build_kernels(rt) -> dict:
+    t0 = time.perf_counter()
+    path, report = rt.build.build()
+    rt.build.library()
+    secs = time.perf_counter() - t0
+    log(f"[build] {path.name} in {secs:.2f} s")
+    for line in report.splitlines():
+        if "Used" in line or "spill" in line:
+            log(f"[build] ptxas: {line.strip()}")
+    return {"seconds": secs, "library": path.name}
+
+
+def phase_small_reference(rt, torch) -> None:
+    """A small build and search on the card equal the CPU's, word for word
+    and result for result; the hash equals its numpy mirror."""
+    corpus = rt.make_corpus(64, k=15, mean_length=400, sigma=1.0, seed=7)
+    rng = np.random.default_rng(3)
+    terms = rng.integers(0, 2 ** 32, size=(4096, 2), dtype=np.uint32)
+    terms[:4] = 0xFFFFFFFF
+    for n in (1, 2, 3):
+        got = rt.hashing.hash_terms(
+            torch.from_numpy(terms.view(np.int32)).to(DEV), n)
+        check(np.array_equal(got.cpu().numpy().view(np.uint32),
+                             rt.hashing.hash_terms_np(terms, n)),
+              f"hash_terms({n}) on the card differs from its numpy mirror")
+    queries, _ = rt.make_queries(corpus, n_pos=4, n_neg=4, length=80,
+                                 seed=11)
+    for n_hashes in (1, 2):
+        params = rt.IndexParams(n_hashes, 0.3, 15)
+        for kind, build in (
+                ("compact", lambda d: rt.build_compact(
+                    corpus.doc_terms, params, block_docs=32, row_align=64,
+                    device=d)),
+                ("classic", lambda d: rt.build_classic(
+                    corpus.doc_terms, params, device=d))):
+            gpu, cpu = build(DEV), build("cpu")
+            check(np.array_equal(gpu.storage.full_host(),
+                                 cpu.storage.full_host()),
+                  f"{kind} k={n_hashes}: card arena != CPU arena")
+            for method in METHODS:
+                eg = rt.QueryEngine(gpu, method=method)
+                ec = rt.QueryEngine(cpu, method=method, device="cpu")
+                check(same_results(
+                    [eg.search(q, 0.5) for q in queries]
+                    + eg.search_batch(queries, 0.5)
+                    + [eg.top_k(q, 5) for q in queries],
+                    [ec.search(q, 0.5) for q in queries]
+                    + ec.search_batch(queries, 0.5)
+                    + [ec.top_k(q, 5) for q in queries]),
+                    f"{kind} k={n_hashes} {method}: card != CPU")
+    torch.cuda.synchronize()
+    log("[reference] small build and searches on the card equal the CPU's")
+
+
+def phase_build_index(rt, torch):
+    t0 = time.perf_counter()
+    corpus = rt.make_corpus(N_DOCS, k=KMER, mean_length=MEAN_LEN,
+                            sigma=SIGMA, seed=SEED)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = rt.build_compact(corpus.doc_terms, rt.IndexParams(1, 0.3, KMER),
+                             block_docs=BLOCK_DOCS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bases = int(sum(len(d) for d in corpus.documents))
+    info = {
+        "docs": index.n_docs, "bases": bases,
+        "terms": int(corpus.term_counts().sum()),
+        "blocks": index.n_blocks,
+        "block_widths": [int(w) for w in index.layout.block_width],
+        "rows": index.total_rows, "arena_bytes": index.size_bytes(),
+        "host_corpus_s": host_s, "device_build_s": build_s,
+        "build_peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+    check(index.device.type == torch.device(DEV).type,
+          "the arena is not on the card")
+    log(f"[index] {info['docs']} docs, {bases} bases, {info['terms']} terms; "
+        f"{info['blocks']} blocks of widths {info['block_widths']}; "
+        f"{info['rows']} rows x {index.doc_words} words = "
+        f"{info['arena_bytes']} bytes on the card")
+    log(f"[index] host corpus {host_s:.2f} s, device build {build_s:.2f} s, "
+        f"build peak device memory {info['build_peak_device_bytes']} bytes")
+    return corpus, index, info
+
+
+def phase_kernels_vs_plain(rt, torch, index) -> dict:
+    """Each kernel equals its plain version on the card. Returns the
+    largest absolute difference seen per wrapper (0 when they agree)."""
+    k = rt.kernels
+    g = torch.Generator().manual_seed(5)
+    err = {name: 0 for name in KERNELS}
+
+    def compare(name, got, want, what):
+        torch.cuda.synchronize()
+        diff = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        err[name] = max(err[name], diff)
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"{name} != its plain version on {what}")
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                             dtype=torch.int64).to(torch.int32).to(DEV)
+
+    arena = index.storage.full_device()
+    R, W = arena.shape
+    # rows and indices drawn from the built arena, at the main path's shapes
+    for L in (64, 192, 320):
+        idx = torch.randint(0, R, (BATCH, index.n_blocks, L), generator=g,
+                            dtype=torch.int32).to(DEV)
+        mask = (torch.rand((BATCH, index.n_blocks, L), generator=g) < 0.9
+                ).to(torch.int32).to(DEV)
+        rows = arena[idx.long()].permute(0, 2, 1, 3).reshape(
+            BATCH, L, index.n_blocks * W).contiguous()
+        for name, fn, plain in (
+                ("unpack_score", k.unpack_score, k.unpack_score_plain),
+                ("vertical_score", k.vertical_score, k.vertical_score_plain)):
+            compare(name, fn(rows[0]), plain(rows[0]), f"arena rows L={L}")
+            compare(name, fn(rows), plain(rows), f"arena batch L={L}")
+        compare("lookup_score", k.lookup_score(arena, idx[0, 0], mask[0, 0]),
+                k.lookup_plain(arena, idx[0, 0], mask[0, 0]), f"L={L}")
+        compare("lookup_score_blocks",
+                k.lookup_score_blocks(arena, idx[0], mask[0]),
+                k.lookup_plain(arena, idx[0], mask[0]), f"L={L}")
+        compare("lookup_score_multi",
+                k.lookup_score_multi(arena, idx, mask),
+                k.lookup_plain(arena, idx, mask), f"L={L}")
+    # the shapes of tests/test_kernels.py
+    for W_ in (8, 96, 128, 130, 384):
+        for L in (1, 7, 200, 1000):
+            rows = words(L, W_)
+            for name, fn, plain in (
+                    ("unpack_score", k.unpack_score, k.unpack_score_plain),
+                    ("vertical_score", k.vertical_score,
+                     k.vertical_score_plain)):
+                compare(name, fn(rows), plain(rows), f"[{L}, {W_}]")
+        for (Q, nb, L) in ((1, 1, 8), (3, 2, 17), (4, 1, 33), (2, 3, 64)):
+            small = words(4 * L, W_)
+            idx = torch.randint(0, 4 * L, (Q, nb, L), generator=g,
+                                dtype=torch.int32).to(DEV)
+            mask = torch.randint(0, 2, (Q, nb, L), generator=g,
+                                 dtype=torch.int32).to(DEV)
+            compare("lookup_score", k.lookup_score(small, idx[0, 0],
+                                                   mask[0, 0]),
+                    k.lookup_plain(small, idx[0, 0], mask[0, 0]),
+                    f"W={W_} L={L}")
+            compare("lookup_score_blocks",
+                    k.lookup_score_blocks(small, idx[0], mask[0]),
+                    k.lookup_plain(small, idx[0], mask[0]), f"W={W_} L={L}")
+            compare("lookup_score_multi",
+                    k.lookup_score_multi(small, idx, mask, grid_order="qw"),
+                    k.lookup_plain(small, idx, mask), f"W={W_} Q={Q}")
+    log(f"[kernels] every kernel equals its plain version: max_abs_err {err}")
+    return err
+
+
+def run_method(rt, index, method, queries):
+    """search, search_batch and top_k over the queries; returns results,
+    single-search latencies (s) and batch seconds."""
+    engine = rt.QueryEngine(index, method=method)
+    engine.search(queries[0], THRESHOLD)             # first-use costs
+    engine.search_batch(queries[:BATCH], THRESHOLD)
+    lat, singles = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        singles.append(engine.search(q, THRESHOLD))
+        lat.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    batched = []
+    for i in range(0, len(queries), BATCH):
+        batched += engine.search_batch(queries[i:i + BATCH], THRESHOLD)
+    batch_s = time.perf_counter() - t0
+    tops = [engine.top_k(q, TOP) for q in queries]
+    return singles, batched, tops, lat, batch_s
+
+
+def check_positives(results, origin, what: str, limit: int | None = None):
+    n = 0
+    for r, o in zip(results, origin):
+        if o < 0 or (limit is not None and o >= limit):
+            continue
+        n += 1
+        check(o in set(r.doc_ids.tolist()),
+              f"{what}: positive query missed its origin document {o}")
+    return n
+
+
+def phase_main_path(rt, torch, corpus, index):
+    """The main path, launch counters from 0: every method on the compact
+    index, then the classic and two-hash indexes. Returns the record, the
+    queries and the classic index."""
+    k = rt.kernels
+    t0 = time.perf_counter()
+    queries, origin = make_workload(rt.make_queries, corpus, N_QUERIES)
+    log(f"[workload] {len(queries)} queries "
+        f"({sum(o >= 0 for o in origin)} positive) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {"methods": {}}
+    k.reset_launches()
+    base = None
+    for method in METHODS:
+        before = dict(k.launches)
+        singles, batched, tops, lat, batch_s = run_method(
+            rt, index, method, queries)
+        delta = {n: k.launches[n] - before[n] for n in k.launches}
+        check(same_results(singles, batched),
+              f"{method}: search and search_batch differ")
+        if base is None:
+            base = (singles, tops)
+        check(same_results(singles, base[0]),
+              f"{method}: search differs from {METHODS[0]}")
+        check(same_results(tops, base[1]),
+              f"{method}: top_k differs from {METHODS[0]}")
+        n_pos = check_positives(singles, origin, method)
+        p50 = statistics.median(lat)
+        m = {"p50_search_ms": p50 * 1e3,
+             "p99_search_ms": float(np.percentile(lat, 99)) * 1e3,
+             "batch_queries_per_s": len(queries) / batch_s,
+             "launches": delta,
+             "hits": int(sum(len(r.doc_ids) for r in singles))}
+        out["methods"][method] = m
+        log(f"[search:{method}] p50 {m['p50_search_ms']:.3f} ms, p99 "
+            f"{m['p99_search_ms']:.3f} ms per search; batch "
+            f"{m['batch_queries_per_s']:.1f} queries/s; {m['hits']} hits; "
+            f"{n_pos} positives all found; launches {delta}")
+    want = {"lookup": ("lookup_score_blocks", "lookup_score_multi"),
+            "vertical": ("vertical_score",), "unpack": ("unpack_score",)}
+    for method, names in want.items():
+        for name in names:
+            check(out["methods"][method]["launches"][name] > 0,
+                  f"{method} phase launched no {name}")
+
+    # a classic index (one block: lookup_score) and a two-hash compact
+    # index (the AND path through vertical and unpack)
+    sub = corpus.doc_terms[:256]
+    extra = {
+        "classic k=1": rt.build_classic(sub, rt.IndexParams(1, 0.3, KMER)),
+        "compact k=2": rt.build_compact(sub, rt.IndexParams(2, 0.3, KMER),
+                                        block_docs=128),
+    }
+    for what, idx in extra.items():
+        before = dict(k.launches)
+        results = {}
+        for method in METHODS:
+            singles, batched, tops, _, _ = run_method(rt, idx, method,
+                                                      queries)
+            check(same_results(singles, batched),
+                  f"{what} {method}: search and search_batch differ")
+            results[method] = (singles, tops)
+            check_positives(singles, origin, f"{what} {method}", limit=256)
+        for method in METHODS[1:]:
+            check(same_results(results[method][0], results[METHODS[0]][0])
+                  and same_results(results[method][1],
+                                   results[METHODS[0]][1]),
+                  f"{what}: {method} differs from {METHODS[0]}")
+        delta = {n: k.launches[n] - before[n] for n in k.launches}
+        out[what] = {"blocks": idx.n_blocks, "rows": idx.total_rows,
+                     "launches": delta}
+        log(f"[{what}] {idx.n_blocks} block(s), {idx.total_rows} rows: all "
+            f"methods agree, no positive missed; launches {delta}")
+    check(out["classic k=1"]["launches"]["lookup_score"] > 0,
+          "the classic index launched no lookup_score")
+    out["launches"] = dict(k.launches)
+    for name, n in out["launches"].items():
+        check(n > 0, f"the main path never launched {name}")
+    log(f"[main path] launches {out['launches']}")
+    return out, queries, extra["classic k=1"]
+
+
+# --------------------------------------------------------------------------
+# Timing
+# --------------------------------------------------------------------------
+
+def phase_trace(rt, torch, index, queries, p50_ms: float) -> dict:
+    """Where a lookup search's time goes: torch.profiler over 32 single
+    searches and one batch of 32. Device time per search is set against
+    the un-profiled p50, which gives the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    engine = rt.QueryEngine(index, method="lookup")
+    sample = queries[:BATCH]
+    out = {}
+    for what, run in (
+            ("search", lambda: [engine.search(q, THRESHOLD) for q in sample]),
+            ("search_batch", lambda: engine.search_batch(sample, THRESHOLD))):
+        run()                                        # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        device = {}
+        for ev in prof.events():
+            if str(ev.device_type).endswith("CUDA"):
+                device[ev.name] = (device.get(ev.name, 0.0)
+                                   + ev.time_range.elapsed_us())
+        host = sorted(((e.key, e.self_cpu_time_total)
+                       for e in prof.key_averages()), key=lambda kv: -kv[1])
+        per_query_us = sum(device.values()) / len(sample)
+        out[what] = {
+            "device_us_per_query": per_query_us,
+            "device_top_us": sorted(device.items(),
+                                    key=lambda kv: -kv[1])[:6],
+            "host_self_top_us": host[:8],
+        }
+        log(f"[trace:{what}] device {per_query_us:.1f} us per query; top "
+            "device ops (total us over 32 queries): "
+            + "; ".join(f"{n[:48]} {t:.1f}" for n, t in
+                        out[what]["device_top_us"]))
+        log(f"[trace:{what}] top host ops by self time (us): "
+            + "; ".join(f"{n[:40]} {t:.0f}" for n, t in
+                        out[what]["host_self_top_us"]))
+    out["device_busy_share_single"] = (
+        out["search"]["device_us_per_query"] / (p50_ms * 1e3))
+    log(f"[trace] device busy share of a single lookup search: "
+        f"{out['device_busy_share_single']:.3f} (device time per search / "
+        f"un-profiled p50 {p50_ms:.3f} ms)")
+    return out
+
+def event_ms(torch, fn, reps: int) -> float:
+    """Median over reps of one call's device time between CUDA events."""
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def loop_ms(torch, calls, rounds: int = 5) -> float:
+    """Median over rounds of (events around all ``calls`` back to back) /
+    len(calls): the kernel's time per launch on the device timeline."""
+    per = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for c in calls:
+            c()
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b) / len(calls))
+    return statistics.median(per)
+
+
+def profiled_kernel_ms(torch, calls, kernel_name: str) -> float | None:
+    """Mean device time of ``kernel_name`` over the calls, from
+    torch.profiler; None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for c in calls:
+            c()
+        torch.cuda.synchronize()
+    times = [ev.time_range.elapsed_us() for ev in prof.events()
+             if kernel_name in ev.name and str(ev.device_type).endswith("CUDA")]
+    return sum(times) / len(times) / 1e3 if times else None
+
+
+def phase_timings(rt, torch, index, classic, queries, max_err, launches
+                  ) -> list[dict]:
+    k = rt.kernels
+    q_mod = rt.query
+    lib = rt.build.library()
+    arena = index.storage.full_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = torch.cuda.current_device()
+
+    def plan(idx, term_sets):
+        """Main-path inputs of a batch of term sets on ``idx``."""
+        buf, ells = q_mod.pad_term_batch(term_sets, 64)
+        terms = torch.from_numpy(buf.view(np.int32)).to(DEV)
+        h = rt.hashing.hash_terms(terms, idx.params.n_hashes)
+        rows = q_mod.plan_rows(h, idx.row_offset, idx.block_width)
+        L = terms.shape[1]
+        valid = (torch.arange(L, device=DEV)[None, :]
+                 < torch.from_numpy(ells).to(DEV)[:, None])
+        ridx = rows[:, :, 0, :].transpose(1, 2).contiguous()    # [Q, nb, L]
+        mask = valid.to(torch.int32)[:, None, :].expand(ridx.shape)
+        flat = q_mod.gather_rows(idx.storage.full_device(), rows, valid)
+        return ridx, mask.contiguous(), flat.contiguous()
+
+    # the longest bucket: 320-bp queries pad to 320 terms
+    term_sets = [q_mod.compile_pattern(q, index.params) for q in queries]
+    long_sets = [t for t in term_sets if t.shape[0] > 256][:BATCH]
+    singles = [plan(index, [t]) for t in long_sets]
+    batch_idx, batch_mask, _ = plan(index, term_sets[:BATCH])
+    classic_singles = [plan(classic, [t]) for t in long_sets]
+
+    def row_bytes(mask, W):
+        return int(mask.count_nonzero()) * W * 4
+
+    cases = []
+    W = arena.shape[1]
+    # unpack / vertical on the gathered rows of one 320-term query
+    for name, sym, plain in (("unpack_score", "cobs_unpack",
+                              k.unpack_score_plain),
+                             ("vertical_score", "cobs_vertical",
+                              k.vertical_score_plain)):
+        flats = [s[2][0] for s in singles]
+        L, Wf = flats[0].shape
+        outs = [torch.empty((1, Wf, 32), dtype=torch.int32, device=DEV)
+                for _ in flats]
+        extra = (k.num_planes(L),) if name == "vertical_score" else ()
+        calls = [(lambda f=f, o=o: getattr(lib, sym)(
+            f.data_ptr(), o.data_ptr(), 1, L, Wf, *extra, dev, stream))
+            for f, o in zip(flats, outs)]
+        planes = k.num_planes(L)
+        ops = (2 * L * Wf * 32 if name == "unpack_score"
+               else 2 * planes * (L * Wf + Wf * 32))
+        cases.append((name, f"rows [{L}, {Wf}]", calls,
+                      lambda p=plain, f=flats[0]: p(f),
+                      L * Wf * 4 + Wf * 32 * 4, ops))
+    # fused lookups on the compact index (single and batch) and the classic
+    for name, src, shape_of in (
+            ("lookup_score_blocks", [(s[0][0], s[1][0]) for s in singles],
+             "idx [nb, L]"),
+            ("lookup_score_multi", [(batch_idx, batch_mask)], "idx [Q, nb, L]"),
+            ("lookup_score", [(s[0][0, 0], s[1][0, 0])
+                              for s in classic_singles], "idx [L]")):
+        ar = classic.storage.full_device() if name == "lookup_score" else arena
+        Wa = ar.shape[1]
+        calls = []
+        for ridx, msk in src:
+            cells, L = ridx.numel() // ridx.shape[-1], ridx.shape[-1]
+            o = torch.empty(ridx.shape[:-1] + (Wa, 32), dtype=torch.int32,
+                            device=DEV)
+            calls.append(lambda r=ridx, m=msk, o=o, c=cells, L=L:
+                         lib.cobs_lookup(ar.data_ptr(), r.data_ptr(),
+                                         m.data_ptr(), o.data_ptr(), c, L, Wa,
+                                         k.num_planes(L), dev, stream))
+        ridx, msk = src[0]
+        L = ridx.shape[-1]
+        cells = ridx.numel() // L
+        active = int(msk.count_nonzero())
+        planes = k.num_planes(L)
+        cases.append((name, f"{shape_of} = {list(ridx.shape)}, arena "
+                      f"{list(ar.shape)}", calls,
+                      lambda r=ridx, m=msk, a=ar: k.lookup_plain(a, r, m),
+                      ridx.numel() * 8 + row_bytes(msk, Wa)
+                      + cells * Wa * 32 * 4,
+                      2 * planes * (active * Wa + cells * Wa * 32)))
+    profiled_kernel_ms(torch, cases[0][2][:1], "")   # the profiler's first use
+    out = []
+    for name, shape, calls, plain, nbytes, nops in cases:
+        for c in calls:                                  # warm-up
+            c()
+        torch.cuda.synchronize()
+        # 256 launches, cycling over the queries' inputs
+        reps = calls * max(1, 256 // len(calls))
+        ev = loop_ms(torch, reps)
+        line, body, symbol = KERNELS[name]
+        prof = profiled_kernel_ms(torch, reps, symbol)
+        plain_ms = event_ms(torch, plain, 7)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / INT32_OPS_PER_S * 1e3
+        rec = {
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": f"{PALLAS}:{line}", "pallas_kernel":
+                f"{name} ({body})", "matched": max_err[name] == 0,
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": prof if prof is not None else ev,
+            "ms_source": "torch.profiler" if prof is not None
+                         else "cuda events",
+            "loop_ms": ev, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "operations": nops, "shape": shape,
+            "library_ms": None,
+        }
+        out.append(rec)
+        log(f"[time] {name} at {shape}: kernel {rec['ms'] * 1e3:.2f} us "
+            f"({rec['ms_source']}), back-to-back {ev * 1e3:.2f} us/launch, "
+            f"plain {plain_ms * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.4f}"
+            f" us ({rec['bound_by']}: {nbytes} bytes, {nops} ops)")
+    log("[time] library_ms is null: no single PyTorch call computes these "
+        "functions")
+    return out
+
+
+def card_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        raise SmokeFailure(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+class _Port:
+    """The port's modules, imported once src is on the path."""
+
+    def __init__(self):
+        from repro_torch.core import (IndexParams, QueryEngine, build_classic,
+                                      build_compact, hashing, query)
+        from repro_torch.data import make_corpus, make_queries
+        from repro_torch.kernels import _build, bitslice_score
+        self.IndexParams, self.QueryEngine = IndexParams, QueryEngine
+        self.build_classic, self.build_compact = build_classic, build_compact
+        self.hashing, self.query = hashing, query
+        self.make_corpus, self.make_queries = make_corpus, make_queries
+        self.build, self.kernels = _build, bitslice_score
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script drives the "
+              "card", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    rt = _Port()
+    record = {"device": torch.cuda.get_device_name(0),
+              "torch": torch.__version__, "cuda": torch.version.cuda}
+    try:
+        record["card"] = card_line()
+        log(f"[card] {record['card']}; torch {torch.__version__}, "
+            f"CUDA {torch.version.cuda}")
+        record["build"] = phase_build_kernels(rt)
+        phase_small_reference(rt, torch)
+        corpus, index, record["index"] = phase_build_index(rt, torch)
+        max_err = phase_kernels_vs_plain(rt, torch, index)
+        main_path, queries, classic = phase_main_path(rt, torch, corpus,
+                                                      index)
+        record["main_path"] = main_path
+        record["trace"] = phase_trace(
+            rt, torch, index, queries,
+            main_path["methods"]["lookup"]["p50_search_ms"])
+        record["kernels"] = phase_timings(rt, torch, index, classic, queries,
+                                          max_err, main_path["launches"])
+        torch.cuda.synchronize()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    record["seconds"] = time.perf_counter() - t_start
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    log(f"[done] {record['seconds']:.1f} s; measurements in "
+        f"{out_dir / 'chip_smoke.json'}")
+    print(record["card"])
+    print(json.dumps({"kernels": record["kernels"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

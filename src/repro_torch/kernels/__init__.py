@@ -1,0 +1,6 @@
+"""Scoring kernels: ``bitslice_score.py`` = the CUDA kernels' wrappers and
+their plain versions, ``ops.py`` = the public operations, ``ref.py`` = the
+plain oracles, ``_build.py`` = the nvcc build and ctypes binding."""
+from . import bitslice_score, ops, ref
+
+__all__ = ["bitslice_score", "ops", "ref"]

@@ -1,0 +1,230 @@
+"""Wrappers around the hand-written CUDA scoring kernels, each with its plain
+PyTorch version beside it.
+
+The query's per-term work is: fetch the term's bit-sliced row (W words =
+32W documents) and add each document's bit into its int32 count. Three
+CUDA kernels (``csrc/bitslice_score.cu``) carry the five Pallas entry
+points of ``repro.kernels.bitslice_score`` that the query path reaches:
+
+* ``unpack_score``   - shift-and-mask each word into 32 counts;
+* ``vertical_score`` - Harley-Seal counter planes, expanded once;
+* ``lookup_score``, ``lookup_score_blocks``, ``lookup_score_multi`` - one
+  fused gather + vertical count over [Q, nb, L] row indices.
+
+Each wrapper checks device, dtype (int32 words), shape and contiguity.
+For a CPU tensor it calls the plain version; for a CUDA tensor it launches
+the kernel on the current stream, or raises. ``launches[name]`` counts the
+kernel launches of each wrapper and nothing else.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+MAX_PLANES = 16                       # the kernels' counter-plane registers
+MAX_TERMS = (1 << MAX_PLANES) - 1     # the most terms 16 planes can count
+GRID_ORDERS = ("wq", "qw")
+
+launches: dict[str, int] = {"unpack_score": 0, "vertical_score": 0,
+                            "lookup_score": 0, "lookup_score_blocks": 0,
+                            "lookup_score_multi": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def num_planes(n_terms: int) -> int:
+    """Counter planes that hold counts up to n_terms."""
+    return max(1, int(n_terms).bit_length())
+
+
+# --------------------------------------------------------------------------
+# Checks shared by the wrappers
+# --------------------------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, ndims: tuple[int, ...]) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if t.dim() not in ndims:
+        raise ValueError(f"{name} must have {' or '.join(map(str, ndims))} "
+                         f"dimensions, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises for a mix or
+    for any other device."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("inputs lie on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {dev}")
+    return dev.type == "cuda"
+
+
+def _check_terms(L: int) -> None:
+    if L > MAX_TERMS:
+        raise ValueError(f"{L} terms exceed the {MAX_TERMS} that "
+                         f"{MAX_PLANES} counter planes hold")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# unpack and vertical: rows [L, W] or [B, L, W] -> [W, 32] or [B, W, 32]
+# --------------------------------------------------------------------------
+
+def unpack_score_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``unpack_score``: shift-and-mask into 32 counts."""
+    shifts = torch.arange(32, dtype=torch.int32, device=rows.device)
+    return ((rows[..., None] >> shifts) & 1).sum(dim=-3, dtype=torch.int32)
+
+
+def _ripple(planes: list[torch.Tensor], row: torch.Tensor) -> None:
+    carry = row
+    for j, p in enumerate(planes):
+        planes[j] = p ^ carry
+        carry = p & carry
+
+
+def _expand(planes: list[torch.Tensor]) -> torch.Tensor:
+    shifts = torch.arange(32, dtype=torch.int32, device=planes[0].device)
+    out = torch.zeros(planes[0].shape + (32,), dtype=torch.int32,
+                      device=planes[0].device)
+    for j, p in enumerate(planes):
+        out |= ((p[..., None] >> shifts) & 1) << j
+    return out
+
+
+def vertical_score_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``vertical_score``: ripple-carry each row into
+    ``num_planes(L)`` counter planes, then expand once."""
+    L = rows.shape[-2]
+    planes = [torch.zeros_like(rows[..., 0, :])
+              for _ in range(num_planes(L))]
+    for l in range(L):
+        _ripple(planes, rows[..., l, :])
+    return _expand(planes)
+
+
+def _rows_launch(name: str, symbol: str, rows: torch.Tensor, *extra: int
+                 ) -> torch.Tensor:
+    """Launch C entry point ``symbol`` on rows [L, W] or [B, L, W]."""
+    r3 = rows if rows.dim() == 3 else rows[None]
+    B, L, W = r3.shape
+    out = torch.empty((B, W, 32), dtype=torch.int32, device=rows.device)
+    if out.numel():
+        _build.launch(symbol, r3.data_ptr(), out.data_ptr(), B, L, W, *extra,
+                      rows.device.index or 0, _stream(rows.device))
+        launches[name] += 1
+    return out if rows.dim() == 3 else out[0]
+
+
+def unpack_score(rows: torch.Tensor) -> torch.Tensor:
+    """int32 [L, W] -> int32 [W, 32] per-bit counts (a leading batch axis
+    [B, L, W] gives [B, W, 32]). Replaces the Pallas ``unpack_score``."""
+    _check("rows", rows, (2, 3))
+    if not _on_cuda(rows):
+        return unpack_score_plain(rows)
+    return _rows_launch("unpack_score", "cobs_unpack", rows)
+
+
+def vertical_score(rows: torch.Tensor) -> torch.Tensor:
+    """int32 [L, W] -> int32 [W, 32] through vertical counters (a leading
+    batch axis [B, L, W] gives [B, W, 32]). Replaces the Pallas
+    ``vertical_score``. Takes at most MAX_TERMS rows."""
+    _check("rows", rows, (2, 3))
+    _check_terms(rows.shape[-2])
+    if not _on_cuda(rows):
+        return vertical_score_plain(rows)
+    return _rows_launch("vertical_score", "cobs_vertical", rows,
+                        num_planes(rows.shape[-2]))
+
+
+# --------------------------------------------------------------------------
+# fused lookup: arena [R, W], rows_idx / mask [..., L] -> [..., W, 32]
+# --------------------------------------------------------------------------
+
+def lookup_plain(arena: torch.Tensor, rows_idx: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``lookup_score``, ``lookup_score_blocks`` and
+    ``lookup_score_multi``: gather each term's row, zero it where mask is
+    0, ripple-carry into vertical counters over the last (term) axis, and
+    expand."""
+    L = rows_idx.shape[-1]
+    planes = [torch.zeros(rows_idx.shape[:-1] + (arena.shape[1],),
+                          dtype=torch.int32, device=arena.device)
+              for _ in range(num_planes(L))]
+    for l in range(L):
+        row = arena[rows_idx[..., l].long()]
+        _ripple(planes, torch.where(mask[..., l, None] != 0, row, 0))
+    return _expand(planes)
+
+
+def _lookup(name: str, arena: torch.Tensor, rows_idx: torch.Tensor,
+            mask: torch.Tensor, rank: int) -> torch.Tensor:
+    _check("arena", arena, (2,))
+    _check("rows_idx", rows_idx, (rank,))
+    _check("mask", mask, (rank,))
+    if mask.shape != rows_idx.shape:
+        raise ValueError(f"mask shape {tuple(mask.shape)} != rows_idx shape "
+                         f"{tuple(rows_idx.shape)}")
+    L = rows_idx.shape[-1]
+    _check_terms(L)
+    cuda = _on_cuda(arena, rows_idx, mask)
+    R, W = arena.shape
+    if rows_idx.numel():
+        lo, hi = torch.aminmax(rows_idx)
+        if int(lo) < 0 or int(hi) >= R:
+            raise IndexError(f"row indices [{int(lo)}, {int(hi)}] outside "
+                             f"the arena's {R} rows")
+    if not cuda:
+        return lookup_plain(arena, rows_idx, mask)
+    cells = rows_idx.shape[:-1].numel()
+    out = torch.empty(rows_idx.shape[:-1] + (W, 32), dtype=torch.int32,
+                      device=arena.device)
+    if out.numel():
+        _build.launch("cobs_lookup", arena.data_ptr(), rows_idx.data_ptr(),
+                      mask.data_ptr(), out.data_ptr(), cells, L, W,
+                      num_planes(L), arena.device.index or 0,
+                      _stream(arena.device))
+        launches[name] += 1
+    return out
+
+
+def lookup_score(arena: torch.Tensor, rows_idx: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Fused gather + score: arena int32 [R, W], rows_idx int32 [L],
+    mask int32 [L] -> int32 [W, 32]. Replaces the Pallas ``lookup_score``."""
+    return _lookup("lookup_score", arena, rows_idx, mask, 1)
+
+
+def lookup_score_blocks(arena: torch.Tensor, rows_idx: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """Multi-block fused gather + score: rows_idx, mask int32 [nb, L]
+    -> int32 [nb, W, 32]. Replaces the Pallas ``lookup_score_blocks``."""
+    return _lookup("lookup_score_blocks", arena, rows_idx, mask, 2)
+
+
+def lookup_score_multi(arena: torch.Tensor, rows_idx: torch.Tensor,
+                       mask: torch.Tensor, grid_order: str = "wq"
+                       ) -> torch.Tensor:
+    """Multi-query fused gather + score: rows_idx, mask int32 [Q, nb, L]
+    -> int32 [Q, nb, W, 32]. Replaces the Pallas ``lookup_score_multi``.
+
+    ``grid_order`` ('wq' or 'qw') is the autotuner's key for the TPU grid's
+    axis order; it is validated and has no effect here, where every
+    (query, block, word) item is its own thread."""
+    if grid_order not in GRID_ORDERS:
+        raise ValueError(f"unknown grid_order {grid_order!r}; "
+                         f"one of {GRID_ORDERS}")
+    return _lookup("lookup_score_multi", arena, rows_idx, mask, 3)
