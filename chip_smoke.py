@@ -19,7 +19,15 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    and ``top_k`` for each method, then a classic index and a two-hash
    compact index. All methods must agree, no positive query may miss its
    origin document, and each kernel must have been launched;
-5. traces 32 lookup searches with torch.profiler (device time per search,
+5. drives the out-of-core path ("[store]"), its launch counters from 0:
+   the corpus streamed into a raw cobs-jax-v2 store of 8 shards (blocks of
+   256 documents), opened with its hashes verified and searched through a
+   DeviceTileCache bounded at half the store's bytes and an unbounded one,
+   against the dense index; then a replicated collection (the first 256
+   documents, 8 copies each, blocks of 128) built rowdict-coded and raw,
+   searched with ``compressed=True`` through the fused-decode kernels
+   against the raw store. The store directories are deleted at the end;
+6. traces 32 lookup searches with torch.profiler (device time per search,
    the top device and host operations), and times each kernel at the main
    path's shapes beside its bound and its plain version.
 
@@ -31,6 +39,7 @@ line. Without CUDA, or outside a checkout, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,7 +67,18 @@ KERNELS = {
     "lookup_score_blocks": (208, "_lookup_blocks_kernel", "lookup_kernel"),
     "lookup_score_multi": (278, "_lookup_multi_kernel", "lookup_kernel"),
     "lookup_score": (836, "_lookup_kernel", "lookup_kernel"),
+    "lookup_score_multi_compressed": (537, "_lookup_multi_comp_kernel",
+                                      "lookup_comp_kernel"),
+    "lookup_score_blocks_compressed": (595, "_lookup_blocks_comp_kernel",
+                                       "lookup_comp_kernel"),
 }
+MAIN_KERNELS = ("unpack_score", "vertical_score", "lookup_score_blocks",
+                "lookup_score_multi", "lookup_score")
+OUT_DIR = ROOT / "chiprun_out"       # measurements; listed in .gitignore
+# the out-of-core path: stores under OUT_DIR, deleted at the end
+STORE_DIR = OUT_DIR / "smoke_stores"
+STORE_BLOCK_DOCS = 256          # 2048 documents -> 8 shards
+COMP_BASE, COMP_COPIES, COMP_BLOCK_DOCS = 256, 8, 128
 
 
 class SmokeFailure(Exception):
@@ -100,6 +120,23 @@ def same_result(a, b) -> bool:
 
 def same_results(xs, ys) -> bool:
     return len(xs) == len(ys) and all(map(same_result, xs, ys))
+
+
+class KernelCheck:
+    """Holds kernels against their plain versions on the card; ``err``
+    keeps the largest absolute difference seen per wrapper."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.err = {name: 0 for name in KERNELS}
+
+    def compare(self, name, got, want, what):
+        self.torch.cuda.synchronize()
+        diff = (int((got.long() - want.long()).abs().max())
+                if got.shape == want.shape and got.numel() else 0)
+        self.err[name] = max(self.err[name], diff)
+        check(got.shape == want.shape and self.torch.equal(got, want),
+              f"{name} != its plain version on {what}")
 
 
 # --------------------------------------------------------------------------
@@ -193,19 +230,13 @@ def phase_build_index(rt, torch):
     return corpus, index, info
 
 
-def phase_kernels_vs_plain(rt, torch, index) -> dict:
-    """Each kernel equals its plain version on the card. Returns the
-    largest absolute difference seen per wrapper (0 when they agree)."""
+def phase_kernels_vs_plain(rt, torch, index, chk: KernelCheck) -> None:
+    """Each kernel equals its plain version on the card, on rows drawn from
+    the compact index and on the shapes of the kernel tests (the
+    fused-decode kernels at their main path's shapes: ``phase_store``)."""
     k = rt.kernels
     g = torch.Generator().manual_seed(5)
-    err = {name: 0 for name in KERNELS}
-
-    def compare(name, got, want, what):
-        torch.cuda.synchronize()
-        diff = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        err[name] = max(err[name], diff)
-        check(got.shape == want.shape and torch.equal(got, want),
-              f"{name} != its plain version on {what}")
+    compare = chk.compare
 
     def words(*shape):
         return torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
@@ -259,14 +290,35 @@ def phase_kernels_vs_plain(rt, torch, index) -> dict:
             compare("lookup_score_multi",
                     k.lookup_score_multi(small, idx, mask, grid_order="qw"),
                     k.lookup_plain(small, idx, mask), f"W={W_} Q={Q}")
-    log(f"[kernels] every kernel equals its plain version: max_abs_err {err}")
-    return err
+    # the fused-decode kernels at the shapes of tests/test_compression.py:
+    # blocks of 128 documents (4 words), dictionaries of 31 and 155 rows
+    # over 88,064- and 3,584-row shards, 64-term buckets, batches of 6
+    for D, R in ((155, 3584), (31, 88064)):
+        dict_rows, refs = words(D, 4), torch.randint(
+            0, D, (R,), generator=g, dtype=torch.int32).to(DEV)
+        for (Q, nb, L) in ((1, 1, 64), (6, 1, 64), (5, 2, 64)):
+            idx = torch.randint(0, R, (Q, nb, L), generator=g,
+                                dtype=torch.int32).to(DEV)
+            mask = torch.randint(0, 2, (Q, nb, L), generator=g,
+                                 dtype=torch.int32).to(DEV)
+            compare("lookup_score_blocks_compressed",
+                    k.lookup_score_blocks_compressed(dict_rows, refs, idx[0],
+                                                     mask[0]),
+                    k.lookup_comp_plain(dict_rows, refs, idx[0], mask[0]),
+                    f"D={D} R={R} L={L}")
+            compare("lookup_score_multi_compressed",
+                    k.lookup_score_multi_compressed(dict_rows, refs, idx,
+                                                    mask),
+                    k.lookup_comp_plain(dict_rows, refs, idx, mask),
+                    f"D={D} R={R} Q={Q} nb={nb}")
+    log(f"[kernels] every kernel equals its plain version: max_abs_err "
+        f"{chk.err}")
 
 
-def run_method(rt, index, method, queries):
+def run_method(rt, index, method, queries, **engine_kw):
     """search, search_batch and top_k over the queries; returns results,
     single-search latencies (s) and batch seconds."""
-    engine = rt.QueryEngine(index, method=method)
+    engine = rt.QueryEngine(index, method=method, **engine_kw)
     engine.search(queries[0], THRESHOLD)             # first-use costs
     engine.search_batch(queries[:BATCH], THRESHOLD)
     lat, singles = [], []
@@ -297,7 +349,7 @@ def check_positives(results, origin, what: str, limit: int | None = None):
 def phase_main_path(rt, torch, corpus, index):
     """The main path, launch counters from 0: every method on the compact
     index, then the classic and two-hash indexes. Returns the record, the
-    queries and the classic index."""
+    queries, their origin documents and the classic index."""
     k = rt.kernels
     t0 = time.perf_counter()
     queries, origin = make_workload(rt.make_queries, corpus, N_QUERIES)
@@ -370,10 +422,259 @@ def phase_main_path(rt, torch, corpus, index):
     check(out["classic k=1"]["launches"]["lookup_score"] > 0,
           "the classic index launched no lookup_score")
     out["launches"] = dict(k.launches)
-    for name, n in out["launches"].items():
-        check(n > 0, f"the main path never launched {name}")
+    for name in MAIN_KERNELS:
+        check(out["launches"][name] > 0,
+              f"the main path never launched {name}")
     log(f"[main path] launches {out['launches']}")
-    return out, queries, extra["classic k=1"]
+    return out, queries, origin, extra["classic k=1"]
+
+
+# --------------------------------------------------------------------------
+# The out-of-core path: paged raw store, then the compressed arena
+# --------------------------------------------------------------------------
+
+def plan_lookup(rt, torch, term_sets, row_offset, block_width, n_hashes=1):
+    """Fused-lookup inputs of a batch of term sets against blocks
+    (row_offset, block_width), as the engine plans them: row indices
+    [Q, nb, L] and term masks [Q, nb, L], plus the rows [Q, L, k, nb]."""
+    buf, ells = rt.query.pad_term_batch(term_sets, 64)
+    terms = torch.from_numpy(buf.view(np.int32)).to(DEV)
+    h = rt.hashing.hash_terms(terms, n_hashes)
+    rows = rt.query.plan_rows(h, row_offset, block_width)
+    L = terms.shape[1]
+    valid = (torch.arange(L, device=DEV)[None, :]
+             < torch.from_numpy(ells).to(DEV)[:, None])
+    ridx = rows[:, :, 0, :].transpose(1, 2).contiguous()        # [Q, nb, L]
+    mask = valid.to(torch.int32)[:, None, :].expand(ridx.shape)
+    return ridx, mask.contiguous(), rows, valid
+
+
+def pct_ms(lat, p) -> float:
+    return float(np.percentile(lat, p)) * 1e3
+
+
+def phase_store(rt, torch, corpus, queries, origin, chk: KernelCheck):
+    """The out-of-core path with the launch counters from 0. Returns the
+    record, the launches of this path, and the fused-decode kernels'
+    timing inputs."""
+    k = rt.kernels
+    params = rt.IndexParams(1, 0.3, KMER)
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    out = {}
+    # -- the raw paged store and its dense twin -----------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, stats = rt.build_compact_streaming(
+        corpus.doc_terms, STORE_DIR / "raw", params,
+        block_docs=STORE_BLOCK_DOCS, blocks_per_shard=1, codec="raw")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = rt.load_index_v2(STORE_DIR / "raw", verify=True)
+    verify_s = time.perf_counter() - t0
+    st = index.storage
+    check(st.n_shards == 8, f"the raw store has {st.n_shards} shards, not 8")
+    check(stats.peak_block_bytes <= stats.max_shard_bytes,
+          f"streaming build held {stats.peak_block_bytes} bytes at once, "
+          f"more than one shard's {stats.max_shard_bytes}")
+    dense = rt.build_compact(corpus.doc_terms, params,
+                             block_docs=STORE_BLOCK_DOCS)
+    check(np.array_equal(st.full_host(), dense.storage.full_host()),
+          "the streamed store's arena != the dense build's")
+    shard_bytes = [st.shard_nbytes(s) for s in range(st.n_shards)]
+    out["raw_store"] = {
+        "shards": st.n_shards, "shard_bytes": shard_bytes,
+        "store_bytes": st.nbytes(), "build_s": build_s,
+        "open_verify_s": verify_s, "stats": vars(stats)}
+    log(f"[store:raw] {st.n_shards} shards of {shard_bytes} bytes "
+        f"({st.nbytes()} in all); streamed build {build_s:.2f} s (peak "
+        f"{stats.peak_block_bytes} block bytes), open + verify "
+        f"{verify_s:.2f} s; arena equals the dense build")
+    # the dense engine's answers, before the counters start
+    want = {}
+    for method in METHODS:
+        n = N_QUERIES if method in ("lookup", "vertical") else BATCH
+        singles, batched, tops, _, _ = run_method(rt, dense, method,
+                                                  queries[:n])
+        want[method] = (singles, batched, tops)
+
+    k.reset_launches()                      # the store path starts here
+    cap = st.nbytes() // 2
+    out["paged"] = {"capacity_bytes": cap}
+    for label, make_cache in (
+            ("bounded", lambda: rt.DeviceTileCache(st, capacity_bytes=cap)),
+            ("unbounded", lambda: rt.DeviceTileCache(st))):
+        for method in METHODS:
+            if label == "unbounded" and method not in ("lookup", "vertical"):
+                continue
+            n = len(want[method][0])
+            tiles = make_cache()
+            staged = []
+            tiles.observer = (lambda s, e, secs: staged.append(secs)
+                              if e in ("fault", "prefetch") else None)
+            singles, batched, tops, lat, _ = run_method(
+                rt, index, method, queries[:n], tile_cache=tiles)
+            check(same_results(singles, want[method][0])
+                  and same_results(batched, want[method][1])
+                  and same_results(tops, want[method][2]),
+                  f"paged {label} {method} != the dense engine")
+            check_positives(singles, origin[:n], f"paged {method}")
+            m = {"queries": n, "p50_search_ms": pct_ms(lat, 50),
+                 "p99_search_ms": pct_ms(lat, 99), "faults": tiles.faults,
+                 "hits": tiles.hits, "evictions": tiles.evictions,
+                 "prefetch_hits": tiles.prefetch_hits,
+                 "raw_bytes_staged": tiles.raw_bytes_staged,
+                 "host_staging_s": sum(staged)}
+            if label == "bounded":
+                check(tiles.faults > st.n_shards and tiles.evictions > 0
+                      and tiles.prefetch_hits > 0,
+                      f"bounded cache {method}: faults {tiles.faults}, "
+                      f"evictions {tiles.evictions}, prefetch hits "
+                      f"{tiles.prefetch_hits}")
+            out["paged"][f"{label} {method}"] = m
+            log(f"[store:{label}] {method}: {n} queries equal the dense "
+                f"engine; p50 {m['p50_search_ms']:.3f} ms, p99 "
+                f"{m['p99_search_ms']:.3f} ms a search; {tiles.faults} "
+                f"faults, {tiles.evictions} evictions, "
+                f"{tiles.prefetch_hits} prefetch hits, "
+                f"{tiles.raw_bytes_staged} bytes staged in "
+                f"{m['host_staging_s']:.3f} s of host staging")
+    b = out["paged"]["bounded lookup"]
+    # -- the compressed arena: a replicated collection ----------------------
+    rep_terms = [corpus.doc_terms[i % COMP_BASE]
+                 for i in range(COMP_BASE * COMP_COPIES)]
+    t0 = time.perf_counter()
+    comp, cstats = rt.build_compact_streaming(
+        rep_terms, STORE_DIR / "rowdict", params,
+        block_docs=COMP_BLOCK_DOCS, codec="rowdict")
+    comp_build_s = time.perf_counter() - t0
+    raw, _ = rt.build_compact_streaming(
+        rep_terms, STORE_DIR / "rep-raw", params,
+        block_docs=COMP_BLOCK_DOCS, codec="raw")
+    cst = comp.storage
+    codecs = [cst.shard_codec(s) for s in range(cst.n_shards)]
+    dict_shards = [s for s, c in enumerate(codecs)
+                   if c in rt.codec.DICT_CODECS]
+    check(len(dict_shards) >= 1,
+          f"no rowdict shard at {COMP_COPIES} copies: {codecs}")
+    check(np.array_equal(cst.full_host(), raw.storage.full_host()),
+          "the rowdict store decodes to another arena than the raw store")
+    out["comp_store"] = {
+        "shards": cst.n_shards, "codecs": codecs,
+        "dict_ratio": cst.dict_ratio(), "comp_summary": cst.comp_summary(),
+        "build_s": comp_build_s, "stats": vars(cstats)}
+    log(f"[store:comp] {COMP_BASE} documents x {COMP_COPIES} copies, "
+        f"{cst.n_shards} shards: {len(dict_shards)} rowdict, "
+        f"{cst.n_shards - len(dict_shards)} raw; device-form ratio "
+        f"{cst.dict_ratio():.3f}; rowdict build {comp_build_s:.2f} s")
+    for method in ("lookup", "vertical"):
+        singles, batched, tops, lat, _ = run_method(
+            rt, comp, method, queries, compressed=True)
+        r_singles, r_batched, r_tops, r_lat, _ = run_method(
+            rt, raw, method, queries)
+        check(same_results(singles, r_singles)
+              and same_results(batched, r_batched)
+              and same_results(tops, r_tops),
+              f"compressed {method} != the raw store")
+        n_pos = check_positives(singles, origin, f"compressed {method}",
+                                limit=COMP_BASE)
+        engine = rt.QueryEngine(comp, method=method, compressed=True)
+        check(engine.compressed, "compressed=True left the flag off")
+        for q in queries[:8]:
+            sc = engine.score_terms(rt.query.compile_pattern(q, params))
+            copies = sc.reshape(COMP_COPIES, COMP_BASE)
+            check(bool((copies == copies[0]).all()),
+                  "copies of a document got different scores")
+        tiles = engine.tiles
+        raw_want = sum(cst.shard_nbytes(s) for s in range(cst.n_shards)
+                       if s not in dict_shards)
+        check(tiles.comp_bytes_staged > 0, "no compressed bytes staged")
+        check(tiles.raw_bytes_staged == raw_want,
+              f"raw bytes staged {tiles.raw_bytes_staged} != the raw "
+              f"shards' {raw_want}: a dict-coded shard was staged raw")
+        raw_tiles = rt.QueryEngine(raw, method=method)
+        raw_tiles.search_batch(queries[:BATCH], THRESHOLD)
+        m = {"p50_search_ms": pct_ms(lat, 50),
+             "p99_search_ms": pct_ms(lat, 99),
+             "raw_store_p50_search_ms": pct_ms(r_lat, 50),
+             "comp_bytes_staged": tiles.comp_bytes_staged,
+             "raw_bytes_staged": tiles.raw_bytes_staged,
+             "raw_store_raw_bytes_staged": raw_tiles.tiles.raw_bytes_staged}
+        out["comp_store"][method] = m
+        log(f"[store:comp] {method}: {len(queries)} queries equal the raw "
+            f"store, {n_pos} positives all found; copies score alike; p50 "
+            f"{m['p50_search_ms']:.3f} ms (raw store "
+            f"{m['raw_store_p50_search_ms']:.3f} ms); staged "
+            f"{m['comp_bytes_staged']} compressed + {m['raw_bytes_staged']}"
+            f" raw bytes against the raw store's "
+            f"{m['raw_store_raw_bytes_staged']}")
+    launches = dict(k.launches)             # the store path ends here
+    out["launches"] = launches
+    for name in ("lookup_score", "lookup_score_multi", "vertical_score",
+                 "unpack_score", "lookup_score_blocks_compressed",
+                 "lookup_score_multi_compressed"):
+        check(launches[name] > 0, f"the store path never launched {name}")
+    log(f"[store] launches {launches}")
+
+    # -- host-to-device per fault, each shard cold and synchronised ---------
+    fault = []
+    for s in range(st.n_shards):
+        tiles = rt.DeviceTileCache(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tiles.get(s)
+        torch.cuda.synchronize()
+        fault.append((shard_bytes[s], time.perf_counter() - t0))
+    out["h2d_per_fault"] = {
+        "bytes": [f[0] for f in fault], "seconds": [f[1] for f in fault],
+        "bytes_per_s": sum(f[0] for f in fault) / sum(f[1] for f in fault),
+        "bounded_lookup_bytes_per_fault": b["raw_bytes_staged"] / b["faults"],
+        "bounded_lookup_host_s_per_fault":
+            b["host_staging_s"] / b["faults"]}
+    h2d = out["h2d_per_fault"]
+    log(f"[store:h2d] a cold fault, synchronised: "
+        f"{h2d['bytes_per_s'] / 1e9:.2f} GB/s over the 8 shards "
+        f"({fault[-1][0]} bytes in {fault[-1][1] * 1e3:.2f} ms for the "
+        f"largest); bounded lookup run: "
+        f"{h2d['bounded_lookup_bytes_per_fault']:.0f} bytes and "
+        f"{h2d['bounded_lookup_host_s_per_fault'] * 1e3:.3f} ms of host "
+        f"staging a fault")
+
+    # -- the fused-decode kernels against their plain versions --------------
+    s_big = max(dict_shards, key=cst.shard_nbytes)
+    lookup = rt.QueryEngine(comp, method="lookup", compressed=True)
+    dict_rows, refs = lookup.tiles.get_compressed(s_big)
+    _, offs, widths = lookup._shard_args[s_big]
+    term_sets = [rt.query.compile_pattern(q, params) for q in queries]
+    long_sets = [t for t in term_sets if t.shape[0] > 256][:BATCH]
+    singles = [plan_lookup(rt, torch, [t], offs, widths)[:2]
+               for t in long_sets]
+    batch = plan_lookup(rt, torch, term_sets[:BATCH], offs, widths)[:2]
+    expanded = dict_rows[refs.long()].contiguous()
+    for ridx, msk in singles[:4]:
+        chk.compare("lookup_score_blocks_compressed",
+                    k.lookup_score_blocks_compressed(dict_rows, refs,
+                                                     ridx[0], msk[0]),
+                    k.lookup_comp_plain(dict_rows, refs, ridx[0], msk[0]),
+                    f"shard {s_big}, L={ridx.shape[-1]}")
+        chk.compare("lookup_score_blocks_compressed",
+                    k.lookup_score_blocks_compressed(dict_rows, refs,
+                                                     ridx[0], msk[0]),
+                    k.lookup_score_blocks(expanded, ridx[0], msk[0]),
+                    f"the raw kernel on shard {s_big}'s expanded tile")
+    chk.compare("lookup_score_multi_compressed",
+                k.lookup_score_multi_compressed(dict_rows, refs, *batch),
+                k.lookup_comp_plain(dict_rows, refs, *batch),
+                f"the first batch of {BATCH} on shard {s_big}")
+    chk.compare("lookup_score_multi_compressed",
+                k.lookup_score_multi_compressed(dict_rows, refs, *batch),
+                k.lookup_score_multi(expanded, *batch),
+                f"the raw kernel on shard {s_big}'s expanded tile")
+    log(f"[store:kernels] the fused-decode kernels equal their plain "
+        f"versions and the raw kernel on the expanded tile of shard {s_big}"
+        f" (dict {list(dict_rows.shape)}, refs [{refs.shape[0]}])")
+    comp_inputs = {"dict_rows": dict_rows, "refs": refs, "shard": s_big,
+                   "singles": singles, "batch": batch}
+    return out, launches, comp_inputs
 
 
 # --------------------------------------------------------------------------
@@ -455,22 +756,68 @@ def loop_ms(torch, calls, rounds: int = 5) -> float:
     return statistics.median(per)
 
 
-def profiled_kernel_ms(torch, calls, kernel_name: str) -> float | None:
-    """Mean device time of ``kernel_name`` over the calls, from
-    torch.profiler; None when the profiler sees no device time."""
+def profiled_kernel_ms(torch, calls, kernel_name: str
+                       ) -> tuple[float | None, int, dict]:
+    """Mean device time of ``kernel_name`` over the kernel records
+    torch.profiler delivers for the calls (None when it delivers none),
+    the number of those records (a session may lose a few of them), and
+    the count of every device event name the session saw."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         for c in calls:
             c()
         torch.cuda.synchronize()
-    times = [ev.time_range.elapsed_us() for ev in prof.events()
-             if kernel_name in ev.name and str(ev.device_type).endswith("CUDA")]
-    return sum(times) / len(times) / 1e3 if times else None
+    seen, times = {}, []
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CUDA"):
+            seen[ev.name] = seen.get(ev.name, 0) + 1
+            if kernel_name in ev.name:
+                times.append(ev.time_range.elapsed_us())
+    return ((sum(times) / len(times) / 1e3 if times else None), len(times),
+            seen)
 
 
-def phase_timings(rt, torch, index, classic, queries, max_err, launches
-                  ) -> list[dict]:
+def lookup_case(torch, k, lib, name, what, src, rows, refs=None):
+    """A timing case of a fused lookup over ``src`` = [(ridx, mask)]
+    against ``rows`` (the arena, or with ``refs`` a rowdict dictionary):
+    (name, shape, direct launches, plain call, bytes, operations). The
+    bytes are each index and mask read once, one row (and with refs one
+    4-byte refs entry) per counted term, and the counts written."""
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    W = rows.shape[1]
+    calls = []
+    for ridx, msk in src:
+        cells, L = ridx.numel() // ridx.shape[-1], ridx.shape[-1]
+        o = torch.empty(ridx.shape[:-1] + (W, 32), dtype=torch.int32,
+                        device=DEV)
+        head = ((rows.data_ptr(),) if refs is None
+                else (rows.data_ptr(), refs.data_ptr()))
+        fn = lib.cobs_lookup if refs is None else lib.cobs_lookup_comp
+        calls.append(lambda f=fn, h=head, r=ridx, m=msk, o=o, c=cells, L=L:
+                     f(*h, r.data_ptr(), m.data_ptr(), o.data_ptr(), c, L, W,
+                       k.num_planes(L), dev, stream))
+    ridx, msk = src[0]
+    L = ridx.shape[-1]
+    cells = ridx.numel() // L
+    active = int(msk.count_nonzero())
+    planes = k.num_planes(L)
+    if refs is None:
+        plain = lambda: k.lookup_plain(rows, ridx, msk)
+        shape = f"{what} = {list(ridx.shape)}, arena {list(rows.shape)}"
+    else:
+        plain = lambda: k.lookup_comp_plain(rows, refs, ridx, msk)
+        shape = (f"{what} = {list(ridx.shape)}, dict {list(rows.shape)}, "
+                 f"refs [{refs.shape[0]}]")
+    nbytes = (ridx.numel() * 8 + active * W * 4 + cells * W * 32 * 4
+              + (active * 4 if refs is not None else 0))
+    return (name, shape, calls, plain, nbytes,
+            2 * planes * (active * W + cells * W * 32))
+
+
+def phase_timings(rt, torch, index, classic, queries, max_err, launches,
+                  comp) -> list[dict]:
     k = rt.kernels
     q_mod = rt.query
     lib = rt.build.library()
@@ -480,17 +827,11 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches
 
     def plan(idx, term_sets):
         """Main-path inputs of a batch of term sets on ``idx``."""
-        buf, ells = q_mod.pad_term_batch(term_sets, 64)
-        terms = torch.from_numpy(buf.view(np.int32)).to(DEV)
-        h = rt.hashing.hash_terms(terms, idx.params.n_hashes)
-        rows = q_mod.plan_rows(h, idx.row_offset, idx.block_width)
-        L = terms.shape[1]
-        valid = (torch.arange(L, device=DEV)[None, :]
-                 < torch.from_numpy(ells).to(DEV)[:, None])
-        ridx = rows[:, :, 0, :].transpose(1, 2).contiguous()    # [Q, nb, L]
-        mask = valid.to(torch.int32)[:, None, :].expand(ridx.shape)
+        ridx, mask, rows, valid = plan_lookup(
+            rt, torch, term_sets, idx.row_offset, idx.block_width,
+            idx.params.n_hashes)
         flat = q_mod.gather_rows(idx.storage.full_device(), rows, valid)
-        return ridx, mask.contiguous(), flat.contiguous()
+        return ridx, mask, flat.contiguous()
 
     # the longest bucket: 320-bp queries pad to 320 terms
     term_sets = [q_mod.compile_pattern(q, index.params) for q in queries]
@@ -498,9 +839,6 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches
     singles = [plan(index, [t]) for t in long_sets]
     batch_idx, batch_mask, _ = plan(index, term_sets[:BATCH])
     classic_singles = [plan(classic, [t]) for t in long_sets]
-
-    def row_bytes(mask, W):
-        return int(mask.count_nonzero()) * W * 4
 
     cases = []
     W = arena.shape[1]
@@ -514,7 +852,9 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches
         outs = [torch.empty((1, Wf, 32), dtype=torch.int32, device=DEV)
                 for _ in flats]
         extra = (k.num_planes(L),) if name == "vertical_score" else ()
-        calls = [(lambda f=f, o=o: getattr(lib, sym)(
+        # bind sym and extra now: a late-bound closure would launch the
+        # last loop iteration's kernel for every case
+        calls = [(lambda f=f, o=o, fn=getattr(lib, sym), extra=extra: fn(
             f.data_ptr(), o.data_ptr(), 1, L, Wf, *extra, dev, stream))
             for f, o in zip(flats, outs)]
         planes = k.num_planes(L)
@@ -523,35 +863,24 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches
         cases.append((name, f"rows [{L}, {Wf}]", calls,
                       lambda p=plain, f=flats[0]: p(f),
                       L * Wf * 4 + Wf * 32 * 4, ops))
-    # fused lookups on the compact index (single and batch) and the classic
-    for name, src, shape_of in (
-            ("lookup_score_blocks", [(s[0][0], s[1][0]) for s in singles],
-             "idx [nb, L]"),
-            ("lookup_score_multi", [(batch_idx, batch_mask)], "idx [Q, nb, L]"),
-            ("lookup_score", [(s[0][0, 0], s[1][0, 0])
-                              for s in classic_singles], "idx [L]")):
-        ar = classic.storage.full_device() if name == "lookup_score" else arena
-        Wa = ar.shape[1]
-        calls = []
-        for ridx, msk in src:
-            cells, L = ridx.numel() // ridx.shape[-1], ridx.shape[-1]
-            o = torch.empty(ridx.shape[:-1] + (Wa, 32), dtype=torch.int32,
-                            device=DEV)
-            calls.append(lambda r=ridx, m=msk, o=o, c=cells, L=L:
-                         lib.cobs_lookup(ar.data_ptr(), r.data_ptr(),
-                                         m.data_ptr(), o.data_ptr(), c, L, Wa,
-                                         k.num_planes(L), dev, stream))
-        ridx, msk = src[0]
-        L = ridx.shape[-1]
-        cells = ridx.numel() // L
-        active = int(msk.count_nonzero())
-        planes = k.num_planes(L)
-        cases.append((name, f"{shape_of} = {list(ridx.shape)}, arena "
-                      f"{list(ar.shape)}", calls,
-                      lambda r=ridx, m=msk, a=ar: k.lookup_plain(a, r, m),
-                      ridx.numel() * 8 + row_bytes(msk, Wa)
-                      + cells * Wa * 32 * 4,
-                      2 * planes * (active * Wa + cells * Wa * 32)))
+    # fused lookups on the compact index (single and batch), the classic
+    # index, and a rowdict shard of the compressed store
+    cases += [
+        lookup_case(torch, k, lib, "lookup_score_blocks", "idx [nb, L]",
+                    [(s[0][0], s[1][0]) for s in singles], arena),
+        lookup_case(torch, k, lib, "lookup_score_multi", "idx [Q, nb, L]",
+                    [(batch_idx, batch_mask)], arena),
+        lookup_case(torch, k, lib, "lookup_score", "idx [L]",
+                    [(s[0][0, 0], s[1][0, 0]) for s in classic_singles],
+                    classic.storage.full_device()),
+        lookup_case(torch, k, lib, "lookup_score_blocks_compressed",
+                    "idx [nb, L]",
+                    [(r[0], m[0]) for r, m in comp["singles"]],
+                    comp["dict_rows"], comp["refs"]),
+        lookup_case(torch, k, lib, "lookup_score_multi_compressed",
+                    "idx [Q, nb, L]", [comp["batch"]], comp["dict_rows"],
+                    comp["refs"]),
+    ]
     profiled_kernel_ms(torch, cases[0][2][:1], "")   # the profiler's first use
     out = []
     for name, shape, calls, plain, nbytes, nops in cases:
@@ -562,7 +891,10 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches
         reps = calls * max(1, 256 // len(calls))
         ev = loop_ms(torch, reps)
         line, body, symbol = KERNELS[name]
-        prof = profiled_kernel_ms(torch, reps, symbol)
+        prof, n_records, seen = profiled_kernel_ms(torch, reps, symbol)
+        if prof is None:
+            log(f"[time] {name}: the profiler saw no {symbol} among the "
+                f"device events {seen}")
         plain_ms = event_ms(torch, plain, 7)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / INT32_OPS_PER_S * 1e3
@@ -574,15 +906,18 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches
             "ms": prof if prof is not None else ev,
             "ms_source": "torch.profiler" if prof is not None
                          else "cuda events",
+            "profiler_records": n_records, "profiled_launches": len(reps),
             "loop_ms": ev, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "operations": nops, "shape": shape,
             "library_ms": None,
+            "profiler_device_events": None if prof is not None else seen,
         }
         out.append(rec)
         log(f"[time] {name} at {shape}: kernel {rec['ms'] * 1e3:.2f} us "
-            f"({rec['ms_source']}), back-to-back {ev * 1e3:.2f} us/launch, "
+            f"({rec['ms_source']}, {n_records} of {len(reps)} launches "
+            f"recorded), back-to-back {ev * 1e3:.2f} us/launch, "
             f"plain {plain_ms * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.4f}"
             f" us ({rec['bound_by']}: {nbytes} bytes, {nops} ops)")
     log("[time] library_ms is null: no single PyTorch call computes these "
@@ -603,13 +938,19 @@ class _Port:
     """The port's modules, imported once src is on the path."""
 
     def __init__(self):
-        from repro_torch.core import (IndexParams, QueryEngine, build_classic,
-                                      build_compact, hashing, query)
+        from repro_torch.core import (DeviceTileCache, IndexParams,
+                                      QueryEngine, build_classic,
+                                      build_compact, codec, hashing,
+                                      load_index_v2, query)
         from repro_torch.data import make_corpus, make_queries
+        from repro_torch.index import build_compact_streaming
         from repro_torch.kernels import _build, bitslice_score
         self.IndexParams, self.QueryEngine = IndexParams, QueryEngine
         self.build_classic, self.build_compact = build_classic, build_compact
-        self.hashing, self.query = hashing, query
+        self.hashing, self.query, self.codec = hashing, query, codec
+        self.DeviceTileCache, self.load_index_v2 = DeviceTileCache, \
+            load_index_v2
+        self.build_compact_streaming = build_compact_streaming
         self.make_corpus, self.make_queries = make_corpus, make_queries
         self.build, self.kernels = _build, bitslice_score
 
@@ -636,25 +977,33 @@ def main() -> int:
         record["build"] = phase_build_kernels(rt)
         phase_small_reference(rt, torch)
         corpus, index, record["index"] = phase_build_index(rt, torch)
-        max_err = phase_kernels_vs_plain(rt, torch, index)
-        main_path, queries, classic = phase_main_path(rt, torch, corpus,
-                                                      index)
+        chk = KernelCheck(torch)
+        phase_kernels_vs_plain(rt, torch, index, chk)
+        main_path, queries, origin, classic = phase_main_path(
+            rt, torch, corpus, index)
         record["main_path"] = main_path
+        try:
+            record["store"], store_launches, comp = phase_store(
+                rt, torch, corpus, queries, origin, chk)
+        finally:
+            shutil.rmtree(STORE_DIR, ignore_errors=True)
         record["trace"] = phase_trace(
             rt, torch, index, queries,
             main_path["methods"]["lookup"]["p50_search_ms"])
+        # each kernel's launches on the two paths that drive it
+        launches = {n: main_path["launches"][n] + store_launches[n]
+                    for n in KERNELS}
         record["kernels"] = phase_timings(rt, torch, index, classic, queries,
-                                          max_err, main_path["launches"])
+                                          chk.err, launches, comp)
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     record["seconds"] = time.perf_counter() - t_start
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     log(f"[done] {record['seconds']:.1f} s; measurements in "
-        f"{out_dir / 'chip_smoke.json'}")
+        f"{OUT_DIR / 'chip_smoke.json'}")
     print(record["card"])
     print(json.dumps({"kernels": record["kernels"]}))
     print(json.dumps({"ok": True, "device": {

@@ -14,17 +14,24 @@ for term t in block b is
 The index is a pair (``ArenaLayout`` metadata, ``ArenaStorage`` words) plus
 the Bloom parameters, as in ``repro.core.index``. The build hashes, scatters
 and packs on the index's device.
+
+Two on-disk formats: ``cobs-jax-v1`` (a JSON manifest and one compressed
+npz; loading reads the whole arena) and ``cobs-jax-v2`` (one ``.npy`` per
+block group, ``core.store``; loading maps it). ``save_index`` writes v1
+unless asked for v2, and ``load_index`` reads either.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from . import bloom, theory
-from .arena import ArenaLayout, ArenaStorage, DeviceArena
+from .arena import ArenaLayout, ArenaStorage, DeviceArena, MappedArena
 
 DEFAULT_FPR = 0.3      # paper section 2.1: a high FPR is optimal here
 DEFAULT_HASHES = 1     # paper: k = 1 minimizes cache faults / IOs
@@ -219,3 +226,110 @@ def index_from_numpy(arena_u32: np.ndarray, row_offset, block_width,
     storage = DeviceArena(
         torch.from_numpy(arena.view(np.int32)).to(resolve_device(device)))
     return BitSlicedIndex(layout, storage, IndexParams.from_json(params))
+
+
+def merge_classic(a: BitSlicedIndex, b: BitSlicedIndex) -> BitSlicedIndex:
+    """Merge two classic indexes built with identical parameters and widths
+    (paper section 2.3). Documents concatenate along the word axis, so the
+    merged arena is rebuilt dense from the sources' host shards, on
+    ``a``'s device."""
+    if a.n_blocks != 1 or b.n_blocks != 1:
+        raise ValueError("merge_classic only merges classic (single-block) "
+                         "indexes")
+    if int(a.layout.block_width[0]) != int(b.layout.block_width[0]) \
+            or a.params != b.params:
+        raise ValueError("parameter mismatch")
+    arena = np.concatenate([np.asarray(a.storage.full_host()),
+                            np.asarray(b.storage.full_host())], axis=1)
+    layout = ArenaLayout.make(
+        a.layout.row_offset, a.layout.block_width,
+        np.concatenate([a.layout.doc_slot,
+                        b.layout.doc_slot + a.block_docs]),
+        np.concatenate([a.layout.doc_n_terms, b.layout.doc_n_terms]),
+        a.block_docs + b.block_docs, a.n_docs + b.n_docs)
+    storage = DeviceArena(torch.from_numpy(
+        np.ascontiguousarray(arena, dtype=np.uint32).view(np.int32)
+    ).to(a.device))
+    return BitSlicedIndex(layout, storage, a.params)
+
+
+def merge_compact_layout(a: ArenaLayout, b: ArenaLayout) -> ArenaLayout:
+    """Metadata half of the compact merge: blocks append along the row
+    axis, b's slots shift by a's slot capacity."""
+    if a.block_docs != b.block_docs:
+        raise ValueError("block_docs mismatch")
+    return ArenaLayout.make(
+        np.concatenate([a.row_offset, b.row_offset + a.total_rows]),
+        np.concatenate([a.block_width, b.block_width]),
+        np.concatenate([a.doc_slot, b.doc_slot + a.n_slots]),
+        np.concatenate([a.doc_n_terms, b.doc_n_terms]),
+        a.block_docs, a.n_docs + b.n_docs)
+
+
+def merge_compact(a: BitSlicedIndex, b: BitSlicedIndex) -> BitSlicedIndex:
+    """Merge two compact indexes without rebuilding: the merged index is
+    the two block lists back to back; b's slots shift by a's slot
+    capacity. Two dense device arenas concatenate on ``a``'s device; any
+    other storage merges as an O(metadata) shard-list concatenation
+    (``MappedArena.concat``) that reads no arena bytes."""
+    if a.params != b.params:
+        raise ValueError("parameter mismatch")
+    layout = merge_compact_layout(a.layout, b.layout)
+    if isinstance(a.storage, DeviceArena) and \
+            isinstance(b.storage, DeviceArena):
+        storage: ArenaStorage = DeviceArena(torch.cat(
+            [a.storage.full_device(), b.storage.full_device().to(a.device)],
+            dim=0))
+    else:
+        storage = MappedArena.concat(a.storage, b.storage)
+    return BitSlicedIndex(layout, storage, a.params)
+
+
+def save_index(index: BitSlicedIndex, path: str | Path, *,
+               version: int = 1, blocks_per_shard: int = 1) -> None:
+    """Write ``index`` as a v1 directory (default) or, with ``version=2``,
+    as a v2 shard store."""
+    if version == 2:
+        from . import store
+        store.save_index_v2(index, path, blocks_per_shard=blocks_per_shard)
+        return
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(
+        path / "index.npz",
+        arena=np.asarray(index.storage.full_host(), dtype=np.uint32),
+        row_offset=index.layout.row_offset,
+        block_width=index.layout.block_width,
+        doc_slot=index.layout.doc_slot,
+        doc_n_terms=index.layout.doc_n_terms,
+    )
+    manifest = {
+        "format": "cobs-jax-v1",
+        "block_docs": index.block_docs,
+        "n_docs": index.n_docs,
+        "params": index.params.to_json(),
+    }
+    (path / "manifest.json").write_text(json.dumps(manifest, indent=2))
+
+
+def load_index(path: str | Path, device=None) -> BitSlicedIndex:
+    """Open a v1 or v2 index directory; its arena (v1) or tiles (v2) go to
+    ``device`` (None = the CUDA card)."""
+    path = Path(path)
+    manifest = json.loads((path / "manifest.json").read_text())
+    fmt = manifest.get("format")
+    if fmt == "cobs-jax-v2":
+        from . import store
+        return store.load_index_v2(path, device=device)
+    if fmt != "cobs-jax-v1":
+        raise ValueError(f"unknown index format in {path}")
+    dev = resolve_device(device)
+    with np.load(path / "index.npz") as z:
+        layout = ArenaLayout.make(
+            z["row_offset"], z["block_width"], z["doc_slot"],
+            z["doc_n_terms"], int(manifest["block_docs"]),
+            int(manifest["n_docs"]))
+        arena = np.ascontiguousarray(z["arena"], dtype=np.uint32)
+    return BitSlicedIndex(
+        layout, DeviceArena(torch.from_numpy(arena.view(np.int32)).to(dev)),
+        IndexParams.from_json(manifest["params"]))

@@ -31,6 +31,8 @@ _SIGNATURES = {
     "cobs_vertical": (_P, _P, _I, _I, _I, _I, _I, _P),
     # arena, idx, mask, out, cells, L, W, n_planes, device, stream
     "cobs_lookup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dict, refs, idx, mask, out, cells, L, W, n_planes, device, stream
+    "cobs_lookup_comp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

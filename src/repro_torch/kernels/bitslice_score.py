@@ -2,14 +2,17 @@
 PyTorch version beside it.
 
 The query's per-term work is: fetch the term's bit-sliced row (W words =
-32W documents) and add each document's bit into its int32 count. Three
-CUDA kernels (``csrc/bitslice_score.cu``) carry the five Pallas entry
+32W documents) and add each document's bit into its int32 count. Four
+CUDA kernels (``csrc/bitslice_score.cu``) carry the seven Pallas entry
 points of ``repro.kernels.bitslice_score`` that the query path reaches:
 
 * ``unpack_score``   - shift-and-mask each word into 32 counts;
 * ``vertical_score`` - Harley-Seal counter planes, expanded once;
 * ``lookup_score``, ``lookup_score_blocks``, ``lookup_score_multi`` - one
-  fused gather + vertical count over [Q, nb, L] row indices.
+  fused gather + vertical count over [Q, nb, L] row indices;
+* ``lookup_score_blocks_compressed``, ``lookup_score_multi_compressed`` -
+  the same over a rowdict pair, reading row r as ``dict[refs[r]]``
+  without expanding the tile.
 
 Each wrapper checks device, dtype (int32 words), shape and contiguity.
 For a CPU tensor it calls the plain version; for a CUDA tensor it launches
@@ -28,7 +31,9 @@ GRID_ORDERS = ("wq", "qw")
 
 launches: dict[str, int] = {"unpack_score": 0, "vertical_score": 0,
                             "lookup_score": 0, "lookup_score_blocks": 0,
-                            "lookup_score_multi": 0}
+                            "lookup_score_multi": 0,
+                            "lookup_score_blocks_compressed": 0,
+                            "lookup_score_multi_compressed": 0}
 
 
 def reset_launches() -> None:
@@ -170,23 +175,35 @@ def lookup_plain(arena: torch.Tensor, rows_idx: torch.Tensor,
     return _expand(planes)
 
 
-def _lookup(name: str, arena: torch.Tensor, rows_idx: torch.Tensor,
-            mask: torch.Tensor, rank: int) -> torch.Tensor:
-    _check("arena", arena, (2,))
+def _check_indices(rows_idx: torch.Tensor, mask: torch.Tensor, rank: int
+                   ) -> None:
+    """idx and mask: int32 of ``rank`` dimensions and one shape, at most
+    MAX_TERMS terms."""
     _check("rows_idx", rows_idx, (rank,))
     _check("mask", mask, (rank,))
     if mask.shape != rows_idx.shape:
         raise ValueError(f"mask shape {tuple(mask.shape)} != rows_idx shape "
                          f"{tuple(rows_idx.shape)}")
-    L = rows_idx.shape[-1]
-    _check_terms(L)
-    cuda = _on_cuda(arena, rows_idx, mask)
-    R, W = arena.shape
+    _check_terms(rows_idx.shape[-1])
+
+
+def _check_range(rows_idx: torch.Tensor, R: int, what: str) -> None:
+    """Every row index in [0, R) (one device-to-host sync)."""
     if rows_idx.numel():
         lo, hi = torch.aminmax(rows_idx)
         if int(lo) < 0 or int(hi) >= R:
             raise IndexError(f"row indices [{int(lo)}, {int(hi)}] outside "
-                             f"the arena's {R} rows")
+                             f"{what}'s {R} rows")
+
+
+def _lookup(name: str, arena: torch.Tensor, rows_idx: torch.Tensor,
+            mask: torch.Tensor, rank: int) -> torch.Tensor:
+    _check("arena", arena, (2,))
+    _check_indices(rows_idx, mask, rank)
+    cuda = _on_cuda(arena, rows_idx, mask)
+    R, W = arena.shape
+    _check_range(rows_idx, R, "the arena")
+    L = rows_idx.shape[-1]
     if not cuda:
         return lookup_plain(arena, rows_idx, mask)
     cells = rows_idx.shape[:-1].numel()
@@ -228,3 +245,79 @@ def lookup_score_multi(arena: torch.Tensor, rows_idx: torch.Tensor,
         raise ValueError(f"unknown grid_order {grid_order!r}; "
                          f"one of {GRID_ORDERS}")
     return _lookup("lookup_score_multi", arena, rows_idx, mask, 3)
+
+
+# --------------------------------------------------------------------------
+# fused-decode lookup: dict [D, W], refs [R], rows_idx / mask [..., L]
+# -> [..., W, 32], scoring dict[refs[row]] where the raw lookup scores
+# arena[row]
+# --------------------------------------------------------------------------
+
+def lookup_comp_plain(dict_rows: torch.Tensor, refs: torch.Tensor,
+                      rows_idx: torch.Tensor, mask: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain version of ``lookup_score_blocks_compressed`` and
+    ``lookup_score_multi_compressed``: per term, the double gather
+    ``dict_rows[refs[row]]`` (the tile is never expanded), zeroed where
+    mask is 0, ripple-carried into vertical counters, then expanded."""
+    L = rows_idx.shape[-1]
+    planes = [torch.zeros(rows_idx.shape[:-1] + (dict_rows.shape[1],),
+                          dtype=torch.int32, device=dict_rows.device)
+              for _ in range(num_planes(L))]
+    for l in range(L):
+        row = dict_rows[refs[rows_idx[..., l].long()].long()]
+        _ripple(planes, torch.where(mask[..., l, None] != 0, row, 0))
+    return _expand(planes)
+
+
+def _lookup_comp(name: str, dict_rows: torch.Tensor, refs: torch.Tensor,
+                 rows_idx: torch.Tensor, mask: torch.Tensor, rank: int
+                 ) -> torch.Tensor:
+    """The fused-decode wrappers. ``refs`` must lie in [0, D): the tile
+    cache checks that once, when it stages the pair, and this wrapper
+    does not repeat it on every call."""
+    _check("dict_rows", dict_rows, (2,))
+    _check("refs", refs, (1,))
+    _check_indices(rows_idx, mask, rank)
+    cuda = _on_cuda(dict_rows, refs, rows_idx, mask)
+    _check_range(rows_idx, refs.shape[0], "refs")
+    if not cuda:
+        return lookup_comp_plain(dict_rows, refs, rows_idx, mask)
+    W = dict_rows.shape[1]
+    L = rows_idx.shape[-1]
+    cells = rows_idx.shape[:-1].numel()
+    out = torch.empty(rows_idx.shape[:-1] + (W, 32), dtype=torch.int32,
+                      device=dict_rows.device)
+    if out.numel():
+        _build.launch("cobs_lookup_comp", dict_rows.data_ptr(),
+                      refs.data_ptr(), rows_idx.data_ptr(), mask.data_ptr(),
+                      out.data_ptr(), cells, L, W, num_planes(L),
+                      dict_rows.device.index or 0, _stream(dict_rows.device))
+        launches[name] += 1
+    return out
+
+
+def lookup_score_blocks_compressed(dict_rows: torch.Tensor,
+                                   refs: torch.Tensor,
+                                   rows_idx: torch.Tensor,
+                                   mask: torch.Tensor) -> torch.Tensor:
+    """Fused-decode multi-block gather + score: dict_rows int32 [D, W],
+    refs int32 [R], rows_idx, mask int32 [nb, L] -> int32 [nb, W, 32].
+    Replaces the Pallas ``lookup_score_blocks_compressed``."""
+    return _lookup_comp("lookup_score_blocks_compressed", dict_rows, refs,
+                        rows_idx, mask, 2)
+
+
+def lookup_score_multi_compressed(dict_rows: torch.Tensor,
+                                  refs: torch.Tensor,
+                                  rows_idx: torch.Tensor, mask: torch.Tensor,
+                                  grid_order: str = "wq") -> torch.Tensor:
+    """Fused-decode multi-query gather + score: rows_idx, mask int32
+    [Q, nb, L] -> int32 [Q, nb, W, 32]. Replaces the Pallas
+    ``lookup_score_multi_compressed``; ``grid_order`` is validated and has
+    no effect, as for ``lookup_score_multi``."""
+    if grid_order not in GRID_ORDERS:
+        raise ValueError(f"unknown grid_order {grid_order!r}; "
+                         f"one of {GRID_ORDERS}")
+    return _lookup_comp("lookup_score_multi_compressed", dict_rows, refs,
+                        rows_idx, mask, 3)

@@ -6,11 +6,15 @@
 // (word, bit) order. Each kernel replaces Pallas kernels of
 // src/repro/kernels/bitslice_score.py:
 //
-//   unpack_kernel   <- _unpack_kernel   (unpack_score)
-//   vertical_kernel <- _vertical_kernel (vertical_score)
-//   lookup_kernel   <- _lookup_kernel, _lookup_blocks_kernel and
-//                      _lookup_multi_kernel (lookup_score,
-//                      lookup_score_blocks, lookup_score_multi)
+//   unpack_kernel      <- _unpack_kernel   (unpack_score)
+//   vertical_kernel    <- _vertical_kernel (vertical_score)
+//   lookup_kernel      <- _lookup_kernel, _lookup_blocks_kernel and
+//                         _lookup_multi_kernel (lookup_score,
+//                         lookup_score_blocks, lookup_score_multi)
+//   lookup_comp_kernel <- _lookup_blocks_comp_kernel and
+//                         _lookup_multi_comp_kernel
+//                         (lookup_score_blocks_compressed,
+//                         lookup_score_multi_compressed)
 //
 // What bounds them on an H100: bytes. A query reads L rows of W words and
 // writes W * 32 counts; the arithmetic is a few integer operations per
@@ -21,7 +25,13 @@
 // loads down the term loop; these first versions are simple and right,
 // and their times stand in PERF.md.
 //
-// Design common to all three:
+// The fused-decode lookup reads row r of a rowdict-coded shard as
+// dict[refs[r]]: per term, one more 4-byte load (refs) before the row. Its
+// bound is (indices + masks + one refs entry and one dict row per counted
+// term + counts written) / 3.35 TB/s; the dependent chain is three loads
+// long instead of two.
+//
+// Design common to all four:
 // * The TPU kernels carry counter planes across a sequential grid axis
 //   over terms. CUDA blocks run in no order, so the term loop runs inside
 //   one thread instead, and nothing carries between blocks.
@@ -133,12 +143,16 @@ vertical_kernel(const uint32_t* __restrict__ rows, int32_t* __restrict__ out,
 // per (cell, word). Each thread reads its cell's indices and mask itself
 // (a warp-wide broadcast, served from L1 after the first lane) - there is
 // no scalar prefetch on this card. A term with mask 0 is skipped, which
-// gives the TPU kernel's `row * mask`.
-__global__ void __launch_bounds__(kThreads)
-lookup_kernel(const uint32_t* __restrict__ arena,
-              const int32_t* __restrict__ idx,
-              const int32_t* __restrict__ mask, int32_t* __restrict__ out,
-              int L, int W, long long total, int n_planes) {
+// gives the TPU kernel's `row * mask`. With kDecode, row r is read as
+// rows[refs[r]] (a rowdict pair: rows is the dictionary), the index the
+// TPU kernels resolve in their BlockSpec index map; the refs entry is one
+// more broadcast load per term.
+template <bool kDecode>
+__device__ __forceinline__ void lookup_body(
+    const uint32_t* __restrict__ rows, const int32_t* __restrict__ refs,
+    const int32_t* __restrict__ idx, const int32_t* __restrict__ mask,
+    int32_t* __restrict__ out, int L, int W, long long total,
+    int n_planes) {
   const long long g0 = static_cast<long long>(blockIdx.x) * blockDim.x;
   const long long g = g0 + threadIdx.x;
   const bool active = g < total;
@@ -152,13 +166,34 @@ lookup_kernel(const uint32_t* __restrict__ arena,
     const int32_t* cm = mask + cell * L;
     for (int l = 0; l < L; ++l) {
       if (cm[l] != 0) {
-        ripple_add(p, arena[static_cast<long long>(ci[l]) * W + w], n_planes);
+        long long r = ci[l];
+        if constexpr (kDecode) r = refs[r];
+        ripple_add(p, rows[r * W + w], n_planes);
       }
     }
   }
   const long long left = total - g0;
   expand_store(p, n_planes, active, out + g0 * 32,
                static_cast<int>(left < kThreads ? left : kThreads));
+}
+
+__global__ void __launch_bounds__(kThreads)
+lookup_kernel(const uint32_t* __restrict__ arena,
+              const int32_t* __restrict__ idx,
+              const int32_t* __restrict__ mask, int32_t* __restrict__ out,
+              int L, int W, long long total, int n_planes) {
+  lookup_body<false>(arena, nullptr, idx, mask, out, L, W, total, n_planes);
+}
+
+// The fused-decode lookup over a rowdict pair (dict [D, W], refs [R]).
+__global__ void __launch_bounds__(kThreads)
+lookup_comp_kernel(const uint32_t* __restrict__ dict,
+                   const int32_t* __restrict__ refs,
+                   const int32_t* __restrict__ idx,
+                   const int32_t* __restrict__ mask,
+                   int32_t* __restrict__ out, int L, int W, long long total,
+                   int n_planes) {
+  lookup_body<true>(dict, refs, idx, mask, out, L, W, total, n_planes);
 }
 
 unsigned int blocks_for(long long items, int threads) {
@@ -207,6 +242,21 @@ extern "C" int cobs_lookup(const void* arena, const void* idx,
       static_cast<const uint32_t*>(arena), static_cast<const int32_t*>(idx),
       static_cast<const int32_t*>(mask), static_cast<int32_t*>(out), L, W,
       total, n_planes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cobs_lookup_comp(const void* dict, const void* refs,
+                                const void* idx, const void* mask, void* out,
+                                int cells, int L, int W, int n_planes,
+                                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(cells) * W;
+  lookup_comp_kernel<<<blocks_for(total, kThreads), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(dict), static_cast<const int32_t*>(refs),
+      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(mask),
+      static_cast<int32_t*>(out), L, W, total, n_planes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,6 +56,28 @@ def bitslice_lookup_score_multi(arena: torch.Tensor, rows_idx: torch.Tensor,
     return out.reshape(rows_idx.shape[0], -1)
 
 
+def bitslice_lookup_score_blocks_comp(dict_rows: torch.Tensor,
+                                      refs: torch.Tensor,
+                                      rows_idx: torch.Tensor,
+                                      mask: torch.Tensor) -> torch.Tensor:
+    """``bitslice_lookup_score_blocks`` over a rowdict pair (dict [D, W],
+    refs [R]): rows_idx, mask int32 [nb, L] -> int32 [nb * W * 32]."""
+    return _k.lookup_score_blocks_compressed(dict_rows, refs, rows_idx,
+                                             mask).reshape(-1)
+
+
+def bitslice_lookup_score_multi_comp(dict_rows: torch.Tensor,
+                                     refs: torch.Tensor,
+                                     rows_idx: torch.Tensor,
+                                     mask: torch.Tensor,
+                                     grid_order: str = "wq") -> torch.Tensor:
+    """``bitslice_lookup_score_multi`` over a rowdict pair: rows_idx, mask
+    int32 [Q, nb, L] -> int32 [Q, nb * W * 32]."""
+    out = _k.lookup_score_multi_compressed(dict_rows, refs, rows_idx, mask,
+                                           grid_order=grid_order)
+    return out.reshape(rows_idx.shape[0], -1)
+
+
 def and_rows(rows: torch.Tensor) -> torch.Tensor:
     """AND over the k hash rows: int32 [L, k, W] -> [L, W]."""
     return _ref.and_rows_ref(rows)

@@ -56,6 +56,26 @@ def bitslice_lookup_score_multi_ref(arena: torch.Tensor,
                                                          -1)
 
 
+def bitslice_lookup_score_blocks_comp_ref(dict_rows: torch.Tensor,
+                                          refs: torch.Tensor,
+                                          rows_idx: torch.Tensor,
+                                          mask: torch.Tensor) -> torch.Tensor:
+    """Multi-block over a rowdict pair: the raw oracle on the expanded
+    tile ``dict_rows[refs]`` -> int32 [nb * W * 32]."""
+    return bitslice_lookup_score_blocks_ref(dict_rows[refs.long()],
+                                            rows_idx, mask)
+
+
+def bitslice_lookup_score_multi_comp_ref(dict_rows: torch.Tensor,
+                                         refs: torch.Tensor,
+                                         rows_idx: torch.Tensor,
+                                         mask: torch.Tensor) -> torch.Tensor:
+    """Multi-query over a rowdict pair: the raw oracle on the expanded
+    tile ``dict_rows[refs]`` -> int32 [Q, nb * W * 32]."""
+    return bitslice_lookup_score_multi_ref(dict_rows[refs.long()],
+                                           rows_idx, mask)
+
+
 def and_rows_ref(rows: torch.Tensor) -> torch.Tensor:
     """AND step over the k hash functions: [L, k, W] -> [L, W]."""
     out = rows[:, 0]

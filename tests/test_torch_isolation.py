@@ -55,7 +55,7 @@ def test_import_loads_no_jax_and_no_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(MODULES) >= 15
+    assert len(MODULES) >= 21
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))

@@ -20,8 +20,8 @@ from repro.core import query as jax_query
 from repro.core.hashing import hash_terms_np as jax_hash_terms_np
 from repro.data import make_queries as jax_make_queries
 
-from repro_torch.core import (DeviceArena, IndexParams, QueryEngine,
-                              hashing, index_from_numpy)
+from repro_torch.core import (IndexParams, MappedArena, QueryEngine, hashing,
+                              index_from_numpy)
 from repro_torch.core import query as q
 from repro_torch.core.arena import ArenaLayout
 from repro_torch.core.index import BitSlicedIndex
@@ -203,21 +203,23 @@ def test_hash_mirror_feeds_plan_rows():
 # what this slice refuses
 # --------------------------------------------------------------------------
 
-class _TwoShards(DeviceArena):
-    def __init__(self, arena):
-        super().__init__(arena)
-        self.shard_row_starts = np.array([0, 32, 64], np.int64)
-
-
 def test_engine_refuses_what_is_not_ported(jax_indexes):
+    """Sharded and compressed storage are ported now: a two-shard storage
+    runs paged, and ``compressed=True`` on a raw index leaves the flag
+    off. What the engine still refuses: an unknown method and an index on
+    another device."""
     index = carry(jax_indexes[("compact", 1)])
-    with pytest.raises(NotImplementedError):
-        QueryEngine(index, compressed=True, device=CPU)
+    assert not QueryEngine(index, compressed=True, device=CPU).compressed
     layout = ArenaLayout.make([0, 32], [32, 32], [0, 1], [5, 5], 32, 2)
-    sharded = BitSlicedIndex(layout, _TwoShards(
-        torch.zeros((64, 1), dtype=torch.int32)))
-    with pytest.raises(NotImplementedError):
-        QueryEngine(sharded, device=CPU)
+    words = np.zeros((64, 1), np.uint32)
+    words[:, 0] = 1                      # every row holds slot 0 (doc 0)
+    sharded = BitSlicedIndex(layout, MappedArena(
+        [words[:32], words[32:]], [0, 32, 64], 1, device=CPU))
+    engine = QueryEngine(sharded, method="lookup", device=CPU)
+    assert engine._paged
+    got = engine.score_terms(np.array([[1, 2], [3, 4]], np.uint32))
+    np.testing.assert_array_equal(got, [2, 0])
+    assert engine.tiles.faults == 2 and engine.tiles.prefetch_hits == 1
     with pytest.raises(ValueError, match="unknown method"):
         QueryEngine(index, method="fast", device=CPU)
     with pytest.raises(ValueError, match="lives on"):
