@@ -26,10 +26,23 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    against the dense index; then a replicated collection (the first 256
    documents, 8 copies each, blocks of 128) built rowdict-coded and raw,
    searched with ``compressed=True`` through the fused-decode kernels
-   against the raw store. The store directories are deleted at the end;
-6. traces 32 lookup searches with torch.profiler (device time per search,
-   the top device and host operations), and times each kernel at the main
-   path's shapes beside its bound and its plain version.
+   against the raw store;
+6. drives the pruned executor ("[prune]"), its launch counters from 0:
+   ``search_pruned``, ``search_batch_pruned`` (batches of 32) and
+   ``top_k_pruned`` on the raw store and (``compressed=True``) the rowdict
+   store, ``run_paged_pruned`` with every shard promoted on its first
+   visit, and the two-hash index; every result must equal the exhaustive
+   engine's;
+7. drives the shard-major bulk executor ("[bulk]"), its counters from 0:
+   ``run_shard_major`` over all 128 queries at threshold 0.8 and top 10 on
+   the dense index, the raw store through a cache bounded at its tallest
+   shard (each shard staged once) and the rowdict store, plus one sweep
+   suspended after every shard and resumed. The store directories are
+   deleted after the chunked executors' trace;
+8. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
+   torch.profiler (device time, the top device and host operations; the
+   chunked executors under cProfile too), and times each kernel at the
+   main path's shapes beside its bound and its plain version.
 
 It prints the card's name and power limit and a ``{"kernels": ...}`` line,
 writes its measurements to ``chiprun_out/chip_smoke.json``, and ends with
@@ -71,7 +84,14 @@ KERNELS = {
                                       "lookup_comp_kernel"),
     "lookup_score_blocks_compressed": (595, "_lookup_blocks_comp_kernel",
                                        "lookup_comp_kernel"),
+    "chunk_dedup_score": (678, "_chunk_dedup_kernel", "chunk_dedup_kernel"),
+    "chunk_lookup_score_multi": (746, "_chunk_multi_kernel",
+                                 "chunk_lookup_kernel"),
+    "chunk_lookup_score_multi_compressed": (795, "_chunk_multi_comp_kernel",
+                                            "chunk_lookup_comp_kernel"),
 }
+CHUNK_KERNELS = ("chunk_dedup_score", "chunk_lookup_score_multi",
+                 "chunk_lookup_score_multi_compressed")
 MAIN_KERNELS = ("unpack_score", "vertical_score", "lookup_score_blocks",
                 "lookup_score_multi", "lookup_score")
 OUT_DIR = ROOT / "chiprun_out"       # measurements; listed in .gitignore
@@ -426,7 +446,7 @@ def phase_main_path(rt, torch, corpus, index):
         check(out["launches"][name] > 0,
               f"the main path never launched {name}")
     log(f"[main path] launches {out['launches']}")
-    return out, queries, origin, extra["classic k=1"]
+    return out, queries, origin, extra, base
 
 
 # --------------------------------------------------------------------------
@@ -577,6 +597,8 @@ def phase_store(rt, torch, corpus, queries, origin, chk: KernelCheck):
               f"compressed {method} != the raw store")
         n_pos = check_positives(singles, origin, f"compressed {method}",
                                 limit=COMP_BASE)
+        if method == "lookup":
+            comp_want = (r_singles, r_batched, r_tops)
         engine = rt.QueryEngine(comp, method=method, compressed=True)
         check(engine.compressed, "compressed=True left the flag off")
         for q in queries[:8]:
@@ -674,7 +696,348 @@ def phase_store(rt, torch, corpus, queries, origin, chk: KernelCheck):
         f" (dict {list(dict_rows.shape)}, refs [{refs.shape[0]}])")
     comp_inputs = {"dict_rows": dict_rows, "refs": refs, "shard": s_big,
                    "singles": singles, "batch": batch}
-    return out, launches, comp_inputs
+    # what the pruned and bulk phases run on and hold their results to
+    stores = {"raw": index, "raw_want": want["lookup"], "comp": comp,
+              "comp_want": comp_want,
+              "raw_unbounded_p50_ms":
+                  out["paged"]["unbounded lookup"]["p50_search_ms"],
+              "comp_p50_ms": out["comp_store"]["lookup"]["p50_search_ms"]}
+    return out, launches, comp_inputs, stores
+
+
+# --------------------------------------------------------------------------
+# The chunked executors: pruned search and the shard-major bulk sweep
+# --------------------------------------------------------------------------
+
+class ChunkRecorder:
+    """Inside ``with``, keeps the arguments of every call of the chunk
+    wrappers (the executors look them up at call time), so that the
+    kernels can be held against their plain versions and timed at the
+    path's own shapes afterwards. It launches nothing itself."""
+
+    def __init__(self, kernels):
+        self.k = kernels
+        self.calls = {n: [] for n in CHUNK_KERNELS}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.k, n) for n in CHUNK_KERNELS}
+        for n, fn in self.saved.items():
+            def rec(*args, _n=n, _fn=fn, **kw):
+                self.calls[_n].append(args)
+                return _fn(*args, **kw)
+            setattr(self.k, n, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.k, n, fn)
+
+
+def chunk_plain(k, name, args):
+    """The plain version of chunk wrapper ``name`` on its call's args."""
+    if name == "chunk_lookup_score_multi_compressed":
+        d, r, idx, mask, acc = args
+        return k.chunk_plain(d, idx, mask, acc, refs=r)
+    rows, idx, mask, acc = args
+    return k.chunk_plain(rows, idx, mask, acc)
+
+
+def check_chunk_calls(k, chk, calls: dict, what: str) -> None:
+    for name, recs in calls.items():
+        for args in recs:
+            chk.compare(name, getattr(k, name)(*args),
+                        chunk_plain(k, name, args),
+                        f"{what}, idx {list(args[-3].shape)}, acc "
+                        f"{list(args[-1].shape)}")
+
+
+def check_chunk_ragged(rt, torch, chk) -> None:
+    """The chunk kernels at small ragged shapes: W not a multiple of 32,
+    running-count words past W (Wp > W), masks with zeros."""
+    k, ops = rt.kernels, rt.ops
+    g = torch.Generator().manual_seed(11)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int64).to(torch.int32).to(DEV)
+
+    for Q, nb, L, W, wb in ((1, 1, 8, 3, None), (3, 2, 17, 33, None),
+                            (2, 3, 32, 40, 32), (2, 1, 5, 130, None)):
+        R, D = 4 * L + 3, L + 1
+        rows = ints(-2 ** 31, 2 ** 31, R, W)
+        refs = ints(0, D, R)
+        idx, mask = ints(0, R, Q, nb, L), ints(0, 2, Q, nb, L)
+        acc = ops.chunk_acc_init(Q, nb, W, word_block=wb, device=DEV)
+        acc += ints(0, 40, *acc.shape)
+        calls = {"chunk_lookup_score_multi": [(rows, idx, mask, acc)],
+                 "chunk_dedup_score": [(rows, idx, mask, acc)],
+                 "chunk_lookup_score_multi_compressed":
+                     [(rows[:D].contiguous(), refs, idx, mask, acc)]}
+        check_chunk_calls(k, chk, calls, f"ragged W={W}, Wp={acc.shape[2]}")
+
+
+def pruned_stats(st) -> dict:
+    return dict(vars(st), bytes_read=st.bytes_read, prune_rate=st.prune_rate)
+
+
+def stats_line(st) -> str:
+    return (f"blocks {st.blocks_total} (pruned {st.prune_rate:.3f}), "
+            f"visits {st.shard_visits} (+{st.shard_visits_skipped} "
+            f"skipped), chunks {st.chunks}, promoted {st.tiles_promoted}, "
+            f"gathered {st.bytes_gathered} B, tile-staged "
+            f"{st.bytes_tile_staged} B")
+
+
+def run_pruned(rt, engine, queries, rec: ChunkRecorder):
+    """search_pruned singles (timed), search_batch_pruned in batches of 32
+    (recorded by ``rec``) and top_k_pruned, each with its own PruneStats."""
+    engine.search_pruned(queries[0], THRESHOLD)      # open maps, sidecars
+    stats = {n: rt.query.PruneStats() for n in ("search", "batch", "top_k")}
+    lat, singles = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        singles.append(engine.search_pruned(q, THRESHOLD,
+                                            stats=stats["search"]))
+        lat.append(time.perf_counter() - t0)
+    batched = []
+    t0 = time.perf_counter()
+    with rec:
+        for i in range(0, len(queries), BATCH):
+            batched += engine.search_batch_pruned(
+                queries[i:i + BATCH], THRESHOLD, stats=stats["batch"])
+    batch_s = time.perf_counter() - t0
+    tops = [engine.top_k_pruned(q, TOP, stats=stats["top_k"])
+            for q in queries]
+    return singles, batched, tops, lat, batch_s, stats
+
+
+def promoted_batches(rt, index, queries, n_hashes=1):
+    """run_paged_pruned with promote_ratio 0 (every shard staged on its
+    first visit) in batches of 32 at THRESHOLD: results and stats."""
+    q_mod = rt.query
+    tiles = rt.DeviceTileCache(index.storage)
+    plans = q_mod.plan_shards(index.layout, index.storage.shard_row_starts)
+    slot = np.asarray(index.layout.doc_slot)
+    stats, results = q_mod.PruneStats(), []
+    for i in range(0, len(queries), BATCH):
+        term_sets = [q_mod.compile_pattern(q, index.params)
+                     for q in queries[i:i + BATCH]]
+        buf, ells = q_mod.pad_term_batch(term_sets, 64)
+        required = np.array([q_mod.coverage_cutoff(THRESHOLD, int(e))
+                             for e in ells], np.int64)
+        slots = q_mod.run_paged_pruned(
+            tiles, plans, buf, ells, required, np.zeros(len(ells), np.int32),
+            n_hashes=n_hashes, chunk_terms=32, promote_ratio=0.0,
+            stats=stats)
+        results += [q_mod.select_hits(slots[j][slot], int(e), THRESHOLD)
+                    for j, e in enumerate(ells)]
+    return results, stats, tiles
+
+
+def phase_prune(rt, torch, stores, queries, origin, k2, chk):
+    """The pruned executor with the launch counters from 0. Returns the
+    record, this path's launches and the dedup kernel's timing inputs."""
+    k = rt.kernels
+    # the two-hash index's exhaustive answers, before the counters start
+    k2_engine = rt.QueryEngine(k2, method="vertical")
+    k2_want = []
+    for i in range(0, len(queries), BATCH):
+        k2_want += k2_engine.search_batch(queries[i:i + BATCH], THRESHOLD)
+    k2_tops = [k2_engine.top_k(q, TOP) for q in queries[:BATCH]]
+
+    k.reset_launches()                      # the pruned path starts here
+    out, recs = {}, {}
+    for label, index, want, p50_paged, comp in (
+            ("raw", stores["raw"], stores["raw_want"],
+             stores["raw_unbounded_p50_ms"], False),
+            ("comp", stores["comp"], stores["comp_want"],
+             stores["comp_p50_ms"], True)):
+        engine = rt.QueryEngine(index, method="lookup", compressed=comp,
+                                prune_chunk=32)
+        recs[label] = ChunkRecorder(k)
+        singles, batched, tops, lat, batch_s, stats = run_pruned(
+            rt, engine, queries, recs[label])
+        check(same_results(singles, want[0]) and same_results(batched, want[1])
+              and same_results(tops, want[2]),
+              f"pruned {label} != the exhaustive engine")
+        n_pos = check_positives(singles, origin, f"pruned {label}",
+                                limit=None if label == "raw" else COMP_BASE)
+        st = index.storage
+        store_bytes = sum(st.shard_hbm_nbytes(s) for s in range(st.n_shards))
+        m = {"queries": len(queries), "p50_search_ms": pct_ms(lat, 50),
+             "p99_search_ms": pct_ms(lat, 99),
+             "exhaustive_paged_p50_ms": p50_paged,
+             "batch_queries_per_s": len(queries) / batch_s,
+             "store_device_bytes": store_bytes,
+             "faults": engine.tiles.faults,
+             "stats": {n: pruned_stats(v) for n, v in stats.items()}}
+        out[label] = m
+        for n, v in stats.items():
+            log(f"[prune:{label}] {n}: {stats_line(v)}; read {v.bytes_read}"
+                f" of the store's {store_bytes} device-form bytes "
+                f"({v.bytes_read / store_bytes:.4f} a pass of "
+                f"{len(queries) if n != 'batch' else len(queries) // BATCH} "
+                f"{'batches' if n == 'batch' else 'queries'})")
+        log(f"[prune:{label}] {len(queries)} queries x 3 entry points equal "
+            f"the exhaustive engine, {n_pos} positives found; search_pruned"
+            f" p50 {m['p50_search_ms']:.3f} ms, p99 {m['p99_search_ms']:.3f}"
+            f" ms (exhaustive paged p50 {p50_paged:.3f} ms); batches "
+            f"{m['batch_queries_per_s']:.1f} queries/s; tile faults "
+            f"{engine.tiles.faults}")
+    # every shard promoted on its first visit: the fused chunk kernels
+    for label, index, want in (("raw", stores["raw"], stores["raw_want"]),
+                               ("comp", stores["comp"], stores["comp_want"])):
+        recs[f"{label} promoted"] = rec = ChunkRecorder(k)
+        with rec:
+            results, stats, tiles = promoted_batches(rt, index, queries)
+        check(same_results(results, want[1]),
+              f"promoted pruned {label} != the exhaustive engine")
+        check(stats.tiles_promoted > 0 and stats.bytes_gathered == 0,
+              f"promoted pruned {label}: {stats_line(stats)}")
+        out[f"{label} promoted"] = {
+            "stats": pruned_stats(stats), "faults": tiles.faults,
+            "raw_bytes_staged": tiles.raw_bytes_staged,
+            "comp_bytes_staged": tiles.comp_bytes_staged}
+        log(f"[prune:{label} promoted] equal the exhaustive engine; "
+            f"{stats_line(stats)}; cache staged {tiles.raw_bytes_staged} "
+            f"raw + {tiles.comp_bytes_staged} compressed bytes in "
+            f"{tiles.faults} faults")
+    # two hashes: host AND unpromoted, device gather + AND promoted
+    engine = rt.QueryEngine(k2, method="vertical", prune_chunk=32)
+    st2, got = rt.query.PruneStats(), []
+    for i in range(0, len(queries), BATCH):
+        got += engine.search_batch_pruned(queries[i:i + BATCH], THRESHOLD,
+                                          stats=st2)
+    tops = [engine.top_k_pruned(q, TOP) for q in queries[:BATCH]]
+    promoted, st2p, _ = promoted_batches(rt, k2, queries, n_hashes=2)
+    check(same_results(got, k2_want) and same_results(tops, k2_tops)
+          and same_results(promoted, k2_want),
+          "pruned two-hash index != the exhaustive engine")
+    check(st2p.tiles_promoted > 0, "the two-hash run promoted no shard")
+    out["compact k=2"] = {"stats": pruned_stats(st2),
+                          "promoted_stats": pruned_stats(st2p)}
+    log(f"[prune:k=2] equal the exhaustive engine; {stats_line(st2)}; "
+        f"promoted: {stats_line(st2p)}")
+    launches = dict(k.launches)             # the pruned path ends here
+    out["launches"] = launches
+    for name in CHUNK_KERNELS:
+        check(launches[name] > 0, f"the pruned path never launched {name}")
+    log(f"[prune] launches {launches}")
+    for label, rec in recs.items():
+        check_chunk_calls(k, chk, rec.calls, f"pruned {label}")
+    check_chunk_ragged(rt, torch, chk)
+    log("[prune:kernels] every chunk kernel call of the pruned path "
+        "equals its plain version, and so do the ragged shapes")
+    return out, launches, recs["raw"].calls["chunk_dedup_score"][:8]
+
+
+def bulk_results(rt, index, out, ells, top: int):
+    slot = np.asarray(index.layout.doc_slot)
+    if top:
+        return [rt.query.select_top_k(out[i][slot], int(e), top)
+                for i, e in enumerate(ells)]
+    return [rt.query.select_hits(out[i][slot], int(e), THRESHOLD)
+            for i, e in enumerate(ells)]
+
+
+def phase_bulk(rt, torch, index, stores, queries, base, chk):
+    """run_shard_major with the launch counters from 0. Returns the
+    record, this path's launches and the fused chunk kernels' timing
+    inputs."""
+    k, q_mod = rt.kernels, rt.query
+    raw, comp = stores["raw"], stores["comp"]
+    st = raw.storage
+    cap = max(st.shard_nbytes(s) for s in range(st.n_shards))
+    term_sets = [q_mod.compile_pattern(q, index.params) for q in queries]
+    buf, ells = q_mod.pad_term_batch(term_sets, 64)
+    Q = len(queries)
+    thr_req = np.array([q_mod.coverage_cutoff(THRESHOLD, int(e))
+                        for e in ells], np.int64)
+    sweeps = {"threshold": (thr_req, np.zeros(Q, np.int32)),
+              "top": (np.zeros(Q, np.int64), np.full(Q, TOP, np.int32))}
+
+    def sweep(idx, tiles, mode, **kw):
+        required, topk = sweeps[mode]
+        stats = q_mod.BulkStats()
+        plans = q_mod.plan_shards(idx.layout, idx.storage.shard_row_starts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = q_mod.run_shard_major(tiles, plans, buf, ells, required, topk,
+                                    stats=stats, **kw)
+        torch.cuda.synchronize()
+        return res, stats, time.perf_counter() - t0
+
+    k.reset_launches()                      # the bulk path starts here
+    out, recs, outs = {}, {}, {}
+    for label, idx, make_cache, want in (
+            ("dense", index, lambda: rt.DeviceTileCache(index.storage),
+             base),
+            ("raw bounded", raw,
+             lambda: rt.DeviceTileCache(st, capacity_bytes=cap),
+             (stores["raw_want"][0], stores["raw_want"][2])),
+            ("comp", comp, lambda: rt.DeviceTileCache(comp.storage),
+             (stores["comp_want"][0], stores["comp_want"][2]))):
+        recs[label] = ChunkRecorder(k)
+        m = {}
+        for mode in ("threshold", "top"):
+            tiles = make_cache()
+            with recs[label]:
+                (res, nxt, _), stats, secs = sweep(idx, tiles, mode)
+            outs[(label, mode)] = res
+            got = bulk_results(rt, idx, res, ells, TOP if mode == "top" else 0)
+            check(nxt == idx.storage.n_shards and same_results(
+                got, want[1] if mode == "top" else want[0]),
+                f"bulk {label} {mode} != the exhaustive engine")
+            m[mode] = {"stats": dict(vars(stats),
+                                     prune_rate=stats.prune_rate),
+                       "wall_s": secs, "queries_per_s": Q / secs,
+                       "faults": tiles.faults,
+                       "evictions": tiles.evictions}
+            log(f"[bulk:{label}] {mode}: {Q} queries equal the exhaustive "
+                f"engine in {secs * 1e3:.1f} ms ({Q / secs:.1f} queries/s);"
+                f" {stats.shards_swept} shards, {stats.tiles_staged} "
+                f"stagings of {stats.bytes_staged} bytes, "
+                f"{stats.query_chunks} slabs, {stats.kernel_dispatches} "
+                f"kernels, blocks pruned {stats.prune_rate:.3f}")
+        out[label] = m
+    b = out["raw bounded"]["threshold"]["stats"]
+    check(b["tiles_staged"] == st.n_shards and b["bytes_staged"]
+          == st.nbytes(),
+          f"bounded bulk sweep staged {b['tiles_staged']} tiles of "
+          f"{b['bytes_staged']} bytes, not {st.n_shards} of {st.nbytes()}")
+    # suspended after every shard and resumed from the returned state
+    plans = q_mod.plan_shards(raw.layout, st.shard_row_starts)
+    tiles, state, hops = rt.DeviceTileCache(st), (None, 0, thr_req), 0
+    while state[1] < len(plans):
+        state = q_mod.run_shard_major(
+            tiles, plans, buf, ells, state[2], np.zeros(Q, np.int32),
+            start_shard=state[1], out=state[0], should_yield=lambda: True)
+        hops += 1
+    check(hops == st.n_shards and np.array_equal(
+        state[0], outs[("raw bounded", "threshold")]),
+        "the suspended and resumed sweep != the unbroken sweep")
+    out["suspended"] = {"hops": hops}
+    log(f"[bulk:suspend] {hops} hops of one shard each give the unbroken "
+        f"sweep's slot scores")
+    launches = dict(k.launches)             # the bulk path ends here
+    out["launches"] = launches
+    for name in ("chunk_lookup_score_multi",
+                 "chunk_lookup_score_multi_compressed"):
+        check(launches[name] > 0, f"the bulk path never launched {name}")
+    log(f"[bulk] launches {launches}; the bounded raw sweep staged "
+        f"{b['tiles_staged']} tiles, {b['bytes_staged']} bytes (the store)")
+    for label, rec in recs.items():
+        check_chunk_calls(k, chk, rec.calls, f"bulk {label}")
+    log("[bulk:kernels] every chunk kernel call of the bulk path equals "
+        "its plain version")
+    comp_calls = recs["comp"].calls["chunk_lookup_score_multi_compressed"]
+    tallest = max(a[1].shape[0] for a in comp_calls)
+    timing = {
+        "chunk_lookup_score_multi":
+            recs["dense"].calls["chunk_lookup_score_multi"][:8],
+        "chunk_lookup_score_multi_compressed":
+            [a for a in comp_calls if a[1].shape[0] == tallest][:8]}
+    return out, launches, timing
 
 
 # --------------------------------------------------------------------------
@@ -725,6 +1088,74 @@ def phase_trace(rt, torch, index, queries, p50_ms: float) -> dict:
         f"{out['device_busy_share_single']:.3f} (device time per search / "
         f"un-profiled p50 {p50_ms:.3f} ms)")
     return out
+
+def phase_trace_chunked(rt, torch, stores, index, queries) -> dict:
+    """Where the chunked executors spend their time: 32 search_pruned
+    calls on the raw store and one 128-query bulk sweep of the dense
+    index, each run warm, then timed, then under torch.profiler (device
+    time by op against the un-profiled wall time: the device's busy
+    share), then under cProfile (host time by function)."""
+    import cProfile
+    import pstats
+    from torch.profiler import ProfilerActivity, profile
+    q_mod = rt.query
+    engine = rt.QueryEngine(stores["raw"], method="lookup", prune_chunk=32)
+    sample = queries[:BATCH]
+    term_sets = [q_mod.compile_pattern(q, index.params) for q in queries]
+    buf, ells = q_mod.pad_term_batch(term_sets, 64)
+    required = np.array([q_mod.coverage_cutoff(THRESHOLD, int(e))
+                         for e in ells], np.int64)
+    tiles = rt.DeviceTileCache(index.storage)
+    plans = q_mod.plan_shards(index.layout, index.storage.shard_row_starts)
+    runs = {
+        "search_pruned x32": lambda: [engine.search_pruned(q, THRESHOLD)
+                                      for q in sample],
+        "bulk sweep x128": lambda: q_mod.run_shard_major(
+            tiles, plans, buf, ells, required, np.zeros(len(ells), np.int32)),
+    }
+    out = {}
+    for what, run in runs.items():
+        run()                                        # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        device, n_dev = {}, {}
+        for ev in prof.events():
+            if str(ev.device_type).endswith("CUDA"):
+                device[ev.name] = (device.get(ev.name, 0.0)
+                                   + ev.time_range.elapsed_us())
+                n_dev[ev.name] = n_dev.get(ev.name, 0) + 1
+        cp = cProfile.Profile()
+        cp.enable()
+        run()
+        torch.cuda.synchronize()
+        cp.disable()
+        host = sorted(pstats.Stats(cp).stats.items(),
+                      key=lambda kv: -kv[1][2])[:10]
+        dev_us = sum(device.values())
+        out[what] = {
+            "wall_us": wall_us, "device_us": dev_us,
+            "device_busy_share": dev_us / wall_us,
+            "device_top_us": [(n, t, n_dev[n]) for n, t in sorted(
+                device.items(), key=lambda kv: -kv[1])[:6]],
+            "host_tottime_top_us": [
+                (f"{fn[2]} ({Path(fn[0]).name}:{fn[1]})", st[2] * 1e6, st[1])
+                for fn, st in host]}
+        log(f"[trace:{what}] wall {wall_us:.0f} us, device {dev_us:.0f} us "
+            f"(busy share {dev_us / wall_us:.3f}); top device ops (us, "
+            "count): " + "; ".join(f"{n[:44]} {t:.0f} ({c})" for n, t, c in
+                                    out[what]["device_top_us"]))
+        log(f"[trace:{what}] host self time under cProfile (us, calls): "
+            + "; ".join(f"{n[:60]} {t:.0f} ({c})" for n, t, c in
+                        out[what]["host_tottime_top_us"]))
+    return out
+
 
 def event_ms(torch, fn, reps: int) -> float:
     """Median over reps of one call's device time between CUDA events."""
@@ -816,8 +1247,59 @@ def lookup_case(torch, k, lib, name, what, src, rows, refs=None):
             2 * planes * (active * W + cells * W * 32))
 
 
+CHUNK_SYMBOLS = {"chunk_lookup_score_multi": "cobs_chunk_lookup",
+                 "chunk_lookup_score_multi_compressed": "cobs_chunk_lookup_comp",
+                 "chunk_dedup_score": "cobs_chunk_dedup"}
+
+
+def chunk_case(torch, k, lib, name, recs):
+    """A timing case of a chunk kernel over calls recorded on its path:
+    (name, shape, direct launches, plain call, bytes, operations). The
+    bytes are each index and mask read once, each distinct row the live
+    terms touch read once (and for the fused decode each distinct refs
+    entry), acc read once and the new acc written once."""
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = getattr(lib, CHUNK_SYMBOLS[name])
+    comp = name == "chunk_lookup_score_multi_compressed"
+    calls = []
+    for args in recs:
+        rows, idx, msk, acc = (args[0],) + args[2:] if comp else args
+        head = ((rows.data_ptr(), args[1].data_ptr()) if comp
+                else (rows.data_ptr(),))
+        o = torch.empty_like(acc)
+        Q, nb, L = idx.shape
+        calls.append(lambda f=fn, h=head, i=idx, m=msk, a=acc, o=o,
+                     c=Q * nb, L=L, W=rows.shape[1], Wp=acc.shape[2]:
+                     f(*h, i.data_ptr(), m.data_ptr(), a.data_ptr(),
+                       o.data_ptr(), c, L, W, Wp, k.num_planes(L), dev,
+                       stream))
+    args = recs[0]
+    rows, idx, msk, acc = (args[0],) + args[2:] if comp else args
+    W, Wp = rows.shape[1], acc.shape[2]
+    cells, L = idx.numel() // idx.shape[-1], idx.shape[-1]
+    touched = idx[msk != 0].unique()
+    if comp:
+        row_bytes = (touched.numel() * 4
+                     + args[1][touched.long()].unique().numel() * W * 4)
+        shape = (f"idx {list(idx.shape)}, acc {list(acc.shape)}, dict "
+                 f"{list(rows.shape)}, refs [{args[1].shape[0]}]")
+    else:
+        row_bytes = touched.numel() * W * 4
+        shape = (f"{'indir' if name == 'chunk_dedup_score' else 'idx'} "
+                 f"{list(idx.shape)}, acc {list(acc.shape)}, "
+                 f"{'uniq' if name == 'chunk_dedup_score' else 'arena'} "
+                 f"{list(rows.shape)}")
+    active = int(msk.count_nonzero())
+    planes = k.num_planes(L)
+    nbytes = idx.numel() * 8 + row_bytes + 2 * acc.numel() * 4
+    nops = 2 * planes * (active * W + cells * Wp * 32) + acc.numel()
+    return (name, shape, calls, lambda: chunk_plain(k, name, args), nbytes,
+            nops)
+
+
 def phase_timings(rt, torch, index, classic, queries, max_err, launches,
-                  comp) -> list[dict]:
+                  comp, chunk) -> list[dict]:
     k = rt.kernels
     q_mod = rt.query
     lib = rt.build.library()
@@ -881,6 +1363,10 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
                     "idx [Q, nb, L]", [comp["batch"]], comp["dict_rows"],
                     comp["refs"]),
     ]
+    # the chunk kernels on calls recorded on their paths: the pruned raw
+    # store's first batch (dedup), the dense and rowdict bulk sweeps
+    cases += [chunk_case(torch, k, lib, name, chunk[name])
+              for name in CHUNK_KERNELS]
     profiled_kernel_ms(torch, cases[0][2][:1], "")   # the profiler's first use
     out = []
     for name, shape, calls, plain, nbytes, nops in cases:
@@ -944,7 +1430,7 @@ class _Port:
                                       load_index_v2, query)
         from repro_torch.data import make_corpus, make_queries
         from repro_torch.index import build_compact_streaming
-        from repro_torch.kernels import _build, bitslice_score
+        from repro_torch.kernels import _build, bitslice_score, ops
         self.IndexParams, self.QueryEngine = IndexParams, QueryEngine
         self.build_classic, self.build_compact = build_classic, build_compact
         self.hashing, self.query, self.codec = hashing, query, codec
@@ -952,7 +1438,7 @@ class _Port:
             load_index_v2
         self.build_compact_streaming = build_compact_streaming
         self.make_corpus, self.make_queries = make_corpus, make_queries
-        self.build, self.kernels = _build, bitslice_score
+        self.build, self.kernels, self.ops = _build, bitslice_score, ops
 
 
 def main() -> int:
@@ -979,22 +1465,31 @@ def main() -> int:
         corpus, index, record["index"] = phase_build_index(rt, torch)
         chk = KernelCheck(torch)
         phase_kernels_vs_plain(rt, torch, index, chk)
-        main_path, queries, origin, classic = phase_main_path(
+        main_path, queries, origin, extra, base = phase_main_path(
             rt, torch, corpus, index)
         record["main_path"] = main_path
         try:
-            record["store"], store_launches, comp = phase_store(
+            record["store"], store_launches, comp, stores = phase_store(
                 rt, torch, corpus, queries, origin, chk)
+            record["prune"], prune_launches, dedup_calls = phase_prune(
+                rt, torch, stores, queries, origin, extra["compact k=2"],
+                chk)
+            record["bulk"], bulk_launches, chunk = phase_bulk(
+                rt, torch, index, stores, queries, base, chk)
+            chunk["chunk_dedup_score"] = dedup_calls
+            record["trace_chunked"] = phase_trace_chunked(
+                rt, torch, stores, index, queries)
         finally:
             shutil.rmtree(STORE_DIR, ignore_errors=True)
         record["trace"] = phase_trace(
             rt, torch, index, queries,
             main_path["methods"]["lookup"]["p50_search_ms"])
-        # each kernel's launches on the two paths that drive it
+        # each kernel's launches on the paths that drive it
         launches = {n: main_path["launches"][n] + store_launches[n]
-                    for n in KERNELS}
-        record["kernels"] = phase_timings(rt, torch, index, classic, queries,
-                                          chk.err, launches, comp)
+                    + prune_launches[n] + bulk_launches[n] for n in KERNELS}
+        record["kernels"] = phase_timings(
+            rt, torch, index, extra["classic k=1"], queries, chk.err,
+            launches, comp, chunk)
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

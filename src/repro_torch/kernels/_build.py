@@ -33,6 +33,14 @@ _SIGNATURES = {
     "cobs_lookup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # dict, refs, idx, mask, out, cells, L, W, n_planes, device, stream
     "cobs_lookup_comp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # arena (uniq), idx (indir), mask, acc, out, cells, L, W, Wp,
+    # n_planes, device, stream
+    "cobs_chunk_lookup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "cobs_chunk_dedup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # dict, refs, idx, mask, acc, out, cells, L, W, Wp, n_planes, device,
+    # stream
+    "cobs_chunk_lookup_comp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _P),
 }
 
 

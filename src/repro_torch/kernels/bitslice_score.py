@@ -2,9 +2,9 @@
 PyTorch version beside it.
 
 The query's per-term work is: fetch the term's bit-sliced row (W words =
-32W documents) and add each document's bit into its int32 count. Four
-CUDA kernels (``csrc/bitslice_score.cu``) carry the seven Pallas entry
-points of ``repro.kernels.bitslice_score`` that the query path reaches:
+32W documents) and add each document's bit into its int32 count. Seven
+CUDA kernels (``csrc/bitslice_score.cu``) carry the ten Pallas entry
+points of ``repro.kernels.bitslice_score`` that the query paths reach:
 
 * ``unpack_score``   - shift-and-mask each word into 32 counts;
 * ``vertical_score`` - Harley-Seal counter planes, expanded once;
@@ -12,7 +12,10 @@ points of ``repro.kernels.bitslice_score`` that the query path reaches:
   fused gather + vertical count over [Q, nb, L] row indices;
 * ``lookup_score_blocks_compressed``, ``lookup_score_multi_compressed`` -
   the same over a rowdict pair, reading row r as ``dict[refs[r]]``
-  without expanding the tile.
+  without expanding the tile;
+* ``chunk_lookup_score_multi``, ``chunk_lookup_score_multi_compressed``,
+  ``chunk_dedup_score`` - one term chunk of the pruned and bulk
+  executors, added into a running-count buffer ``acc``.
 
 Each wrapper checks device, dtype (int32 words), shape and contiguity.
 For a CPU tensor it calls the plain version; for a CUDA tensor it launches
@@ -33,7 +36,10 @@ launches: dict[str, int] = {"unpack_score": 0, "vertical_score": 0,
                             "lookup_score": 0, "lookup_score_blocks": 0,
                             "lookup_score_multi": 0,
                             "lookup_score_blocks_compressed": 0,
-                            "lookup_score_multi_compressed": 0}
+                            "lookup_score_multi_compressed": 0,
+                            "chunk_lookup_score_multi": 0,
+                            "chunk_lookup_score_multi_compressed": 0,
+                            "chunk_dedup_score": 0}
 
 
 def reset_launches() -> None:
@@ -321,3 +327,95 @@ def lookup_score_multi_compressed(dict_rows: torch.Tensor,
                          f"one of {GRID_ORDERS}")
     return _lookup_comp("lookup_score_multi_compressed", dict_rows, refs,
                         rows_idx, mask, 3)
+
+
+# --------------------------------------------------------------------------
+# chunked accumulators: one term chunk added into the running counts
+# acc [Q, nb, Wp, 32] (Wp >= W; words >= W read as zero rows)
+# --------------------------------------------------------------------------
+
+def chunk_plain(rows: torch.Tensor, rows_idx: torch.Tensor,
+                mask: torch.Tensor, acc: torch.Tensor,
+                refs: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the three chunk kernels: the fused lookup's counts
+    of the chunk (``lookup_comp_plain`` when ``refs`` is given), padded
+    from W to acc's Wp words with zeros, added to ``acc``."""
+    counts = (lookup_plain(rows, rows_idx, mask) if refs is None
+              else lookup_comp_plain(rows, refs, rows_idx, mask))
+    out = acc.clone()
+    out[..., :counts.shape[-2], :] += counts
+    return out
+
+
+def _chunk(name: str, symbol: str, rows: torch.Tensor,
+           refs: torch.Tensor | None, rows_idx: torch.Tensor,
+           mask: torch.Tensor, acc: torch.Tensor,
+           range_checked: bool) -> torch.Tensor:
+    """Shared checks and launch of the chunk wrappers. rows_idx indexes
+    ``refs`` when given, else ``rows``. On a CUDA tensor the range check
+    costs one device sync; callers that checked the indices on the host
+    before the upload (the executors in ``core/query.py``) pass
+    ``range_checked``."""
+    _check("acc", acc, (4,))
+    _check_indices(rows_idx, mask, 3)
+    W = rows.shape[1]
+    Q, nb, L = rows_idx.shape
+    if acc.shape[:2] != (Q, nb) or acc.shape[3] != 32 or acc.shape[2] < W:
+        raise ValueError(f"acc shape {tuple(acc.shape)} does not hold "
+                         f"[{Q}, {nb}, >= {W}, 32] running counts")
+    cuda = _on_cuda(rows, rows_idx, mask, acc,
+                    *(() if refs is None else (refs,)))
+    if not cuda or not range_checked:
+        _check_range(rows_idx, (rows if refs is None else refs).shape[0],
+                     "the chunk's row source")
+    if not cuda:
+        return chunk_plain(rows, rows_idx, mask, acc, refs)
+    out = torch.empty_like(acc)
+    if out.numel():
+        head = ((rows.data_ptr(),) if refs is None
+                else (rows.data_ptr(), refs.data_ptr()))
+        _build.launch(symbol, *head, rows_idx.data_ptr(), mask.data_ptr(),
+                      acc.data_ptr(), out.data_ptr(), Q * nb, L, W,
+                      acc.shape[2], num_planes(L), rows.device.index or 0,
+                      _stream(rows.device))
+        launches[name] += 1
+    return out
+
+
+def chunk_lookup_score_multi(arena: torch.Tensor, rows_idx: torch.Tensor,
+                             mask: torch.Tensor, acc: torch.Tensor, *,
+                             range_checked: bool = False) -> torch.Tensor:
+    """One term chunk fused-gathered from a resident tile: arena int32
+    [R, W], rows_idx / mask int32 [Q, nb, Lc], acc int32 [Q, nb, Wp, 32]
+    -> acc + the chunk's counts. Replaces the Pallas
+    ``chunk_lookup_score_multi``."""
+    _check("arena", arena, (2,))
+    return _chunk("chunk_lookup_score_multi", "cobs_chunk_lookup", arena,
+                  None, rows_idx, mask, acc, range_checked)
+
+
+def chunk_lookup_score_multi_compressed(
+        dict_rows: torch.Tensor, refs: torch.Tensor, rows_idx: torch.Tensor,
+        mask: torch.Tensor, acc: torch.Tensor, *,
+        range_checked: bool = False) -> torch.Tensor:
+    """``chunk_lookup_score_multi`` over a resident rowdict pair (dict
+    [D, W], refs [R]), reading row r as ``dict[refs[r]]``. ``refs`` must
+    lie in [0, D), which the tile cache checks when it stages the pair.
+    Replaces the Pallas ``chunk_lookup_score_multi_compressed``."""
+    _check("dict_rows", dict_rows, (2,))
+    _check("refs", refs, (1,))
+    return _chunk("chunk_lookup_score_multi_compressed",
+                  "cobs_chunk_lookup_comp", dict_rows, refs, rows_idx, mask,
+                  acc, range_checked)
+
+
+def chunk_dedup_score(uniq: torch.Tensor, indir: torch.Tensor,
+                      mask: torch.Tensor, acc: torch.Tensor, *,
+                      range_checked: bool = False) -> torch.Tensor:
+    """One term chunk read through ``indir`` from the chunk's unique rows:
+    uniq int32 [U, W], indir / mask int32 [Q, nb, Lc], acc int32
+    [Q, nb, Wp, 32] -> acc + the chunk's counts. Replaces the Pallas
+    ``chunk_dedup_score``."""
+    _check("uniq", uniq, (2,))
+    return _chunk("chunk_dedup_score", "cobs_chunk_dedup", uniq, None,
+                  indir, mask, acc, range_checked)
