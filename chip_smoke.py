@@ -37,12 +37,22 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    ``run_shard_major`` over all 128 queries at threshold 0.8 and top 10 on
    the dense index, the raw store through a cache bounded at its tallest
    shard (each shard staged once) and the rowdict store, plus one sweep
-   suspended after every shard and resumed. The store directories are
-   deleted after the chunked executors' trace;
-8. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
+   suspended after every shard and resumed;
+8. drives the single-host QueryServer ("[serve]"), its counters from 0,
+   with default settings: the dense index under the serving mix (plus 8
+   top_k requests) and under overlapping reads (8 windows of 1,000 bases,
+   32 reads of 150 bases each at uniform starts, about 4.8x coverage, sent
+   window by window), the raw store through a tile cache of half its bytes
+   and the rowdict store with ``compressed=True`` under overlapping reads.
+   Every response must equal the QueryEngine's, every read find its
+   source, the reads dispatch the row-dedup pair (``dedup``, ``dedup_c``)
+   and the mix the fused lookup; each dedup-path kernel call equals its
+   plain version. The store directories are deleted after this phase;
+9. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
    torch.profiler (device time, the top device and host operations; the
    chunked executors under cProfile too), and times each kernel at the
-   main path's shapes beside its bound and its plain version.
+   main path's shapes beside its bound, its plain version and, for the
+   gathers, ``torch.index_select``.
 
 It prints the card's name and power limit and a ``{"kernels": ...}`` line,
 writes its measurements to ``chiprun_out/chip_smoke.json``, and ends with
@@ -89,11 +99,19 @@ KERNELS = {
                                  "chunk_lookup_kernel"),
     "chunk_lookup_score_multi_compressed": (795, "_chunk_multi_comp_kernel",
                                             "chunk_lookup_comp_kernel"),
+    "gather_rows": (368, "_gather_kernel", "gather_kernel"),
+    "dedup_score": (426, "_dedup_score_kernel", "dedup_kernel"),
+    "gather_rows_compressed": (486, "kernel (inside gather_rows_compressed)",
+                               "gather_comp_kernel"),
 }
 CHUNK_KERNELS = ("chunk_dedup_score", "chunk_lookup_score_multi",
                  "chunk_lookup_score_multi_compressed")
 MAIN_KERNELS = ("unpack_score", "vertical_score", "lookup_score_blocks",
                 "lookup_score_multi", "lookup_score")
+DEDUP_KERNELS = ("gather_rows", "gather_rows_compressed", "dedup_score")
+# the [serve] phase's overlapping reads: 8 windows of 1,000 bases, 32 reads
+# of 150 bases a window at uniform starts (about 4.8x coverage)
+READ_WINDOWS, WINDOW_LEN, READS_PER_WINDOW, READ_LEN = 8, 1000, 32, 150
 OUT_DIR = ROOT / "chiprun_out"       # measurements; listed in .gitignore
 # the out-of-core path: stores under OUT_DIR, deleted at the end
 STORE_DIR = OUT_DIR / "smoke_stores"
@@ -710,17 +728,19 @@ def phase_store(rt, torch, corpus, queries, origin, chk: KernelCheck):
 # --------------------------------------------------------------------------
 
 class ChunkRecorder:
-    """Inside ``with``, keeps the arguments of every call of the chunk
-    wrappers (the executors look them up at call time), so that the
-    kernels can be held against their plain versions and timed at the
-    path's own shapes afterwards. It launches nothing itself."""
+    """Inside ``with``, keeps the arguments of every call of the named
+    wrappers (the chunk wrappers unless ``names`` says otherwise; the
+    executors and ops look them up at call time), so that the kernels can
+    be held against their plain versions and timed at the path's own
+    shapes afterwards. It launches nothing itself."""
 
-    def __init__(self, kernels):
+    def __init__(self, kernels, names=CHUNK_KERNELS):
         self.k = kernels
-        self.calls = {n: [] for n in CHUNK_KERNELS}
+        self.names = names
+        self.calls = {n: [] for n in names}
 
     def __enter__(self):
-        self.saved = {n: getattr(self.k, n) for n in CHUNK_KERNELS}
+        self.saved = {n: getattr(self.k, n) for n in self.names}
         for n, fn in self.saved.items():
             def rec(*args, _n=n, _fn=fn, **kw):
                 self.calls[_n].append(args)
@@ -1041,6 +1061,356 @@ def phase_bulk(rt, torch, index, stores, queries, base, chk):
 
 
 # --------------------------------------------------------------------------
+# The single-host QueryServer and its row-dedup path
+# --------------------------------------------------------------------------
+
+def overlapping_reads(corpus, seed: int, limit: int | None = None):
+    """A sequencing run's reads: READ_WINDOWS windows of WINDOW_LEN bases,
+    one from each of as many seeded source documents (among the first
+    ``limit``), each read READS_PER_WINDOW times as READ_LEN-base reads at
+    uniform starts. Returns [(reads, source document)] window by window."""
+    rng = np.random.default_rng(seed)
+    docs = corpus.documents[:limit] if limit else corpus.documents
+    eligible = [i for i, d in enumerate(docs) if len(d) >= WINDOW_LEN]
+    windows = []
+    for d in rng.choice(eligible, size=READ_WINDOWS, replace=False):
+        w0 = int(rng.integers(0, len(docs[d]) - WINDOW_LEN + 1))
+        starts = rng.integers(0, WINDOW_LEN - READ_LEN + 1, READS_PER_WINDOW)
+        windows.append(([docs[d][w0 + int(s):w0 + int(s) + READ_LEN]
+                         for s in starts], int(d)))
+    return windows
+
+
+class DedupPlans:
+    """Inside ``with``, keeps (dedup rate, unique rows, gathers) of every
+    batch plan the server makes (``server.plan_dedup_batch`` is looked up
+    at call time). It changes nothing the server computes."""
+
+    def __init__(self, server_mod):
+        self.mod = server_mod
+        self.plans = []
+
+    def __enter__(self):
+        self.saved = self.mod.plan_dedup_batch
+
+        def rec(*args, **kw):
+            dp = self.saved(*args, **kw)
+            self.plans.append((dp.dedup_rate, dp.n_unique, dp.n_gathers))
+            return dp
+        self.mod.plan_dedup_batch = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.plan_dedup_batch = self.saved
+
+
+def serve_groups(server, groups):
+    """Closed loop: submit each group's requests, drain, collect. Returns
+    the responses in submission order and the wall seconds."""
+    out = []
+    t0 = time.perf_counter()
+    for group in groups:
+        ids = [server.submit(p, **kw) for p, kw in group]
+        server.drain()
+        resp = server.pop_responses()
+        out += [resp[i] for i in ids]
+    return out, time.perf_counter() - t0
+
+
+def run_server(rt, torch, index, config, groups, want, what, rec):
+    """Serve ``groups`` twice through one QueryServer: a warm pass, then,
+    after ``reset_metrics(clear_caches=True)``, the measured pass with the
+    dedup wrappers recorded by ``rec``. Every response must be OK and equal
+    ``want`` (same order). Returns the server, the measured responses, the
+    record and the batch dedup plans of the measured pass."""
+    server = rt.QueryServer(index, config)
+    for label in ("warm", "measured"):
+        if label == "measured":
+            server.reset_metrics(clear_caches=True)
+            with rec, DedupPlans(rt.server_mod) as plans:
+                resp, secs = serve_groups(server, groups)
+        else:
+            resp, secs = serve_groups(server, groups)
+        check(all(r.status == rt.Status.OK for r in resp),
+              f"[serve:{what}] {label}: a response is not OK")
+        check(all(same_result(r.result, w) for r, w in zip(resp, want)),
+              f"[serve:{what}] {label}: a response differs from the "
+              "QueryEngine's")
+    torch.cuda.synchronize()
+    e2e = [r.latency_s for r in resp]
+    service = [r.service_s for r in resp]
+    rates = [p[0] for p in plans.plans]
+    tiles = server.tiles
+    m = {"requests": len(resp), "wall_s": secs,
+         "queries_per_s": len(resp) / secs,
+         "p50_e2e_ms": pct_ms(e2e, 50), "p99_e2e_ms": pct_ms(e2e, 99),
+         "p50_service_ms": pct_ms(service, 50),
+         "p99_service_ms": pct_ms(service, 99),
+         "dispatch": dict(server.planner.dispatch_counts),
+         "dedup_rates": rates,
+         "unique_rows": sum(p[1] for p in plans.plans),
+         "gathers": sum(p[2] for p in plans.plans),
+         "tile_faults": tiles.faults,
+         "raw_bytes_staged": tiles.raw_bytes_staged,
+         "comp_bytes_staged": tiles.comp_bytes_staged}
+    log(f"[serve:{what}] {len(resp)} requests equal the QueryEngine's; "
+        f"{m['queries_per_s']:.1f} queries/s; e2e p50 {m['p50_e2e_ms']:.3f} "
+        f"ms, p99 {m['p99_e2e_ms']:.3f} ms; service p50 "
+        f"{m['p50_service_ms']:.3f} ms, p99 {m['p99_service_ms']:.3f} ms; "
+        f"dispatch {m['dispatch']}")
+    log(f"[serve:{what}] batch dedup rates "
+        f"{[round(r, 3) for r in rates]}; {m['unique_rows']} unique rows "
+        f"against {m['gathers']} gathers; {tiles.faults} tile faults, "
+        f"{tiles.raw_bytes_staged} raw + {tiles.comp_bytes_staged} "
+        "compressed bytes staged (both passes)")
+    return server, resp, m, plans.plans
+
+
+def dedup_plain(k, name, args):
+    """The plain version of dedup-path wrapper ``name`` on its call's
+    args."""
+    return {"gather_rows": k.gather_plain,
+            "gather_rows_compressed": k.gather_comp_plain,
+            "dedup_score": k.dedup_plain}[name](*args)
+
+
+def check_dedup_calls(k, chk, calls: dict, what: str) -> None:
+    for name, recs in calls.items():
+        for args in recs:
+            chk.compare(name, getattr(k, name)(*args),
+                        dedup_plain(k, name, args),
+                        f"{what}, {[list(a.shape) for a in args]}")
+
+
+def check_dedup_ragged(torch, k, chk) -> None:
+    """The three dedup-path kernels at ragged shapes: W = 3, 33, 40, 130;
+    U = 8 and 1,024; row sets of k = 2 for the gathers."""
+    g = torch.Generator().manual_seed(13)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int64).to(torch.int32).to(DEV)
+
+    for W in (3, 33, 40, 130):
+        for U in (8, 1024):
+            R, D = 3 * U + 5, U + 3
+            arena, dct = ints(-2 ** 31, 2 ** 31, R, W), ints(-2 ** 31,
+                                                            2 ** 31, D, W)
+            refs = ints(0, D, R)
+            calls = {"gather_rows": [], "gather_rows_compressed": [],
+                     "dedup_score": []}
+            for idx in (ints(0, R, U), ints(0, R, U, 2)):
+                calls["gather_rows"].append((arena, idx))
+                calls["gather_rows_compressed"].append((dct, refs, idx))
+            uniq = ints(-2 ** 31, 2 ** 31, U, W)
+            for Q, nb, L in ((3, 2, 17), (32, 1, 128)):
+                calls["dedup_score"].append(
+                    (uniq, ints(0, U, Q, nb, L), ints(0, 2, Q, nb, L)))
+            check_dedup_calls(k, chk, calls, f"ragged W={W} U={U}")
+
+
+def dedup_vs_fused(torch, k, lib, gather_args, dedup_args) -> dict:
+    """One recorded dedup batch: the dedup pair (gather + indirected
+    score) against ``lookup_score_multi`` on the same batch with the
+    indices expanded (uniq_rows[indir]), both by direct launches, timed
+    in turns (pair, fused, fused, pair) with CUDA events."""
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    arena, uniq_idx = gather_args
+    _, indir, mask = dedup_args
+    U, W = uniq_idx.shape[0], arena.shape[1]
+    Q, nb, L = indir.shape
+    planes = k.num_planes(L)
+    idx = uniq_idx.long()[indir.long()].to(torch.int32).contiguous()
+    uniq = torch.empty((U, W), dtype=torch.int32, device=DEV)
+    out_d = torch.empty((Q, nb, W, 32), dtype=torch.int32, device=DEV)
+    out_f = torch.empty_like(out_d)
+
+    def pair():
+        lib.cobs_gather_rows(arena.data_ptr(), uniq_idx.data_ptr(),
+                             uniq.data_ptr(), U, 1, W, dev, stream)
+        lib.cobs_dedup_score(uniq.data_ptr(), indir.data_ptr(),
+                             mask.data_ptr(), out_d.data_ptr(), Q * nb, L, W,
+                             planes, dev, stream)
+
+    def fused():
+        lib.cobs_lookup(arena.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                        out_f.data_ptr(), Q * nb, L, W, planes, dev, stream)
+
+    pair()
+    fused()
+    torch.cuda.synchronize()
+    check(torch.equal(out_d, out_f),
+          "the dedup pair != lookup_score_multi on the expanded indices")
+    times = {"pair": [], "fused": []}
+    for name in ("pair", "fused", "fused", "pair"):
+        times[name].append(loop_ms(torch, [pair if name == "pair"
+                                           else fused] * 64))
+    pair_ms = statistics.mean(times["pair"])
+    fused_ms = statistics.mean(times["fused"])
+    live = int(mask.count_nonzero())
+    return {"shape": f"indir [{Q}, {nb}, {L}], uniq [{U}, {W}], arena "
+                     f"{list(arena.shape)}",
+            "pair_ms": pair_ms, "fused_ms": fused_ms,
+            "unique_rows": U, "live_cells": live}
+
+
+def same_shapes(calls, n: int = 8):
+    """Up to ``n`` recorded calls whose arguments have the first call's
+    shapes."""
+    first = [a.shape for a in calls[0]]
+    return [c for c in calls if [a.shape for a in c] == first][:n]
+
+
+def trace_serve(torch, rt, index, mix_group, read_group) -> dict:
+    """Where a served batch's time goes: one group of the mix and one
+    window of reads through a warm default server, timed, then under
+    torch.profiler (device time by op against the un-profiled wall time:
+    the device's busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+    server = rt.QueryServer(index, rt.ServerConfig())
+    out = {}
+    for what, group in (("mix group", mix_group), ("read window",
+                                                   read_group)):
+        serve_groups(server, [group])                # warm
+        server.reset_metrics(clear_caches=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_groups(server, [group])
+        wall_us = (time.perf_counter() - t0) * 1e6
+        server.reset_metrics(clear_caches=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            serve_groups(server, [group])
+            torch.cuda.synchronize()
+        server.reset_metrics(clear_caches=True)
+        device, n_dev = {}, {}
+        for ev in prof.events():
+            if str(ev.device_type).endswith("CUDA"):
+                device[ev.name] = (device.get(ev.name, 0.0)
+                                   + ev.time_range.elapsed_us())
+                n_dev[ev.name] = n_dev.get(ev.name, 0) + 1
+        dev_us = sum(device.values())
+        host = sorted(((e.key, e.self_cpu_time_total)
+                       for e in prof.key_averages()), key=lambda kv: -kv[1])
+        out[what] = {
+            "requests": len(group), "wall_us": wall_us, "device_us": dev_us,
+            "device_busy_share": dev_us / wall_us,
+            "device_top_us": [(n, t, n_dev[n]) for n, t in sorted(
+                device.items(), key=lambda kv: -kv[1])[:6]],
+            "host_self_top_us": host[:8]}
+        log(f"[trace:serve {what}] {len(group)} requests: wall "
+            f"{wall_us:.0f} us, device {dev_us:.0f} us (busy share "
+            f"{dev_us / wall_us:.3f}); top device ops (us, count): "
+            + "; ".join(f"{n[:44]} {t:.0f} ({c})" for n, t, c in
+                        out[what]["device_top_us"]))
+        log(f"[trace:serve {what}] top host ops by self time (us): "
+            + "; ".join(f"{n[:40]} {t:.0f}" for n, t in
+                        out[what]["host_self_top_us"]))
+    return out
+
+
+def phase_serve(rt, torch, corpus, index, stores, queries, origin, chk):
+    """The single-host QueryServer with the launch counters from 0: the
+    dense index under the disjoint serving mix and overlapping reads, the
+    raw store (tile cache bounded at half of it) and the rowdict store
+    (compressed=True) under overlapping reads. Returns the record, this
+    path's launches and the dedup kernels' timing inputs."""
+    k = rt.kernels
+    raw, comp = stores["raw"], stores["comp"]
+    reads = overlapping_reads(corpus, SEED + 15)
+    comp_reads = overlapping_reads(corpus, SEED + 16, limit=COMP_BASE)
+
+    def read_groups(windows):
+        return [[(r, {}) for r in rs] for rs, _ in windows]
+
+    def read_positives(resp, windows, what):
+        src = [d for rs, d in windows for _ in rs]
+        for r, d in zip(resp, src):
+            check(d in set(r.result.doc_ids.tolist()),
+                  f"[serve:{what}] a read missed its source document {d}")
+
+    # the engines' answers, before the counters start
+    dense_eng = rt.QueryEngine(index, method="lookup")
+    n_top = 8
+    mix_groups = [[(q, {}) for q in queries[i:i + BATCH]]
+                  for i in range(0, len(queries), BATCH)]
+    mix_groups.append([(q, {"top_k": TOP}) for q in queries[:n_top]])
+    mix_want = ([dense_eng.search(q, THRESHOLD) for q in queries]
+                + [dense_eng.top_k(q, TOP) for q in queries[:n_top]])
+    def flat(windows):
+        return [r for rs, _ in windows for r in rs]
+
+    reads_want = [dense_eng.search(r, THRESHOLD) for r in flat(reads)]
+    raw_eng = rt.QueryEngine(raw, method="lookup")
+    raw_want = [raw_eng.search(r, THRESHOLD) for r in flat(reads)]
+    comp_eng = rt.QueryEngine(comp, method="lookup", compressed=True)
+    comp_want = [comp_eng.search(r, THRESHOLD) for r in flat(comp_reads)]
+
+    k.reset_launches()                      # the serving path starts here
+    out, recs = {}, {}
+    cases = (
+        ("dense mix", index, rt.ServerConfig(), mix_groups, mix_want),
+        ("dense reads", index, rt.ServerConfig(), read_groups(reads),
+         reads_want),
+        ("raw", raw, rt.ServerConfig(tile_cache_bytes=raw.storage.nbytes()
+                                     // 2), read_groups(reads), raw_want),
+        ("comp", comp, rt.ServerConfig(compressed=True),
+         read_groups(comp_reads), comp_want))
+    for what, idx, cfg, groups, want in cases:
+        recs[what] = ChunkRecorder(k, DEDUP_KERNELS)
+        server, resp, m, _ = run_server(rt, torch, idx, cfg, groups, want,
+                                        what, recs[what])
+        out[what] = m
+        if what == "dense mix":
+            n_pos = check_positives([r.result for r in resp[:len(queries)]],
+                                    origin, "[serve:dense mix]")
+            log(f"[serve:dense mix] {n_pos} positives all found; "
+                f"{n_top} top_k={TOP} requests equal QueryEngine.top_k")
+        else:
+            read_positives(resp, comp_reads if what == "comp" else reads,
+                           what)
+    d = out["dense mix"]["dispatch"]
+    check(d.get("lookup", 0) > 0,
+          f"[serve:dense mix] dispatch {d}: no fused lookup batch")
+    for what, method in (("dense reads", "dedup"), ("raw", "dedup"),
+                         ("comp", "dedup_c")):
+        check(out[what]["dispatch"].get(method, 0) > 0,
+              f"[serve:{what}] dispatch {out[what]['dispatch']}: no "
+              f"{method}")
+    launches = dict(k.launches)             # the serving path ends here
+    out["launches"] = launches
+    for name in DEDUP_KERNELS + ("lookup_score_multi",):
+        check(launches[name] > 0, f"the serving path never launched {name}")
+    log(f"[serve] launches {launches}")
+    for what, rec in recs.items():
+        check_dedup_calls(k, chk, rec.calls, f"serve {what}")
+    check_dedup_ragged(torch, k, chk)
+    log("[serve:kernels] every gather_rows, gather_rows_compressed and "
+        "dedup_score call of the serving path equals its plain version, "
+        "and so do the ragged shapes")
+    out["trace"] = trace_serve(torch, rt, index, mix_groups[0],
+                               read_groups(reads)[0])
+    dense_calls = recs["dense reads"].calls
+    out["dedup_vs_fused"] = vs = dedup_vs_fused(
+        torch, k, rt.build.library(), dense_calls["gather_rows"][0],
+        dense_calls["dedup_score"][0])
+    log(f"[serve:dense] one dedup batch ({vs['shape']}, {vs['live_cells']} "
+        f"live cells): dedup pair {vs['pair_ms'] * 1e3:.2f} us against "
+        f"lookup_score_multi on the expanded indices "
+        f"{vs['fused_ms'] * 1e3:.2f} us")
+    # timing inputs: up to 8 recorded calls of one shape (for the rowdict
+    # gather, on the store's tallest shard)
+    comp_calls = recs["comp"].calls["gather_rows_compressed"]
+    tallest = max(a[1].shape[0] for a in comp_calls)
+    timing = {"gather_rows": same_shapes(dense_calls["gather_rows"]),
+              "dedup_score": same_shapes(dense_calls["dedup_score"]),
+              "gather_rows_compressed": same_shapes(
+                  [a for a in comp_calls if a[1].shape[0] == tallest])}
+    return out, launches, timing
+
+
+# --------------------------------------------------------------------------
 # Timing
 # --------------------------------------------------------------------------
 
@@ -1298,8 +1668,104 @@ def chunk_case(torch, k, lib, name, recs):
             nops)
 
 
+def gather_case(torch, k, lib, name, recs):
+    """A timing case of a dedup-path gather over calls recorded on the
+    serving path: (name, shape, direct launches, plain call, bytes,
+    operations, library call). The bytes are each index (and refs entry)
+    read once, each distinct source row read once and the rows written
+    once. The library call is one ``torch.index_select`` of the same rows:
+    for the rowdict gather, of the dictionary at refs[uniq_idx], composed
+    outside the call."""
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    comp = name == "gather_rows_compressed"
+    fn = lib.cobs_gather_rows_comp if comp else lib.cobs_gather_rows
+    calls = []
+    for args in recs:
+        rows, idx = args[0], args[-1]
+        U, W = idx.shape[0], rows.shape[1]
+        kk = 1 if idx.dim() == 1 else idx.shape[1]
+        o = torch.empty((U, W), dtype=torch.int32, device=DEV)
+        head = ((rows.data_ptr(), args[1].data_ptr()) if comp
+                else (rows.data_ptr(),))
+        calls.append(lambda h=head, i=idx, o=o, U=U, kk=kk, W=W: fn(
+            *h, i.data_ptr(), o.data_ptr(), U, kk, W, dev, stream))
+    args = recs[0]
+    rows, idx = args[0], args[-1]
+    U, W = idx.shape[0], rows.shape[1]
+    src = args[1][idx.long()] if comp else idx
+    nbytes = (idx.numel() * 4 * (2 if comp else 1)
+              + src.unique().numel() * W * 4 + U * W * 4)
+    if comp:
+        shape = (f"uniq_idx {list(idx.shape)}, dict {list(rows.shape)}, "
+                 f"refs [{args[1].shape[0]}]")
+        plain = lambda: k.gather_comp_plain(*args)
+    else:
+        shape = f"uniq_idx {list(idx.shape)}, arena {list(rows.shape)}"
+        plain = lambda: k.gather_plain(*args)
+    library = None
+    if idx.dim() == 1:
+        flat_src = src.contiguous()
+        library = lambda: torch.index_select(rows, 0, flat_src)
+    return (name, shape, calls, plain, nbytes, idx.numel() * W, library)
+
+
+def dedup_case(torch, k, lib, recs):
+    """A timing case of ``dedup_score`` over calls recorded on the
+    serving path. The bytes are each indirection and mask read once, each
+    distinct uniq row the live terms touch read once and the counts
+    written once."""
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = []
+    for uniq, indir, msk in recs:
+        Q, nb, L = indir.shape
+        W = uniq.shape[1]
+        o = torch.empty((Q, nb, W, 32), dtype=torch.int32, device=DEV)
+        calls.append(lambda u=uniq, i=indir, m=msk, o=o, c=Q * nb, L=L, W=W:
+                     lib.cobs_dedup_score(u.data_ptr(), i.data_ptr(),
+                                          m.data_ptr(), o.data_ptr(), c, L,
+                                          W, k.num_planes(L), dev, stream))
+    uniq, indir, msk = recs[0]
+    W = uniq.shape[1]
+    cells, L = indir.numel() // indir.shape[-1], indir.shape[-1]
+    active = int(msk.count_nonzero())
+    touched = indir[msk != 0].unique().numel()
+    nbytes = indir.numel() * 8 + touched * W * 4 + cells * W * 32 * 4
+    planes = k.num_planes(L)
+    return ("dedup_score",
+            f"indir {list(indir.shape)}, uniq {list(uniq.shape)}", calls,
+            lambda: k.dedup_plain(*recs[0]), nbytes,
+            2 * planes * (active * W + cells * W * 32))
+
+
+def library_kernel_ms(torch, library, reps: int = 256):
+    """Device time of one library call: the profiler's mean kernel record
+    over ``reps`` calls times the kernels a call launches, else CUDA
+    events around the calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(4):
+        library()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            library()
+        torch.cuda.synchronize()
+    times = [ev.time_range.elapsed_us() for ev in prof.events()
+             if str(ev.device_type).endswith("CUDA")
+             and "memcpy" not in ev.name.lower()
+             and "memset" not in ev.name.lower()]
+    if times:
+        # the mean kernel record times the kernels a call launches (a
+        # session may lose a few records, as for the wrappers' kernels)
+        per_call = max(1, round(len(times) / reps))
+        return sum(times) / len(times) * per_call / 1e3, "torch.profiler"
+    return loop_ms(torch, [library] * reps), "cuda events"
+
+
 def phase_timings(rt, torch, index, classic, queries, max_err, launches,
-                  comp, chunk) -> list[dict]:
+                  comp, chunk, serve) -> list[dict]:
     k = rt.kernels
     q_mod = rt.query
     lib = rt.build.library()
@@ -1367,9 +1833,17 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
     # store's first batch (dedup), the dense and rowdict bulk sweeps
     cases += [chunk_case(torch, k, lib, name, chunk[name])
               for name in CHUNK_KERNELS]
+    # the serving path's dedup batches: overlapping reads on the dense
+    # index (gather, score) and on the rowdict store (decoding gather)
+    cases += [gather_case(torch, k, lib, "gather_rows",
+                          serve["gather_rows"]),
+              dedup_case(torch, k, lib, serve["dedup_score"]),
+              gather_case(torch, k, lib, "gather_rows_compressed",
+                          serve["gather_rows_compressed"])]
     profiled_kernel_ms(torch, cases[0][2][:1], "")   # the profiler's first use
     out = []
-    for name, shape, calls, plain, nbytes, nops in cases:
+    for name, shape, calls, plain, nbytes, nops, *library in cases:
+        library = library[0] if library else None
         for c in calls:                                  # warm-up
             c()
         torch.cuda.synchronize()
@@ -1382,6 +1856,9 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
             log(f"[time] {name}: the profiler saw no {symbol} among the "
                 f"device events {seen}")
         plain_ms = event_ms(torch, plain, 7)
+        library_ms, library_source = (library_kernel_ms(torch, library)
+                                      if library is not None
+                                      else (None, None))
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / INT32_OPS_PER_S * 1e3
         rec = {
@@ -1397,7 +1874,7 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "operations": nops, "shape": shape,
-            "library_ms": None,
+            "library_ms": library_ms, "library_ms_source": library_source,
             "profiler_device_events": None if prof is not None else seen,
         }
         out.append(rec)
@@ -1405,8 +1882,12 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
             f"({rec['ms_source']}, {n_records} of {len(reps)} launches "
             f"recorded), back-to-back {ev * 1e3:.2f} us/launch, "
             f"plain {plain_ms * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.4f}"
-            f" us ({rec['bound_by']}: {nbytes} bytes, {nops} ops)")
-    log("[time] library_ms is null: no single PyTorch call computes these "
+            f" us ({rec['bound_by']}: {nbytes} bytes, {nops} ops)"
+            + ("" if library_ms is None else
+               f", torch.index_select {library_ms * 1e3:.2f} us "
+               f"({library_source})"))
+    log("[time] library_ms is null except for the two gathers "
+        "(torch.index_select): no single PyTorch call computes the other "
         "functions")
     return out
 
@@ -1431,7 +1912,11 @@ class _Port:
         from repro_torch.data import make_corpus, make_queries
         from repro_torch.index import build_compact_streaming
         from repro_torch.kernels import _build, bitslice_score, ops
+        from repro_torch.serve import QueryServer, ServerConfig, Status
+        from repro_torch.serve import server as server_mod
         self.IndexParams, self.QueryEngine = IndexParams, QueryEngine
+        self.QueryServer, self.ServerConfig = QueryServer, ServerConfig
+        self.Status, self.server_mod = Status, server_mod
         self.build_classic, self.build_compact = build_classic, build_compact
         self.hashing, self.query, self.codec = hashing, query, codec
         self.DeviceTileCache, self.load_index_v2 = DeviceTileCache, \
@@ -1479,6 +1964,8 @@ def main() -> int:
             chunk["chunk_dedup_score"] = dedup_calls
             record["trace_chunked"] = phase_trace_chunked(
                 rt, torch, stores, index, queries)
+            record["serve"], serve_launches, serve = phase_serve(
+                rt, torch, corpus, index, stores, queries, origin, chk)
         finally:
             shutil.rmtree(STORE_DIR, ignore_errors=True)
         record["trace"] = phase_trace(
@@ -1486,10 +1973,11 @@ def main() -> int:
             main_path["methods"]["lookup"]["p50_search_ms"])
         # each kernel's launches on the paths that drive it
         launches = {n: main_path["launches"][n] + store_launches[n]
-                    + prune_launches[n] + bulk_launches[n] for n in KERNELS}
+                    + prune_launches[n] + bulk_launches[n]
+                    + serve_launches[n] for n in KERNELS}
         record["kernels"] = phase_timings(
             rt, torch, index, extra["classic k=1"], queries, chk.err,
-            launches, comp, chunk)
+            launches, comp, chunk, serve)
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -18,6 +18,11 @@ scores in shard order, which is the global slot order. With
 ``compressed=True``, rowdict-coded shards stay in their (dict, refs) form
 on the device and are scored by the fused-decode kernels.
 
+Batches whose queries share rows can run through the row-dedup pair
+(``plan_dedup_batch``, ``run_paged_dedup``): each unique row of the batch is
+gathered once, then every cell is scored through an indirection into those
+rows. The single-host ``QueryServer`` picks it per batch.
+
 Two executors score terms in chunks into running counts on the device:
 ``run_paged_pruned`` (the engine's ``*_pruned`` searches) drops blocks
 that can no longer reach their cutoff, and ``run_shard_major`` stages
@@ -239,6 +244,162 @@ def _check_rows(rows: np.ndarray, n_rows: int, what: str) -> None:
     if rows.size and (int(rows.min()) < 0 or int(rows.max()) >= n_rows):
         raise IndexError(f"planned rows [{int(rows.min())}, "
                          f"{int(rows.max())}] outside {what}'s {n_rows} rows")
+
+
+# --------------------------------------------------------------------------
+# Batched row dedup (the server's batch path when its queries share rows)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class DedupBatchPlan:
+    """Unique-row addressing for one micro-batch.
+
+    The fused multi-query kernel reads an arena row per (query, block,
+    term) cell. This plan collapses the batch's rows into ``uniq_rows``
+    (each arena row listed once, padded with row 0 to a power of two, at
+    least 8) and the ``indir`` indirection that maps every cell back to its
+    unique row, so the kernels read U rows from the arena instead of
+    Q*nb*L. For k > 1 the unit is the k-row set a term addresses:
+    ``uniq_rows`` is [U_pad, k] and equal sets collapse to one gather and
+    AND."""
+    uniq_rows: np.ndarray   # int32 [U_pad] (k=1) or [U_pad, k] (0-padded)
+    indir: np.ndarray       # int32 [Q, nb, L] -> index into uniq_rows
+    mask: np.ndarray        # int32 [Q, nb, L] (1 = live term)
+    n_unique: int           # live unique rows or row sets (<= U_pad)
+    n_gathers: int          # live (query, block, term) cells
+
+    @property
+    def dedup_rate(self) -> float:
+        """Share of the fused path's row reads the dedup path saves:
+        1 - unique/total. 0 = fully disjoint batch, ->1 = heavy sharing."""
+        if self.n_gathers == 0:
+            return 0.0
+        return 1.0 - self.n_unique / self.n_gathers
+
+
+def plan_dedup_batch(terms: np.ndarray, n_valid: np.ndarray,
+                     row_offset: np.ndarray, block_width: np.ndarray,
+                     n_hashes: int = 1) -> DedupBatchPlan:
+    """Host-side dedup planning for one padded micro-batch, the JAX numpy
+    line for line.
+
+    terms uint32 [Q, L, 2]; n_valid int32 [Q] (a padded query has 0, so
+    none of its cells is live); (row_offset, block_width) the addressing
+    of the arena, or of one shard, already rebased. The host hash mirror
+    is bit-identical to the device hash, so the planned rows are the rows
+    the fused kernel would read."""
+    terms = np.asarray(terms)
+    n_valid = np.asarray(n_valid, dtype=np.int32)
+    Q, L = terms.shape[0], terms.shape[1]
+    k = int(n_hashes)
+    w = np.asarray(block_width).astype(np.uint32)
+    off = np.asarray(row_offset).astype(np.uint32)
+    valid = np.arange(L, dtype=np.int32)[None, :] < n_valid[:, None]
+    if k == 1:
+        h = hashing.hash_terms_np(terms, 1)[..., 0]           # [Q, L]
+        rows = (h[..., None] % w[None, None, :] + off)        # [Q, L, nb]
+        rows = np.swapaxes(rows, 1, 2).astype(np.int64)       # [Q, nb, L]
+        cell_shape = rows.shape
+        mask = np.broadcast_to(valid[:, None, :], cell_shape)
+        live = rows[mask]                                     # [N]
+        uniq, inv = np.unique(live, return_inverse=True)
+        uniq_pad = np.zeros(_pad_unique(uniq.size), dtype=np.int32)
+        uniq_pad[: uniq.size] = uniq
+    else:
+        h = hashing.hash_terms_np(terms, k)                   # [Q, L, k]
+        rows = (h[..., None] % w + off)                       # [Q, L, k, nb]
+        rows = np.transpose(rows, (0, 3, 1, 2)).astype(np.int64)  # [Q,nb,L,k]
+        cell_shape = rows.shape[:3]
+        mask = np.broadcast_to(valid[:, None, :], cell_shape)
+        live = rows[mask]                                     # [N, k]
+        uniq, inv = np.unique(live, axis=0, return_inverse=True)
+        uniq_pad = np.zeros((_pad_unique(uniq.shape[0]), k), dtype=np.int32)
+        uniq_pad[: uniq.shape[0]] = uniq
+    indir = np.zeros(cell_shape, dtype=np.int32)
+    indir[mask] = np.asarray(inv).reshape(-1).astype(np.int32)
+    return DedupBatchPlan(uniq_rows=uniq_pad, indir=indir,
+                          mask=mask.astype(np.int32),
+                          n_unique=int(uniq.shape[0]),
+                          n_gathers=int(live.shape[0]))
+
+
+def make_dedup_score_fn(word_block: int | None = None):
+    """Returns score(arena, uniq_rows, indir, mask, *, range_checked=False)
+    -> int32 [Q, n_slots]: the dedup pair (``gather_rows`` then
+    ``dedup_score``), equal to the fused multi-query kernel on the
+    expanded indices. ``word_block`` is validated and has no effect."""
+
+    def score(arena, uniq_rows, indir, mask, *, range_checked=False):
+        return ops.bitslice_lookup_score_dedup(
+            arena, uniq_rows, indir, mask, word_block=word_block,
+            range_checked=range_checked)
+
+    return score
+
+
+def make_comp_dedup_score_fn(word_block: int | None = None):
+    """Compressed twin of ``make_dedup_score_fn``: score(dict_rows, refs,
+    uniq_rows, indir, mask, *, range_checked=False) -> int32 [Q, n_slots],
+    each unique row (or ANDed row set) decoded out of the shard's
+    dictionary inside the gather kernel."""
+
+    def score(dict_rows, refs, uniq_rows, indir, mask, *,
+              range_checked=False):
+        return ops.bitslice_lookup_score_dedup_comp(
+            dict_rows, refs, uniq_rows, indir, mask, word_block=word_block,
+            range_checked=range_checked)
+
+    return score
+
+
+def dedup_inputs(dp: DedupBatchPlan, n_rows: int, device: torch.device,
+                 what: str) -> tuple[torch.Tensor, ...]:
+    """A plan's (uniq_rows, indir, mask) on ``device``, uniq_rows checked
+    on the host against the ``n_rows`` rows of the tile (or refs) they
+    index, so the kernels may skip their own check (indir indexes
+    uniq_rows by construction)."""
+    _check_rows(dp.uniq_rows, n_rows, what)
+    return tuple(_to_device(a, device)
+                 for a in (dp.uniq_rows, dp.indir, dp.mask))
+
+
+def run_paged_dedup(tiles: DeviceTileCache, shard_plans: list[ShardPlan], fn,
+                    terms: np.ndarray, n_valid: np.ndarray,
+                    n_hashes: int = 1, fn_comp=None) -> np.ndarray:
+    """Dedup-scored batch across shard tiles, the dedup analogue of
+    ``run_paged``: per shard, plan the unique rows against the shard's
+    rebased addressing, score through ``fn`` (from
+    ``make_dedup_score_fn``), prefetch the next tile while the shard's
+    kernels run, and concatenate the per-shard slot scores, which come to
+    the host after every shard has been launched.
+
+    With ``fn_comp`` (from ``make_comp_dedup_score_fn``) dict-coded shards
+    stage their (dict, refs) pair and score through the decoding gather;
+    raw shards keep ``fn``. ``n_hashes`` > 1 plans row-set dedup."""
+    storage = tiles.storage
+    comp = [fn_comp is not None
+            and storage.shard_codec(sp.shard) in _codec.DICT_CODECS
+            for sp in shard_plans]
+    parts = []
+    for i, sp in enumerate(shard_plans):
+        dp = plan_dedup_batch(terms, n_valid, sp.row_offset, sp.block_width,
+                              n_hashes=n_hashes)
+        what = f"shard {sp.shard}'s tile"
+        if comp[i]:
+            dict_rows, refs = tiles.get_compressed(sp.shard)
+            out = fn_comp(dict_rows, refs,
+                          *dedup_inputs(dp, refs.shape[0], tiles.device, what),
+                          range_checked=True)
+        else:
+            tile = tiles.get(sp.shard)
+            out = fn(tile, *dedup_inputs(dp, tile.shape[0], tiles.device,
+                                         what), range_checked=True)
+        if i + 1 < len(shard_plans):
+            nxt = shard_plans[i + 1].shard
+            (tiles.prefetch_compressed if comp[i + 1]
+             else tiles.prefetch)(nxt)
+        parts.append(out)
+    return np.concatenate([p.cpu().numpy() for p in parts], axis=1)
 
 
 # --------------------------------------------------------------------------

@@ -41,6 +41,12 @@ _SIGNATURES = {
     # stream
     "cobs_chunk_lookup_comp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _P),
+    # arena, uniq_idx, out, U, k, W, device, stream
+    "cobs_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # dict, refs, uniq_idx, out, U, k, W, device, stream
+    "cobs_gather_rows_comp": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # uniq, indir, mask, out, cells, L, W, n_planes, device, stream
+    "cobs_dedup_score": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -2,9 +2,9 @@
 PyTorch version beside it.
 
 The query's per-term work is: fetch the term's bit-sliced row (W words =
-32W documents) and add each document's bit into its int32 count. Seven
-CUDA kernels (``csrc/bitslice_score.cu``) carry the ten Pallas entry
-points of ``repro.kernels.bitslice_score`` that the query paths reach:
+32W documents) and add each document's bit into its int32 count. Ten
+CUDA kernels (``csrc/bitslice_score.cu``) carry the thirteen Pallas entry
+points of ``repro.kernels.bitslice_score``:
 
 * ``unpack_score``   - shift-and-mask each word into 32 counts;
 * ``vertical_score`` - Harley-Seal counter planes, expanded once;
@@ -15,7 +15,11 @@ points of ``repro.kernels.bitslice_score`` that the query paths reach:
   without expanding the tile;
 * ``chunk_lookup_score_multi``, ``chunk_lookup_score_multi_compressed``,
   ``chunk_dedup_score`` - one term chunk of the pruned and bulk
-  executors, added into a running-count buffer ``acc``.
+  executors, added into a running-count buffer ``acc``;
+* ``gather_rows``, ``gather_rows_compressed``, ``dedup_score`` - the
+  server's row-dedup pair: each unique row (or ANDed row set) of a batch
+  gathered once, then every cell scored through an indirection into
+  those rows.
 
 Each wrapper checks device, dtype (int32 words), shape and contiguity.
 For a CPU tensor it calls the plain version; for a CUDA tensor it launches
@@ -39,7 +43,8 @@ launches: dict[str, int] = {"unpack_score": 0, "vertical_score": 0,
                             "lookup_score_multi_compressed": 0,
                             "chunk_lookup_score_multi": 0,
                             "chunk_lookup_score_multi_compressed": 0,
-                            "chunk_dedup_score": 0}
+                            "chunk_dedup_score": 0, "gather_rows": 0,
+                            "gather_rows_compressed": 0, "dedup_score": 0}
 
 
 def reset_launches() -> None:
@@ -419,3 +424,112 @@ def chunk_dedup_score(uniq: torch.Tensor, indir: torch.Tensor,
     _check("uniq", uniq, (2,))
     return _chunk("chunk_dedup_score", "cobs_chunk_dedup", uniq, None,
                   indir, mask, acc, range_checked)
+
+
+# --------------------------------------------------------------------------
+# the row-dedup pair: unique rows gathered once into uniq [U, W], then every
+# (query, block) cell scored through indir [Q, nb, L] into uniq
+# --------------------------------------------------------------------------
+
+def gather_plain(arena: torch.Tensor, uniq_idx: torch.Tensor
+                 ) -> torch.Tensor:
+    """Plain version of ``gather_rows``: ``arena[uniq_idx]`` for a flat
+    list [U]; for row sets [U, k] the k gathered rows of each set ANDed."""
+    g = arena[uniq_idx.long()]
+    if uniq_idx.dim() == 1:
+        return g
+    out = g[:, 0]
+    for j in range(1, uniq_idx.shape[1]):
+        out = out & g[:, j]
+    return out.contiguous()
+
+
+def gather_comp_plain(dict_rows: torch.Tensor, refs: torch.Tensor,
+                      uniq_idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``gather_rows_compressed``: ``gather_plain`` of
+    ``dict_rows`` at ``refs[uniq_idx]``."""
+    return gather_plain(dict_rows, refs[uniq_idx.long()])
+
+
+def dedup_plain(uniq: torch.Tensor, indir: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``dedup_score``: the fused lookup's plain version
+    with ``uniq`` in the arena's place."""
+    return lookup_plain(uniq, indir, mask)
+
+
+def _gather(name: str, symbol: str, rows: torch.Tensor,
+            refs: torch.Tensor | None, uniq_idx: torch.Tensor,
+            range_checked: bool) -> torch.Tensor:
+    """Shared checks and launch of the two gathers. uniq_idx indexes
+    ``refs`` when given, else ``rows``; on a CUDA tensor the range check
+    costs one device sync, which callers that checked the indices on the
+    host before the upload skip with ``range_checked``."""
+    _check("uniq_idx", uniq_idx, (1, 2))
+    if uniq_idx.dim() == 2 and uniq_idx.shape[1] == 0:
+        raise ValueError("uniq_idx [U, k] needs k >= 1")
+    cuda = _on_cuda(rows, uniq_idx, *(() if refs is None else (refs,)))
+    if not cuda or not range_checked:
+        _check_range(uniq_idx, (rows if refs is None else refs).shape[0],
+                     "the gather's row source")
+    if not cuda:
+        return (gather_plain(rows, uniq_idx) if refs is None
+                else gather_comp_plain(rows, refs, uniq_idx))
+    U, W = uniq_idx.shape[0], rows.shape[1]
+    k = 1 if uniq_idx.dim() == 1 else uniq_idx.shape[1]
+    out = torch.empty((U, W), dtype=torch.int32, device=rows.device)
+    if out.numel():
+        head = ((rows.data_ptr(),) if refs is None
+                else (rows.data_ptr(), refs.data_ptr()))
+        _build.launch(symbol, *head, uniq_idx.data_ptr(), out.data_ptr(), U,
+                      k, W, rows.device.index or 0, _stream(rows.device))
+        launches[name] += 1
+    return out
+
+
+def gather_rows(arena: torch.Tensor, uniq_idx: torch.Tensor, *,
+                range_checked: bool = False) -> torch.Tensor:
+    """Unique-row gather: arena int32 [R, W], uniq_idx int32 [U] -> int32
+    [U, W], each listed row read once. A [U, k] list of row sets gives the
+    AND of each set's k rows (one launch where the JAX wrapper gathers k
+    times and ANDs). Replaces the Pallas ``gather_rows``."""
+    _check("arena", arena, (2,))
+    return _gather("gather_rows", "cobs_gather_rows", arena, None, uniq_idx,
+                   range_checked)
+
+
+def gather_rows_compressed(dict_rows: torch.Tensor, refs: torch.Tensor,
+                           uniq_idx: torch.Tensor, *,
+                           range_checked: bool = False) -> torch.Tensor:
+    """``gather_rows`` over a rowdict pair (dict [D, W], refs [R]): out[u]
+    = dict[refs[uniq_idx[u]]], ANDed over k for [U, k] sets. ``refs`` must
+    lie in [0, D), which the tile cache checks when it stages the pair.
+    Replaces the Pallas ``gather_rows_compressed``."""
+    _check("dict_rows", dict_rows, (2,))
+    _check("refs", refs, (1,))
+    return _gather("gather_rows_compressed", "cobs_gather_rows_comp",
+                   dict_rows, refs, uniq_idx, range_checked)
+
+
+def dedup_score(uniq: torch.Tensor, indir: torch.Tensor, mask: torch.Tensor,
+                *, range_checked: bool = False) -> torch.Tensor:
+    """Indirected multi-query score: uniq int32 [U, W] (from a gather),
+    indir / mask int32 [Q, nb, L] -> int32 [Q, nb, W, 32]; a term counts
+    where its mask is non-zero. Replaces the Pallas ``dedup_score``."""
+    _check("uniq", uniq, (2,))
+    _check_indices(indir, mask, 3)
+    cuda = _on_cuda(uniq, indir, mask)
+    if not cuda or not range_checked:
+        _check_range(indir, uniq.shape[0], "uniq")
+    if not cuda:
+        return dedup_plain(uniq, indir, mask)
+    W = uniq.shape[1]
+    Q, nb, L = indir.shape
+    out = torch.empty((Q, nb, W, 32), dtype=torch.int32, device=uniq.device)
+    if out.numel():
+        _build.launch("cobs_dedup_score", uniq.data_ptr(), indir.data_ptr(),
+                      mask.data_ptr(), out.data_ptr(), Q * nb, L, W,
+                      num_planes(L), uniq.device.index or 0,
+                      _stream(uniq.device))
+        launches["dedup_score"] += 1
+    return out

@@ -20,6 +20,9 @@
 //   chunk_lookup_comp_kernel <- _chunk_multi_comp_kernel
 //                               (chunk_lookup_score_multi_compressed)
 //   chunk_dedup_kernel       <- _chunk_dedup_kernel (chunk_dedup_score)
+//   gather_kernel      <- _gather_kernel (gather_rows)
+//   gather_comp_kernel <- the kernel of gather_rows_compressed
+//   dedup_kernel       <- _dedup_score_kernel (dedup_score)
 //
 // What bounds them on an H100: bytes. A query reads L rows of W words and
 // writes W * 32 counts; the arithmetic is a few integer operations per
@@ -47,6 +50,17 @@
 // taking the arena's place; its own __global__ name lets the profiler
 // and the launch counters tell the two uses apart.
 //
+// The row-dedup pair of the single-host server: gather_kernel copies each
+// unique arena row (or ANDs each unique k-row set) of a batch once into a
+// compact matrix uniq [U, W]; dedup_kernel then scores every (query,
+// block) cell through the indirection indir [Q, nb, L] into uniq. The
+// gather is a copy: its bound is (U * k indices + U * k rows read + U rows
+// written) / 3.35 TB/s, and one thread a word keeps every load and store
+// coalesced along a row. gather_comp_kernel reads row r as dict[refs[r]],
+// one more 4-byte load a row. dedup_kernel is the fused lookup's body over
+// uniq instead of the arena (chunk_dedup_kernel without acc); its bound is
+// the fused lookup's with rows counted once per distinct uniq row.
+//
 // Design common to all:
 // * The TPU kernels carry counter planes across a sequential grid axis
 //   over terms. CUDA blocks run in no order, so the term loop runs inside
@@ -69,6 +83,7 @@ namespace {
 constexpr int kMaxPlanes = 16;   // counts up to 65535 terms
 constexpr int kThreads = 128;    // threads per block, vertical and lookup
 constexpr int kUnpackThreads = 256;
+constexpr int kGatherThreads = 256;
 constexpr int kPad = 33;         // shared-memory row stride: no bank conflicts
 
 // Ripple-carry one row word into the thread's counter planes (Harley-Seal
@@ -267,6 +282,59 @@ chunk_dedup_kernel(const uint32_t* __restrict__ uniq,
                            total, n_planes);
 }
 
+// The dedup path's indirected score: lookup_kernel over the unique-row
+// matrix uniq [U, W], with indir [cells, L] indexing uniq's rows.
+__global__ void __launch_bounds__(kThreads)
+dedup_kernel(const uint32_t* __restrict__ uniq,
+             const int32_t* __restrict__ indir,
+             const int32_t* __restrict__ mask, int32_t* __restrict__ out,
+             int L, int W, long long total, int n_planes) {
+  lookup_body<false, false>(uniq, nullptr, indir, mask, nullptr, out, L, W,
+                            W, total, n_planes);
+}
+
+// Unique-row gather: thread g writes word g % W of out row u = g / W, the
+// AND of the k rows uniq_idx[u * k .. u * k + k - 1] (k = 1: a copy). With
+// kDecode row r is read as rows[refs[r]]. Neighbouring threads move
+// neighbouring words of one row, so loads and stores are coalesced and the
+// ragged word edge needs no padding.
+template <bool kDecode>
+__device__ __forceinline__ void gather_body(
+    const uint32_t* __restrict__ rows, const int32_t* __restrict__ refs,
+    const int32_t* __restrict__ uniq_idx, uint32_t* __restrict__ out, int W,
+    int k, long long total) {
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (g >= total) return;
+  const long long u = g / W;
+  const int w = static_cast<int>(g % W);
+  const int32_t* set = uniq_idx + u * k;
+  uint32_t v = 0xFFFFFFFFu;
+  for (int j = 0; j < k; ++j) {
+    long long r = set[j];
+    if constexpr (kDecode) r = refs[r];
+    v &= rows[r * W + w];
+  }
+  out[g] = v;
+}
+
+__global__ void __launch_bounds__(kGatherThreads)
+gather_kernel(const uint32_t* __restrict__ arena,
+              const int32_t* __restrict__ uniq_idx,
+              uint32_t* __restrict__ out, int W, int k, long long total) {
+  gather_body<false>(arena, nullptr, uniq_idx, out, W, k, total);
+}
+
+// The same over a rowdict pair (dict [D, W], refs [R]).
+__global__ void __launch_bounds__(kGatherThreads)
+gather_comp_kernel(const uint32_t* __restrict__ dict,
+                   const int32_t* __restrict__ refs,
+                   const int32_t* __restrict__ uniq_idx,
+                   uint32_t* __restrict__ out, int W, int k,
+                   long long total) {
+  gather_body<true>(dict, refs, uniq_idx, out, W, k, total);
+}
+
 unsigned int blocks_for(long long items, int threads) {
   return static_cast<unsigned int>((items + threads - 1) / threads);
 }
@@ -377,6 +445,52 @@ extern "C" int cobs_chunk_dedup(const void* uniq, const void* indir,
       static_cast<const uint32_t*>(uniq), static_cast<const int32_t*>(indir),
       static_cast<const int32_t*>(mask), static_cast<const int32_t*>(acc),
       static_cast<int32_t*>(out), L, W, Wp, total, n_planes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dedup pair: uniq_idx [U, k] (k = 1 for a flat [U] list), out
+// [U, W]; then uniq [U, W], indir and mask [cells, L], out [cells, W, 32].
+extern "C" int cobs_gather_rows(const void* arena, const void* uniq_idx,
+                                void* out, int U, int k, int W, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(U) * W;
+  gather_kernel<<<blocks_for(total, kGatherThreads), kGatherThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(arena),
+      static_cast<const int32_t*>(uniq_idx), static_cast<uint32_t*>(out), W,
+      k, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cobs_gather_rows_comp(const void* dict, const void* refs,
+                                     const void* uniq_idx, void* out, int U,
+                                     int k, int W, int device,
+                                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(U) * W;
+  gather_comp_kernel<<<blocks_for(total, kGatherThreads), kGatherThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(dict), static_cast<const int32_t*>(refs),
+      static_cast<const int32_t*>(uniq_idx), static_cast<uint32_t*>(out), W,
+      k, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cobs_dedup_score(const void* uniq, const void* indir,
+                                const void* mask, void* out, int cells,
+                                int L, int W, int n_planes, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(cells) * W;
+  dedup_kernel<<<blocks_for(total, kThreads), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(uniq), static_cast<const int32_t*>(indir),
+      static_cast<const int32_t*>(mask), static_cast<int32_t*>(out), L, W,
+      total, n_planes);
   return static_cast<int>(cudaGetLastError());
 }
 

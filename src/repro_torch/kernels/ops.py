@@ -89,6 +89,49 @@ def bitslice_lookup_score_multi_comp(dict_rows: torch.Tensor,
     return out.reshape(rows_idx.shape[0], -1)
 
 
+def _check_word_block(word_block: int | None) -> None:
+    """The JAX wrappers' tile width: validated, with no effect here (the
+    kernels mask the ragged word edge instead of padding to it)."""
+    if word_block is not None and int(word_block) < 1:
+        raise ValueError(f"word_block must be positive, got {word_block}")
+
+
+def bitslice_lookup_score_dedup(arena: torch.Tensor, uniq_rows: torch.Tensor,
+                                indir: torch.Tensor, mask: torch.Tensor,
+                                word_block: int | None = None, *,
+                                range_checked: bool = False) -> torch.Tensor:
+    """Row-dedup batched gather + score: (arena [R, W], uniq_rows int32 [U]
+    or [U, k], indir / mask int32 [Q, nb, L]) -> int32 [Q, nb * W * 32] in
+    (block, word, bit) slot order. ``gather_rows`` reads each unique row
+    (each k-row set, ANDed) once into uniq [U, W]; ``dedup_score`` scores
+    every cell through ``indir`` against it. Equal to
+    ``bitslice_lookup_score_multi(arena, uniq_rows[indir], mask)`` for
+    k = 1. ``range_checked`` says the caller checked uniq_rows against R
+    and indir against U on the host."""
+    _check_word_block(word_block)
+    uniq = _k.gather_rows(arena, uniq_rows, range_checked=range_checked)
+    out = _k.dedup_score(uniq, indir, mask, range_checked=range_checked)
+    return out.reshape(indir.shape[0], -1)
+
+
+def bitslice_lookup_score_dedup_comp(dict_rows: torch.Tensor,
+                                     refs: torch.Tensor,
+                                     uniq_rows: torch.Tensor,
+                                     indir: torch.Tensor, mask: torch.Tensor,
+                                     word_block: int | None = None, *,
+                                     range_checked: bool = False
+                                     ) -> torch.Tensor:
+    """``bitslice_lookup_score_dedup`` over a rowdict pair (dict [D, W],
+    refs [R]): ``gather_rows_compressed`` decodes each unique row (or k-row
+    set, ANDed) as ``dict[refs[r]]``, then the same ``dedup_score``.
+    int32 [Q, nb * W * 32]."""
+    _check_word_block(word_block)
+    uniq = _k.gather_rows_compressed(dict_rows, refs, uniq_rows,
+                                     range_checked=range_checked)
+    out = _k.dedup_score(uniq, indir, mask, range_checked=range_checked)
+    return out.reshape(indir.shape[0], -1)
+
+
 def and_rows(rows: torch.Tensor) -> torch.Tensor:
     """AND over the k hash rows: int32 [L, k, W] -> [L, W]."""
     return _ref.and_rows_ref(rows)

@@ -25,6 +25,7 @@ from repro_torch.core import (HostArena, IndexParams, QueryEngine,
                               build_classic, build_compact, index_from_numpy)
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitslice_score as k
+from repro_torch.serve import QueryServer
 
 torch.set_num_threads(2)
 
@@ -96,6 +97,10 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
         QueryEngine(index)
     with pytest.raises(RuntimeError, match="CUDA"):
         QueryEngine(index, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QueryServer(index)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QueryServer(index, device=None)
 
 
 @pytest.mark.parametrize("method", ["ref", "unpack", "vertical", "lookup"])
