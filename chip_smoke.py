@@ -12,7 +12,15 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    function, FPR 0.3, blocks of 1024 documents;
 3. holds every kernel against its plain PyTorch version on the card, on
    rows and indices drawn from that index and on the shapes of
-   ``tests/test_kernels.py``;
+   ``tests/test_kernels.py``; holds the split kernels (vertical, lookup)
+   where a split can go wrong: word tiles (W 1 to 384), term slices and
+   clusters (L 1 to 1,000, cluster sizes 1 to 8), 1 to 200 cells, masks
+   with zeros, and L of 65,535, 65,536 and 70,144 (against the plain
+   unpack of the gathered rows), plus a slice of more than 65,535 terms;
+   then answers a 70,100-base query (70,144 padded terms) on an
+   8-document index through the ``vertical`` and ``lookup`` engines and
+   one served request, equal to ``method="ref"``, and runs the slabbed
+   wrappers (fused decode, dedup, chunk) at that length ("[long]");
 4. runs the main path with every launch counter at 0: 128 queries of the
    serving traffic mix (40/80/160/320 bp, half true positives, half
    verified negatives) through ``search``, ``search_batch`` (batches of 32)
@@ -51,8 +59,13 @@ Run from a checkout of the repository on a machine with one CUDA card. It
 9. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
    torch.profiler (device time, the top device and host operations; the
    chunked executors under cProfile too), and times each kernel at the
-   main path's shapes beside its bound, its plain version and, for the
-   gathers, ``torch.index_select``.
+   main path's shapes (a CUDA graph of 64 launches, so no host gaps)
+   against its bound, its plain version and, for the gathers,
+   ``torch.index_select``; the split kernels also at vertical
+   rows [320, 8] and [32, 320, 64], each at cluster sizes 1, 2, 4 and 8
+   beside the size the entry point chooses, with their launch shape
+   (blocks, threads, cluster, word tile, slices, planes, shared memory,
+   registers).
 
 It prints the card's name and power limit and a ``{"kernels": ...}`` line,
 writes its measurements to ``chiprun_out/chip_smoke.json``, and ends with
@@ -62,6 +75,7 @@ line. Without CUDA, or outside a checkout, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -109,6 +123,19 @@ CHUNK_KERNELS = ("chunk_dedup_score", "chunk_lookup_score_multi",
 MAIN_KERNELS = ("unpack_score", "vertical_score", "lookup_score_blocks",
                 "lookup_score_multi", "lookup_score")
 DEDUP_KERNELS = ("gather_rows", "gather_rows_compressed", "dedup_score")
+# the wrappers of the split kernels (vertical_kernel, lookup_kernel)
+SPLIT_KERNELS = ("vertical_score", "lookup_score_blocks", "lookup_score_multi",
+                 "lookup_score")
+# where a split can go wrong: word tiles, term slices, clusters, cells
+SPLIT_WORDS = (1, 3, 8, 31, 32, 33, 64, 130, 384)
+SPLIT_TERMS = (1, 7, 63, 64, 65, 320, 1000)
+SPLIT_CELLS = (1, 2, 64, 200)
+LONG_TERMS = (65_535, 65_536, 70_144)
+CLUSTERS = (1, 2, 4, 8)
+LONG_BP = 70_100        # a query of 70,144 padded terms
+# at W = 32 (8 slices a block) one block of this many terms flushes its
+# counter planes: a slice passes 65,535 terms
+FLUSH_TERMS = 8 * 65_535 + 1000
 # the [serve] phase's overlapping reads: 8 windows of 1,000 bases, 32 reads
 # of 150 bases a window at uniform starts (about 4.8x coverage)
 READ_WINDOWS, WINDOW_LEN, READS_PER_WINDOW, READ_LEN = 8, 1000, 32, 150
@@ -187,10 +214,18 @@ def phase_build_kernels(rt) -> dict:
     rt.build.library()
     secs = time.perf_counter() - t0
     log(f"[build] {path.name} in {secs:.2f} s")
+    ptxas, kernel = {}, "?"
     for line in report.splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
-    return {"seconds": secs, "library": path.name}
+        if "Compiling entry function" in line:
+            # the mangled name holds the kernel's: ...<len><name>E<args>
+            m = re.search(r"\d+([A-Za-z_]+_kernel)E", line)
+            kernel = m.group(1) if m else line.strip()
+        elif "Used" in line or "spill" in line:
+            ptxas.setdefault(kernel, []).append(
+                line.split(":", 1)[-1].strip())
+    for kernel, lines in ptxas.items():
+        log(f"[build] ptxas {kernel}: {'; '.join(lines)}")
+    return {"seconds": secs, "library": path.name, "ptxas": ptxas}
 
 
 def phase_small_reference(rt, torch) -> None:
@@ -349,8 +384,253 @@ def phase_kernels_vs_plain(rt, torch, index, chk: KernelCheck) -> None:
                                                     mask),
                     k.lookup_comp_plain(dict_rows, refs, idx, mask),
                     f"D={D} R={R} Q={Q} nb={nb}")
+    check_split_kernels(rt, torch, chk, words, g)
     log(f"[kernels] every kernel equals its plain version: max_abs_err "
         f"{chk.err}")
+
+
+def unpack_rows_plain(k, rows):
+    """``unpack_score_plain`` of rows [..., L, W] in slabs of rows that
+    keep its 32-way expansion under 2^28 elements: the vectorised plain
+    count, for L where the ripple loop's plain version is too slow."""
+    slab = max(1, (1 << 28) // max(1, rows[..., :1, :].numel() * 32))
+    out = None
+    for a in range(0, max(rows.shape[-2], 1), slab):
+        part = k.unpack_score_plain(rows[..., a:a + slab, :])
+        out = part if out is None else out + part
+    return out
+
+
+def masked_rows(rows, idx, mask):
+    """The rows a fused lookup counts: rows[idx], zero where mask is 0."""
+    return rows[idx.long()] * (mask[..., None] != 0).to(rows.dtype)
+
+
+def split_direct(torch, lib, lookup, src, cs, idx=None, mask=None):
+    """One direct launch of cobs_lookup (src = the arena) or cobs_vertical
+    (src = rows [B, L, W]) at cluster size ``cs``; not counted."""
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    if lookup:
+        L, W = idx.shape[-1], src.shape[1]
+        out = torch.empty(idx.shape[:-1] + (W, 32), dtype=torch.int32,
+                          device=DEV)
+        err = lib.cobs_lookup(src.data_ptr(), idx.data_ptr(),
+                              mask.data_ptr(), out.data_ptr(),
+                              idx.numel() // max(L, 1), L, W, cs, dev,
+                              stream)
+    else:
+        B, L, W = src.shape
+        out = torch.empty((B, W, 32), dtype=torch.int32, device=DEV)
+        err = lib.cobs_vertical(src.data_ptr(), out.data_ptr(), B, L, W, cs,
+                                dev, stream)
+    check(err == 0, f"{'cobs_lookup' if lookup else 'cobs_vertical'} at "
+          f"cluster {cs}: CUDA error {err}")
+    return out
+
+
+def check_split_kernels(rt, torch, chk, words, g) -> None:
+    """vertical_score and the three fused lookups where a split can go
+    wrong: every word tiling of SPLIT_WORDS, term count of SPLIT_TERMS and
+    cell count of SPLIT_CELLS with masks holding zeros (and one mask of 3,
+    which counts), each cluster size at a few of them, the long L of
+    LONG_TERMS against the plain unpack of the gathered rows, and one slice
+    of more than 65,535 terms (the flush of full counter planes)."""
+    k = rt.kernels
+    lib = rt.build.library()
+    compare = chk.compare
+    t0 = time.perf_counter()
+    n = 0
+    for W in SPLIT_WORDS:
+        arena = words(512, W)
+        for L in SPLIT_TERMS:
+            for cells in SPLIT_CELLS:
+                idx = torch.randint(0, 512, (cells, L), generator=g,
+                                    dtype=torch.int32).to(DEV)
+                mask = (torch.rand((cells, L), generator=g) < 0.8).to(
+                    torch.int32).to(DEV)
+                mask[0, 0] = 0
+                mask[-1, -1] = 3
+                rows = words(cells, L, W)
+                what = f"split W={W} L={L} cells={cells}"
+                want_v = k.vertical_score_plain(rows)
+                want = k.lookup_plain(arena, idx, mask)
+                if cells == 1:
+                    compare("vertical_score", k.vertical_score(rows[0]),
+                            want_v[0], what)
+                    compare("lookup_score",
+                            k.lookup_score(arena, idx[0], mask[0]), want[0],
+                            what)
+                compare("vertical_score", k.vertical_score(rows), want_v,
+                        what)
+                compare("lookup_score_blocks",
+                        k.lookup_score_blocks(arena, idx, mask), want, what)
+                q = 2 if cells % 2 == 0 else 1
+                compare("lookup_score_multi", k.lookup_score_multi(
+                    arena, idx.reshape(cells // q, q, L),
+                    mask.reshape(cells // q, q, L)),
+                    want.reshape(cells // q, q, W, 32), what)
+                n += 1
+                if W in (1, 8, 33, 130) and L in (63, 320, 1000) \
+                        and cells <= 2:
+                    for cs in CLUSTERS:
+                        compare("vertical_score", split_direct(
+                            torch, lib, False, rows, cs), want_v,
+                            f"{what} cluster {cs}")
+                        compare("lookup_score_blocks", split_direct(
+                            torch, lib, True, arena, cs, idx, mask), want,
+                            f"{what} cluster {cs}")
+    log(f"[kernels:split] {n} (W, L, cells) shapes and the cluster sizes "
+        f"{CLUSTERS} equal the plain versions in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for L in LONG_TERMS:
+        for W, cells in ((1, 1), (8, 2), (33, 2)):
+            arena = words(4096, W)
+            idx = torch.randint(0, 4096, (cells, L), generator=g,
+                                dtype=torch.int32).to(DEV)
+            mask = (torch.rand((cells, L), generator=g) < 0.9).to(
+                torch.int32).to(DEV)
+            mask[0] = 1                       # cell 0 counts every term
+            arena[:, 0] |= 1                  # ... in document 0
+            rows = words(cells, L, W)
+            want_v = unpack_rows_plain(k, rows)
+            want = unpack_rows_plain(k, masked_rows(arena, idx, mask))
+            what = f"long W={W} L={L} cells={cells}"
+            check(L < 65_536 or int(want.max()) > 65_535,
+                  f"{what}: no count needs a 17th plane")
+            compare("vertical_score", k.vertical_score(rows), want_v, what)
+            compare("lookup_score_blocks",
+                    k.lookup_score_blocks(arena, idx, mask), want, what)
+            compare("lookup_score_multi",
+                    k.lookup_score_multi(arena, idx[None], mask[None]),
+                    want[None], what)
+            if cells == 1:
+                compare("lookup_score", k.lookup_score(arena, idx[0],
+                                                       mask[0]),
+                        want[0], what)
+                compare("vertical_score", k.vertical_score(rows[0]),
+                        want_v[0], what)
+    # a slice of more than 65,535 terms: one block (cluster 1) of
+    # FLUSH_TERMS terms at W = 32 flushes its planes
+    L, W = FLUSH_TERMS, 32
+    arena = words(4096, W)
+    idx = torch.randint(0, 4096, (1, L), generator=g,
+                        dtype=torch.int32).to(DEV)
+    mask = torch.ones((1, L), dtype=torch.int32, device=DEV)
+    rows = words(1, L, W)
+    check(rt.build.split_info(True, 1, L, W, 1, torch.cuda.current_device()
+                              )["planes"] == 16,
+          "the flush case does not fill 16 counter planes")
+    for cs in (1, 0):
+        what = f"flush W={W} L={L} cluster {cs or 'auto'}"
+        compare("lookup_score_blocks", split_direct(
+            torch, lib, True, arena, cs, idx, mask),
+            unpack_rows_plain(k, masked_rows(arena, idx, mask)), what)
+        compare("vertical_score", split_direct(torch, lib, False, rows, cs),
+                unpack_rows_plain(k, rows), what)
+    log(f"[kernels:long] L {LONG_TERMS} and a slice of {L // 8} terms "
+        f"(flushed) equal the plain unpack of the gathered rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_long_query(rt, torch, chk) -> dict:
+    """A query of more than 65,535 terms on the card: an 8-document compact
+    index (k = 15, one hash, FPR 0.3) whose first document is a random
+    70,100-base sequence, queried with that sequence (70,144 padded terms,
+    all counted for document 0: 17 counter planes) through the vertical and
+    lookup engines (search, search_batch beside a short query, top_k) and
+    one served request, each equal to ``method="ref"``; then the wrappers
+    that score such a query in slabs of 16-plane launches (fused decode,
+    dedup, chunk), each against the plain unpack of its gathered rows."""
+    k = rt.kernels
+    t0 = time.perf_counter()
+    corpus = rt.make_corpus(8, k=15, mean_length=400, sigma=1.0, seed=7)
+    codes = np.random.default_rng(16).integers(0, 4, size=LONG_BP,
+                                               dtype=np.uint8)
+    doc_terms = [rt.dna.document_terms([codes], 15)] + corpus.doc_terms[1:]
+    index = rt.build_compact(doc_terms, rt.IndexParams(1, 0.3, 15),
+                             block_docs=32, row_align=64)
+    short, thr = corpus.documents[3][:300], 0.001
+    ref = rt.QueryEngine(index, method="ref")
+    want = ([ref.search(codes, thr)] + ref.search_batch([short, codes], thr)
+            + [ref.top_k(codes, 5)])
+    n_terms = int(want[0].n_terms)
+    check(n_terms > 65_535 and int(want[-1].doc_ids[0]) == 0
+          and int(want[-1].scores[0]) > 65_535,
+          f"[long] the query's {n_terms} terms do not pass 16 planes")
+    out = {"terms": n_terms, "padded": -(-n_terms // 64) * 64,
+           "top_score": int(want[-1].scores[0])}
+    k.reset_launches()
+    for method in ("vertical", "lookup"):
+        eng = rt.QueryEngine(index, method=method)
+        got = ([eng.search(codes, thr)] + eng.search_batch([short, codes], thr)
+               + [eng.top_k(codes, 5)])
+        check(same_results(got, want), f"[long] {method} != ref")
+    server = rt.QueryServer(index, rt.ServerConfig())
+    rid = server.submit(codes, threshold=thr)
+    server.drain()
+    resp = server.pop_responses()[rid]
+    check(resp.status == rt.Status.OK and same_result(resp.result, want[0]),
+          "[long] the served request != ref")
+    out["engine_launches"] = {n: v for n, v in k.launches.items() if v}
+    out["served_method"] = resp.method
+    # the slabbed wrappers, L = 70,144: cell 0 counts every term, in
+    # document 0 of every row
+    g = torch.Generator().manual_seed(16)
+    L, W = out["padded"], 4
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int64).to(torch.int32).to(DEV)
+
+    dict_rows, uniq = ints(-2 ** 31, 2 ** 31, 300, W), ints(
+        -2 ** 31, 2 ** 31, 5000, W)
+    dict_rows[:, 0] |= 1
+    uniq[:, 0] |= 1
+    refs, idx = ints(0, 300, 5000), ints(0, 5000, 2, 1, L)
+    mask = ints(0, 2, 2, 1, L)
+    mask[0] = 1
+    acc = ints(0, 1000, 2, 1, 8, 32)
+    want_c = unpack_rows_plain(k, masked_rows(dict_rows[refs.long()], idx,
+                                              mask))
+    want_d = unpack_rows_plain(k, masked_rows(uniq, idx, mask))
+    want_acc, want_acc_c = acc.clone(), acc.clone()
+    want_acc[:, :, :W] += want_d
+    want_acc_c[:, :, :W] += want_c
+    check(int(want_d.max()) > 65_535, "[long] no slab count passes 65,535")
+    k.reset_launches()
+    chk.compare("lookup_score_multi_compressed",
+                k.lookup_score_multi_compressed(dict_rows, refs, idx, mask),
+                want_c, f"long L={L}")
+    chk.compare("lookup_score_blocks_compressed",
+                k.lookup_score_blocks_compressed(dict_rows, refs, idx[:, 0],
+                                                 mask[:, 0]),
+                want_c[:, 0], f"long L={L}")
+    chk.compare("dedup_score", k.dedup_score(uniq, idx, mask), want_d,
+                f"long L={L}")
+    chk.compare("chunk_dedup_score",
+                k.chunk_dedup_score(uniq, idx, mask, acc), want_acc,
+                f"long L={L}")
+    chk.compare("chunk_lookup_score_multi",
+                k.chunk_lookup_score_multi(uniq, idx, mask, acc), want_acc,
+                f"long L={L}")
+    chk.compare("chunk_lookup_score_multi_compressed",
+                k.chunk_lookup_score_multi_compressed(dict_rows, refs, idx,
+                                                      mask, acc),
+                want_acc_c, f"long L={L}")
+    slabs = {n: v for n, v in k.launches.items() if v}
+    check(all(v == 2 for v in slabs.values()) and len(slabs) == 6,
+          f"[long] the slabbed wrappers launched {slabs}, not 2 slabs each")
+    out["slab_launches"] = slabs
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[long] a {LONG_BP}-base query ({n_terms} terms, padded to {L}; "
+        f"document 0 scores {out['top_score']}): vertical and lookup "
+        f"search, search_batch, top_k and a served request "
+        f"({resp.method}) equal ref; launches {out['engine_launches']}; "
+        f"slabbed wrappers at L={L} equal the plain counts, 2 launches "
+        f"each; {out['seconds']:.1f} s")
+    return out
 
 
 def run_method(rt, index, method, queries, **engine_kw):
@@ -1213,9 +1493,10 @@ def dedup_vs_fused(torch, k, lib, gather_args, dedup_args) -> dict:
     """One recorded dedup batch: the dedup pair (gather + indirected
     score) against ``lookup_score_multi`` on the same batch with the
     indices expanded (uniq_rows[indir]), both by direct launches, timed
-    in turns (pair, fused, fused, pair) with CUDA events."""
+    in turns (pair, fused, fused, pair) with CUDA events: around 64
+    host-launched calls (as in earlier runs) and around a CUDA graph of
+    64 calls (device time alone)."""
     dev = torch.cuda.current_device()
-    stream = torch.cuda.current_stream().cuda_stream
     arena, uniq_idx = gather_args
     _, indir, mask = dedup_args
     U, W = uniq_idx.shape[0], arena.shape[1]
@@ -1227,6 +1508,7 @@ def dedup_vs_fused(torch, k, lib, gather_args, dedup_args) -> dict:
     out_f = torch.empty_like(out_d)
 
     def pair():
+        stream = torch.cuda.current_stream().cuda_stream
         lib.cobs_gather_rows(arena.data_ptr(), uniq_idx.data_ptr(),
                              uniq.data_ptr(), U, 1, W, dev, stream)
         lib.cobs_dedup_score(uniq.data_ptr(), indir.data_ptr(),
@@ -1235,7 +1517,8 @@ def dedup_vs_fused(torch, k, lib, gather_args, dedup_args) -> dict:
 
     def fused():
         lib.cobs_lookup(arena.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                        out_f.data_ptr(), Q * nb, L, W, planes, dev, stream)
+                        out_f.data_ptr(), Q * nb, L, W, k.CLUSTER_AUTO, dev,
+                        torch.cuda.current_stream().cuda_stream)
 
     pair()
     fused()
@@ -1243,15 +1526,20 @@ def dedup_vs_fused(torch, k, lib, gather_args, dedup_args) -> dict:
     check(torch.equal(out_d, out_f),
           "the dedup pair != lookup_score_multi on the expanded indices")
     times = {"pair": [], "fused": []}
-    for name in ("pair", "fused", "fused", "pair"):
-        times[name].append(loop_ms(torch, [pair if name == "pair"
-                                           else fused] * 64))
-    pair_ms = statistics.mean(times["pair"])
-    fused_ms = statistics.mean(times["fused"])
+    graphs = {"pair": [], "fused": []}
+    with on_side_stream(torch):
+        for name in ("pair", "fused", "fused", "pair"):
+            fn = pair if name == "pair" else fused
+            times[name].append(loop_ms(torch, [fn] * 64))
+            graphs[name].append(graph_ms(torch, [fn]))
+    torch.cuda.synchronize()
     live = int(mask.count_nonzero())
     return {"shape": f"indir [{Q}, {nb}, {L}], uniq [{U}, {W}], arena "
                      f"{list(arena.shape)}",
-            "pair_ms": pair_ms, "fused_ms": fused_ms,
+            "pair_ms": statistics.mean(times["pair"]),
+            "fused_ms": statistics.mean(times["fused"]),
+            "pair_graph_ms": statistics.mean(graphs["pair"]),
+            "fused_graph_ms": statistics.mean(graphs["fused"]),
             "unique_rows": U, "live_cells": live}
 
 
@@ -1398,7 +1686,9 @@ def phase_serve(rt, torch, corpus, index, stores, queries, origin, chk):
     log(f"[serve:dense] one dedup batch ({vs['shape']}, {vs['live_cells']} "
         f"live cells): dedup pair {vs['pair_ms'] * 1e3:.2f} us against "
         f"lookup_score_multi on the expanded indices "
-        f"{vs['fused_ms'] * 1e3:.2f} us")
+        f"{vs['fused_ms'] * 1e3:.2f} us per host-launched call; from a CUDA "
+        f"graph {vs['pair_graph_ms'] * 1e3:.2f} against "
+        f"{vs['fused_graph_ms'] * 1e3:.2f} us")
     # timing inputs: up to 8 recorded calls of one shape (for the rowdict
     # gather, on the store's tallest shard)
     comp_calls = recs["comp"].calls["gather_rows_compressed"]
@@ -1557,26 +1847,37 @@ def loop_ms(torch, calls, rounds: int = 5) -> float:
     return statistics.median(per)
 
 
-def profiled_kernel_ms(torch, calls, kernel_name: str
-                       ) -> tuple[float | None, int, dict]:
-    """Mean device time of ``kernel_name`` over the kernel records
-    torch.profiler delivers for the calls (None when it delivers none),
-    the number of those records (a session may lose a few of them), and
-    the count of every device event name the session saw."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for c in calls:
-            c()
-        torch.cuda.synchronize()
-    seen, times = {}, []
-    for ev in prof.events():
-        if str(ev.device_type).endswith("CUDA"):
-            seen[ev.name] = seen.get(ev.name, 0) + 1
-            if kernel_name in ev.name:
-                times.append(ev.time_range.elapsed_us())
-    return ((sum(times) / len(times) / 1e3 if times else None), len(times),
-            seen)
+def graph_ms(torch, calls, n: int = 64, rounds: int = 5) -> float:
+    """Median over rounds of (events around one replay of a CUDA graph of
+    n launches cycling over ``calls``) / n: a kernel's device time per
+    launch with no host gaps between launches (a graph node adds well
+    under a microsecond). The calls must launch on the current stream,
+    and it must not be the default stream (which cannot be captured)."""
+    s = torch.cuda.current_stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s, capture_error_mode="thread_local"):
+        for i in range(n):
+            calls[i % len(calls)]()
+    graph.replay()
+    s.synchronize()
+    per = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(s)
+        graph.replay()
+        b.record(s)
+        b.synchronize()
+        per.append(a.elapsed_time(b) / n)
+    return statistics.median(per)
+
+
+def on_side_stream(torch):
+    """A context that makes a fresh stream current (after the current
+    one's work), for timing by ``graph_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    return torch.cuda.stream(side)
 
 
 def lookup_case(torch, k, lib, name, what, src, rows, refs=None):
@@ -1596,9 +1897,11 @@ def lookup_case(torch, k, lib, name, what, src, rows, refs=None):
         head = ((rows.data_ptr(),) if refs is None
                 else (rows.data_ptr(), refs.data_ptr()))
         fn = lib.cobs_lookup if refs is None else lib.cobs_lookup_comp
-        calls.append(lambda f=fn, h=head, r=ridx, m=msk, o=o, c=cells, L=L:
-                     f(*h, r.data_ptr(), m.data_ptr(), o.data_ptr(), c, L, W,
-                       k.num_planes(L), dev, stream))
+        # the split kernel takes a cluster size, the 16-plane one planes
+        last = k.CLUSTER_AUTO if refs is None else k.num_planes(L)
+        calls.append(lambda f=fn, h=head, r=ridx, m=msk, o=o, c=cells, L=L,
+                     last=last: f(*h, r.data_ptr(), m.data_ptr(),
+                                  o.data_ptr(), c, L, W, last, dev, stream))
     ridx, msk = src[0]
     L = ridx.shape[-1]
     cells = ridx.numel() // L
@@ -1739,39 +2042,14 @@ def dedup_case(torch, k, lib, recs):
             2 * planes * (active * W + cells * W * 32))
 
 
-def library_kernel_ms(torch, library, reps: int = 256):
-    """Device time of one library call: the profiler's mean kernel record
-    over ``reps`` calls times the kernels a call launches, else CUDA
-    events around the calls."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(4):
-        library()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            library()
-        torch.cuda.synchronize()
-    times = [ev.time_range.elapsed_us() for ev in prof.events()
-             if str(ev.device_type).endswith("CUDA")
-             and "memcpy" not in ev.name.lower()
-             and "memset" not in ev.name.lower()]
-    if times:
-        # the mean kernel record times the kernels a call launches (a
-        # session may lose a few records, as for the wrappers' kernels)
-        per_call = max(1, round(len(times) / reps))
-        return sum(times) / len(times) * per_call / 1e3, "torch.profiler"
-    return loop_ms(torch, [library] * reps), "cuda events"
-
-
 def phase_timings(rt, torch, index, classic, queries, max_err, launches,
-                  comp, chunk, serve) -> list[dict]:
+                  comp, chunk, serve) -> tuple[list[dict], list[dict]]:
+    """Each wrapper's kernel timed at its path's shapes (the kernels line),
+    and the split kernels' extra vertical cases (not in that line)."""
     k = rt.kernels
     q_mod = rt.query
     lib = rt.build.library()
     arena = index.storage.full_device()
-    stream = torch.cuda.current_stream().cuda_stream
-    dev = torch.cuda.current_device()
 
     def plan(idx, term_sets):
         """Main-path inputs of a batch of term sets on ``idx``."""
@@ -1789,28 +2067,10 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
     classic_singles = [plan(classic, [t]) for t in long_sets]
 
     cases = []
-    W = arena.shape[1]
     # unpack / vertical on the gathered rows of one 320-term query
-    for name, sym, plain in (("unpack_score", "cobs_unpack",
-                              k.unpack_score_plain),
-                             ("vertical_score", "cobs_vertical",
-                              k.vertical_score_plain)):
-        flats = [s[2][0] for s in singles]
-        L, Wf = flats[0].shape
-        outs = [torch.empty((1, Wf, 32), dtype=torch.int32, device=DEV)
-                for _ in flats]
-        extra = (k.num_planes(L),) if name == "vertical_score" else ()
-        # bind sym and extra now: a late-bound closure would launch the
-        # last loop iteration's kernel for every case
-        calls = [(lambda f=f, o=o, fn=getattr(lib, sym), extra=extra: fn(
-            f.data_ptr(), o.data_ptr(), 1, L, Wf, *extra, dev, stream))
-            for f, o in zip(flats, outs)]
-        planes = k.num_planes(L)
-        ops = (2 * L * Wf * 32 if name == "unpack_score"
-               else 2 * planes * (L * Wf + Wf * 32))
-        cases.append((name, f"rows [{L}, {Wf}]", calls,
-                      lambda p=plain, f=flats[0]: p(f),
-                      L * Wf * 4 + Wf * 32 * 4, ops))
+    flats = [s[2][0] for s in singles]
+    cases += [rows_case(torch, k, lib, "unpack_score", flats),
+              rows_case(torch, k, lib, "vertical_score", flats)]
     # fused lookups on the compact index (single and batch), the classic
     # index, and a rowdict shard of the compressed store
     cases += [
@@ -1840,25 +2100,39 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
               dedup_case(torch, k, lib, serve["dedup_score"]),
               gather_case(torch, k, lib, "gather_rows_compressed",
                           serve["gather_rows_compressed"])]
-    profiled_kernel_ms(torch, cases[0][2][:1], "")   # the profiler's first use
-    out = []
-    for name, shape, calls, plain, nbytes, nops, *library in cases:
-        library = library[0] if library else None
+    # the split kernels at more shapes, not in the kernels line: vertical on
+    # rows [320, 8] (the raw store's one-block tiles; here the gathered
+    # rows of the 256-document classic index) and on a batch of 32
+    # 320-term queries [32, 320, 64]
+    extra_cases = [
+        rows_case(torch, k, lib, "vertical_score",
+                  [s[2][0] for s in classic_singles]),
+        rows_case(torch, k, lib, "vertical_score",
+                  [plan(index, long_sets)[2]])]
+    # each split case's first inputs: (lookup, source, idx, mask)
+    split_inputs = {
+        id(cases[1]): (False, flats[0][None], None, None),
+        id(cases[2]): (True, arena, singles[0][0][0], singles[0][1][0]),
+        id(cases[3]): (True, arena, batch_idx, batch_mask),
+        id(cases[4]): (True, classic.storage.full_device(),
+                       classic_singles[0][0][0], classic_singles[0][1][0]),
+        id(extra_cases[0]): (False, classic_singles[0][2][0][None], None,
+                             None),
+        id(extra_cases[1]): (False, extra_cases[1][7], None, None)}
+    out, extras = [], []
+    for case in cases + extra_cases:
+        name, shape, calls, plain, nbytes, nops = case[:6]
+        library = case[6] if len(case) > 6 else None
         for c in calls:                                  # warm-up
             c()
         torch.cuda.synchronize()
         # 256 launches, cycling over the queries' inputs
         reps = calls * max(1, 256 // len(calls))
         ev = loop_ms(torch, reps)
-        line, body, symbol = KERNELS[name]
-        prof, n_records, seen = profiled_kernel_ms(torch, reps, symbol)
-        if prof is None:
-            log(f"[time] {name}: the profiler saw no {symbol} among the "
-                f"device events {seen}")
+        gms = graph_ms(torch, calls)
+        line, body, _ = KERNELS[name]
         plain_ms = event_ms(torch, plain, 7)
-        library_ms, library_source = (library_kernel_ms(torch, library)
-                                      if library is not None
-                                      else (None, None))
+        library_ms = graph_ms(torch, [library]) if library else None
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / INT32_OPS_PER_S * 1e3
         rec = {
@@ -1866,30 +2140,80 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
             "replaces": f"{PALLAS}:{line}", "pallas_kernel":
                 f"{name} ({body})", "matched": max_err[name] == 0,
             "launches": launches[name], "max_abs_err": max_err[name],
-            "ms": prof if prof is not None else ev,
-            "ms_source": "torch.profiler" if prof is not None
-                         else "cuda events",
-            "profiler_records": n_records, "profiled_launches": len(reps),
+            "ms": gms, "ms_source": "cuda graph of 64 launches",
             "loop_ms": ev, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "operations": nops, "shape": shape,
-            "library_ms": library_ms, "library_ms_source": library_source,
-            "profiler_device_events": None if prof is not None else seen,
+            "library_ms": library_ms,
         }
-        out.append(rec)
+        if id(case) in split_inputs:
+            rec.update(split_sweep(torch, rt, lib, *split_inputs[id(case)]))
+        (extras if any(case is c for c in extra_cases) else out).append(rec)
         log(f"[time] {name} at {shape}: kernel {rec['ms'] * 1e3:.2f} us "
-            f"({rec['ms_source']}, {n_records} of {len(reps)} launches "
-            f"recorded), back-to-back {ev * 1e3:.2f} us/launch, "
-            f"plain {plain_ms * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.4f}"
-            f" us ({rec['bound_by']}: {nbytes} bytes, {nops} ops)"
+            f"({rec['ms_source']}), host-launched back-to-back "
+            f"{ev * 1e3:.2f} us/launch, plain {plain_ms * 1e3:.1f} us, bound "
+            f"{rec['bound_ms'] * 1e3:.4f} us ({rec['bound_by']}: {nbytes} "
+            f"bytes, {nops} ops)"
             + ("" if library_ms is None else
-               f", torch.index_select {library_ms * 1e3:.2f} us "
-               f"({library_source})"))
+               f", torch.index_select {library_ms * 1e3:.2f} us"))
+        if "launch_shape" in rec:
+            ls = rec["launch_shape"]
+            log(f"[time] {name} at {shape}: {ls['blocks']} blocks of "
+                f"{ls['threads']} threads in clusters of {ls['cluster']}, "
+                f"word tile {ls['word_tile']}, {ls['slices']} slices, "
+                f"{ls['planes']} planes, {ls['static_smem_bytes']} bytes of "
+                f"shared memory, {ls['registers']} registers; kernel us by "
+                f"cluster size " + ", ".join(
+                    f"{cs}: {t * 1e3:.2f}" for cs, t in
+                    rec["cluster_ms"].items()))
     log("[time] library_ms is null except for the two gathers "
         "(torch.index_select): no single PyTorch call computes the other "
         "functions")
-    return out
+    return out, extras
+
+
+def rows_case(torch, k, lib, name, rows_list):
+    """A timing case of unpack_score or vertical_score over rows [L, W] or
+    [B, L, W]: (name, shape, direct launches, plain call, bytes,
+    operations, library call, the first rows as [B, L, W])."""
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    r3s = [r if r.dim() == 3 else r[None] for r in rows_list]
+    B, L, W = r3s[0].shape
+    fn = lib.cobs_unpack if name == "unpack_score" else lib.cobs_vertical
+    extra = () if name == "unpack_score" else (k.CLUSTER_AUTO,)
+    outs = [torch.empty((B, W, 32), dtype=torch.int32, device=DEV)
+            for _ in r3s]
+    calls = [(lambda r=r, o=o: fn(r.data_ptr(), o.data_ptr(), B, L, W,
+                                   *extra, dev, stream))
+             for r, o in zip(r3s, outs)]
+    plain = (k.unpack_score_plain if name == "unpack_score"
+             else k.vertical_score_plain)
+    ops = B * (2 * L * W * 32 if name == "unpack_score"
+               else 2 * k.num_planes(L) * (L * W + W * 32))
+    shape = f"rows [{L}, {W}]" if B == 1 else f"rows [{B}, {L}, {W}]"
+    return (name, shape, calls, lambda: plain(rows_list[0]),
+            B * (L * W * 4 + W * 32 * 4), ops, None, r3s[0])
+
+
+def split_sweep(torch, rt, lib, lookup, src, idx, mask) -> dict:
+    """A split kernel's launch shape at these inputs (the entry point's
+    own cluster choice) and its time at each cluster size (``graph_ms``)."""
+    dev = torch.cuda.current_device()
+    if lookup:
+        L, W = idx.shape[-1], src.shape[1]
+        cells = idx.numel() // L
+    else:
+        cells, L, W = src.shape
+    shape = rt.build.split_info(lookup, cells, L, W, 0, dev)
+    times = {}
+    for cs in CLUSTERS:
+        call = (lambda cs=cs: split_direct(torch, lib, lookup, src, cs, idx,
+                                           mask))
+        call()
+        times[cs] = graph_ms(torch, [call])
+    return {"launch_shape": shape, "cluster_ms": times}
 
 
 def card_line() -> str:
@@ -1907,7 +2231,7 @@ class _Port:
     def __init__(self):
         from repro_torch.core import (DeviceTileCache, IndexParams,
                                       QueryEngine, build_classic,
-                                      build_compact, codec, hashing,
+                                      build_compact, codec, dna, hashing,
                                       load_index_v2, query)
         from repro_torch.data import make_corpus, make_queries
         from repro_torch.index import build_compact_streaming
@@ -1919,6 +2243,7 @@ class _Port:
         self.Status, self.server_mod = Status, server_mod
         self.build_classic, self.build_compact = build_classic, build_compact
         self.hashing, self.query, self.codec = hashing, query, codec
+        self.dna = dna
         self.DeviceTileCache, self.load_index_v2 = DeviceTileCache, \
             load_index_v2
         self.build_compact_streaming = build_compact_streaming
@@ -1950,6 +2275,7 @@ def main() -> int:
         corpus, index, record["index"] = phase_build_index(rt, torch)
         chk = KernelCheck(torch)
         phase_kernels_vs_plain(rt, torch, index, chk)
+        record["long_query"] = phase_long_query(rt, torch, chk)
         main_path, queries, origin, extra, base = phase_main_path(
             rt, torch, corpus, index)
         record["main_path"] = main_path
@@ -1975,9 +2301,10 @@ def main() -> int:
         launches = {n: main_path["launches"][n] + store_launches[n]
                     + prune_launches[n] + bulk_launches[n]
                     + serve_launches[n] for n in KERNELS}
-        record["kernels"] = phase_timings(
-            rt, torch, index, extra["classic k=1"], queries, chk.err,
-            launches, comp, chunk, serve)
+        with on_side_stream(torch):      # graph_ms captures this stream
+            record["kernels"], record["kernels_extra"] = phase_timings(
+                rt, torch, index, extra["classic k=1"], queries, chk.err,
+                launches, comp, chunk, serve)
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

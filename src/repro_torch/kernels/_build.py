@@ -27,10 +27,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # rows, out, B, L, W, device, stream
     "cobs_unpack": (_P, _P, _I, _I, _I, _I, _P),
-    # rows, out, B, L, W, n_planes, device, stream
+    # rows, out, B, L, W, cluster (0 = the entry point's choice), device,
+    # stream
     "cobs_vertical": (_P, _P, _I, _I, _I, _I, _I, _P),
-    # arena, idx, mask, out, cells, L, W, n_planes, device, stream
+    # arena, idx, mask, out, cells, L, W, cluster, device, stream
     "cobs_lookup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # lookup (1) or vertical (0), cells, L, W, cluster, device, int[9] out
+    "cobs_split_info": (_I, _I, _I, _I, _I, _I, _P),
     # dict, refs, idx, mask, out, cells, L, W, n_planes, device, stream
     "cobs_lookup_comp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # arena (uniq), idx (indir), mask, acc, out, cells, L, W, Wp,
@@ -97,6 +100,25 @@ def library() -> ctypes.CDLL:
     lib.cobs_error_string.argtypes = [ctypes.c_int]
     lib.cobs_error_string.restype = ctypes.c_char_p
     return lib
+
+
+SPLIT_INFO = ("blocks", "threads", "cluster", "word_tile", "slices",
+              "planes", "static_smem_bytes", "registers", "max_cluster")
+
+
+def split_info(lookup: bool, cells: int, L: int, W: int, cluster: int,
+               device: int) -> dict[str, int]:
+    """How ``cobs_lookup`` (or ``cobs_vertical``) launches at this shape:
+    its grid, block and cluster shape, word tile, term slices, counter
+    planes, and the kernel's static shared memory and registers."""
+    lib = library()
+    info = (ctypes.c_int * len(SPLIT_INFO))()
+    err = lib.cobs_split_info(int(lookup), cells, L, W, cluster, device,
+                              ctypes.addressof(info))
+    if err != 0:
+        msg = lib.cobs_error_string(err).decode()
+        raise RuntimeError(f"cobs_split_info: CUDA error {err} ({msg})")
+    return dict(zip(SPLIT_INFO, info))
 
 
 def launch(name: str, *args) -> None:

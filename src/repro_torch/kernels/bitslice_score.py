@@ -25,6 +25,15 @@ Each wrapper checks device, dtype (int32 words), shape and contiguity.
 For a CPU tensor it calls the plain version; for a CUDA tensor it launches
 the kernel on the current stream, or raises. ``launches[name]`` counts the
 kernel launches of each wrapper and nothing else.
+
+No wrapper limits the number of terms. ``vertical_score`` and the three
+fused lookups take any L in one launch (their kernels split the term axis
+across a block's threads and flush full counters into the block's counts).
+The other scoring kernels keep 16 counter planes a thread, so their
+wrappers score more than ``SLAB_TERMS`` terms in slabs: the fused-decode
+lookups and ``dedup_score`` add the slabs' counts, and the chunk wrappers
+pass each slab's output on as the next slab's ``acc``. Each slab is one
+launch and one count in ``launches``.
 """
 from __future__ import annotations
 
@@ -32,8 +41,12 @@ import torch
 
 from . import _build
 
-MAX_PLANES = 16                       # the kernels' counter-plane registers
-MAX_TERMS = (1 << MAX_PLANES) - 1     # the most terms 16 planes can count
+# the most terms one launch of the 16-plane kernels (lookup_comp, the chunk
+# kernels, dedup) takes: 16 counter planes count up to 65,535
+SLAB_TERMS = (1 << 16) - 1
+# cluster size argument of cobs_vertical / cobs_lookup: 0 lets the entry
+# point choose (1 = no cluster; 2, 4 or 8 blocks share a word tile's terms)
+CLUSTER_AUTO = 0
 GRID_ORDERS = ("wq", "qw")
 
 launches: dict[str, int] = {"unpack_score": 0, "vertical_score": 0,
@@ -85,10 +98,36 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     return dev.type == "cuda"
 
 
-def _check_terms(L: int) -> None:
-    if L > MAX_TERMS:
-        raise ValueError(f"{L} terms exceed the {MAX_TERMS} that "
-                         f"{MAX_PLANES} counter planes hold")
+def _term_slabs(rows_idx: torch.Tensor, mask: torch.Tensor
+                ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """(idx, mask) cut along the term axis into contiguous slabs of at
+    most SLAB_TERMS terms (one slab, uncopied, when L fits)."""
+    L = rows_idx.shape[-1]
+    if L <= SLAB_TERMS:
+        return [(rows_idx, mask)]
+    return [(rows_idx[..., a:a + SLAB_TERMS].contiguous(),
+             mask[..., a:a + SLAB_TERMS].contiguous())
+            for a in range(0, L, SLAB_TERMS)]
+
+
+def _slab_sum(rows_idx: torch.Tensor, mask: torch.Tensor, score
+              ) -> torch.Tensor:
+    """``score(idx, mask)`` on each term slab, the counts summed."""
+    out = None
+    for idx_s, mask_s in _term_slabs(rows_idx, mask):
+        part = score(idx_s, mask_s)
+        out = part if out is None else out.add_(part)
+    return out
+
+
+def _slab_chain(rows_idx: torch.Tensor, mask: torch.Tensor,
+                acc: torch.Tensor, score) -> torch.Tensor:
+    """``score(idx, mask, acc)`` on each term slab, each slab's output the
+    next slab's ``acc``."""
+    out = acc
+    for idx_s, mask_s in _term_slabs(rows_idx, mask):
+        out = score(idx_s, mask_s, out)
+    return out
 
 
 def _stream(dev: torch.device) -> int:
@@ -157,13 +196,12 @@ def unpack_score(rows: torch.Tensor) -> torch.Tensor:
 def vertical_score(rows: torch.Tensor) -> torch.Tensor:
     """int32 [L, W] -> int32 [W, 32] through vertical counters (a leading
     batch axis [B, L, W] gives [B, W, 32]). Replaces the Pallas
-    ``vertical_score``. Takes at most MAX_TERMS rows."""
+    ``vertical_score``; any L in one launch."""
     _check("rows", rows, (2, 3))
-    _check_terms(rows.shape[-2])
     if not _on_cuda(rows):
         return vertical_score_plain(rows)
     return _rows_launch("vertical_score", "cobs_vertical", rows,
-                        num_planes(rows.shape[-2]))
+                        CLUSTER_AUTO)
 
 
 # --------------------------------------------------------------------------
@@ -188,14 +226,12 @@ def lookup_plain(arena: torch.Tensor, rows_idx: torch.Tensor,
 
 def _check_indices(rows_idx: torch.Tensor, mask: torch.Tensor, rank: int
                    ) -> None:
-    """idx and mask: int32 of ``rank`` dimensions and one shape, at most
-    MAX_TERMS terms."""
+    """idx and mask: int32 of ``rank`` dimensions and one shape."""
     _check("rows_idx", rows_idx, (rank,))
     _check("mask", mask, (rank,))
     if mask.shape != rows_idx.shape:
         raise ValueError(f"mask shape {tuple(mask.shape)} != rows_idx shape "
                          f"{tuple(rows_idx.shape)}")
-    _check_terms(rows_idx.shape[-1])
 
 
 def _check_range(rows_idx: torch.Tensor, R: int, what: str) -> None:
@@ -223,7 +259,7 @@ def _lookup(name: str, arena: torch.Tensor, rows_idx: torch.Tensor,
     if out.numel():
         _build.launch("cobs_lookup", arena.data_ptr(), rows_idx.data_ptr(),
                       mask.data_ptr(), out.data_ptr(), cells, L, W,
-                      num_planes(L), arena.device.index or 0,
+                      CLUSTER_AUTO, arena.device.index or 0,
                       _stream(arena.device))
         launches[name] += 1
     return out
@@ -251,7 +287,7 @@ def lookup_score_multi(arena: torch.Tensor, rows_idx: torch.Tensor,
 
     ``grid_order`` ('wq' or 'qw') is the autotuner's key for the TPU grid's
     axis order; it is validated and has no effect here, where every
-    (query, block, word) item is its own thread."""
+    (query, block, word tile) is its own block (or cluster) of threads."""
     if grid_order not in GRID_ORDERS:
         raise ValueError(f"unknown grid_order {grid_order!r}; "
                          f"one of {GRID_ORDERS}")
@@ -295,17 +331,21 @@ def _lookup_comp(name: str, dict_rows: torch.Tensor, refs: torch.Tensor,
     if not cuda:
         return lookup_comp_plain(dict_rows, refs, rows_idx, mask)
     W = dict_rows.shape[1]
-    L = rows_idx.shape[-1]
     cells = rows_idx.shape[:-1].numel()
-    out = torch.empty(rows_idx.shape[:-1] + (W, 32), dtype=torch.int32,
-                      device=dict_rows.device)
-    if out.numel():
-        _build.launch("cobs_lookup_comp", dict_rows.data_ptr(),
-                      refs.data_ptr(), rows_idx.data_ptr(), mask.data_ptr(),
-                      out.data_ptr(), cells, L, W, num_planes(L),
-                      dict_rows.device.index or 0, _stream(dict_rows.device))
-        launches[name] += 1
-    return out
+    dev = dict_rows.device
+
+    def score(idx_s, mask_s):
+        out = torch.empty(rows_idx.shape[:-1] + (W, 32), dtype=torch.int32,
+                          device=dev)
+        if out.numel():
+            L = idx_s.shape[-1]
+            _build.launch("cobs_lookup_comp", dict_rows.data_ptr(),
+                          refs.data_ptr(), idx_s.data_ptr(),
+                          mask_s.data_ptr(), out.data_ptr(), cells, L, W,
+                          num_planes(L), dev.index or 0, _stream(dev))
+            launches[name] += 1
+        return out
+    return _slab_sum(rows_idx, mask, score)
 
 
 def lookup_score_blocks_compressed(dict_rows: torch.Tensor,
@@ -364,7 +404,7 @@ def _chunk(name: str, symbol: str, rows: torch.Tensor,
     _check("acc", acc, (4,))
     _check_indices(rows_idx, mask, 3)
     W = rows.shape[1]
-    Q, nb, L = rows_idx.shape
+    Q, nb, _ = rows_idx.shape
     if acc.shape[:2] != (Q, nb) or acc.shape[3] != 32 or acc.shape[2] < W:
         raise ValueError(f"acc shape {tuple(acc.shape)} does not hold "
                          f"[{Q}, {nb}, >= {W}, 32] running counts")
@@ -375,16 +415,20 @@ def _chunk(name: str, symbol: str, rows: torch.Tensor,
                      "the chunk's row source")
     if not cuda:
         return chunk_plain(rows, rows_idx, mask, acc, refs)
-    out = torch.empty_like(acc)
-    if out.numel():
-        head = ((rows.data_ptr(),) if refs is None
-                else (rows.data_ptr(), refs.data_ptr()))
-        _build.launch(symbol, *head, rows_idx.data_ptr(), mask.data_ptr(),
-                      acc.data_ptr(), out.data_ptr(), Q * nb, L, W,
-                      acc.shape[2], num_planes(L), rows.device.index or 0,
-                      _stream(rows.device))
-        launches[name] += 1
-    return out
+    head = ((rows.data_ptr(),) if refs is None
+            else (rows.data_ptr(), refs.data_ptr()))
+
+    def score(idx_s, mask_s, acc_s):
+        out = torch.empty_like(acc)
+        if out.numel():
+            L = idx_s.shape[-1]
+            _build.launch(symbol, *head, idx_s.data_ptr(), mask_s.data_ptr(),
+                          acc_s.data_ptr(), out.data_ptr(), Q * nb, L, W,
+                          acc.shape[2], num_planes(L),
+                          rows.device.index or 0, _stream(rows.device))
+            launches[name] += 1
+        return out
+    return _slab_chain(rows_idx, mask, acc, score)
 
 
 def chunk_lookup_score_multi(arena: torch.Tensor, rows_idx: torch.Tensor,
@@ -524,12 +568,17 @@ def dedup_score(uniq: torch.Tensor, indir: torch.Tensor, mask: torch.Tensor,
     if not cuda:
         return dedup_plain(uniq, indir, mask)
     W = uniq.shape[1]
-    Q, nb, L = indir.shape
-    out = torch.empty((Q, nb, W, 32), dtype=torch.int32, device=uniq.device)
-    if out.numel():
-        _build.launch("cobs_dedup_score", uniq.data_ptr(), indir.data_ptr(),
-                      mask.data_ptr(), out.data_ptr(), Q * nb, L, W,
-                      num_planes(L), uniq.device.index or 0,
-                      _stream(uniq.device))
-        launches["dedup_score"] += 1
-    return out
+    Q, nb, _ = indir.shape
+
+    def score(idx_s, mask_s):
+        out = torch.empty((Q, nb, W, 32), dtype=torch.int32,
+                          device=uniq.device)
+        if out.numel():
+            L = idx_s.shape[-1]
+            _build.launch("cobs_dedup_score", uniq.data_ptr(),
+                          idx_s.data_ptr(), mask_s.data_ptr(),
+                          out.data_ptr(), Q * nb, L, W, num_planes(L),
+                          uniq.device.index or 0, _stream(uniq.device))
+            launches["dedup_score"] += 1
+        return out
+    return _slab_sum(indir, mask, score)

@@ -27,11 +27,11 @@
 // What bounds them on an H100: bytes. A query reads L rows of W words and
 // writes W * 32 counts; the arithmetic is a few integer operations per
 // word, far below the card's rate. The least time is (rows read + indices
-// read + counts written) / 3.35 TB/s. At the main path's shapes (W = 32 to
-// 64 words, L <= 320 terms) that is well under a microsecond, so a single
-// query is bound in practice by the launch and by the dependent chain of
-// loads down the term loop; these first versions are simple and right,
-// and their times stand in PERF.md.
+// read + counts written) / 3.35 TB/s. At the main path's shapes (W = 8 to
+// 64 words, L <= 320 terms) that is well under a microsecond, so in
+// practice a launch is bound by latency: how many dependent memory round
+// trips its slowest thread makes, and how few of the card's 132 SMs a
+// launch of 1-64 (cell, word) pairs occupies.
 //
 // The fused-decode lookup reads row r of a rowdict-coded shard as
 // dict[refs[r]]: per term, one more 4-byte load (refs) before the row. Its
@@ -44,7 +44,7 @@
 // out = acc + counts, acc and out int32 [Q, nb, Wp, 32] with Wp >= W (the
 // JAX executors pad the word axis of acc to a word block; words >= W read
 // as zero rows). Their bound is the fused lookup's plus acc read once and
-// out written once. All three are the fused lookup's body with kAcc set:
+// out written once. All three are the 16-plane body with kAcc set:
 // chunk_dedup_score(uniq, indir, mask, acc) is exactly
 // chunk_lookup_score_multi(uniq, indir, mask, acc), the unique-row matrix
 // taking the arena's place; its own __global__ name lets the profiler
@@ -57,34 +57,70 @@
 // gather is a copy: its bound is (U * k indices + U * k rows read + U rows
 // written) / 3.35 TB/s, and one thread a word keeps every load and store
 // coalesced along a row. gather_comp_kernel reads row r as dict[refs[r]],
-// one more 4-byte load a row. dedup_kernel is the fused lookup's body over
-// uniq instead of the arena (chunk_dedup_kernel without acc); its bound is
-// the fused lookup's with rows counted once per distinct uniq row.
+// one more 4-byte load a row. dedup_kernel is the 16-plane body over uniq
+// instead of the arena (chunk_dedup_kernel without acc); its bound is the
+// fused lookup's with rows counted once per distinct uniq row.
 //
-// Design common to all:
-// * The TPU kernels carry counter planes across a sequential grid axis
-//   over terms. CUDA blocks run in no order, so the term loop runs inside
-//   one thread instead, and nothing carries between blocks.
-// * Work items are flattened as g = cell * W + word (cell * Wp + word in
-//   the chunk kernels), where a cell is one (query, block) pair or one
-//   batch entry. Each thread reads only its own acc range, so the chunk
-//   kernels need no carry between blocks either. Neighbouring threads read
-//   neighbouring words of one row, so a warp reads a row's 128 bytes at
-//   W = 32 in one transaction, and the ragged word edge needs no padding.
-// * The output of item g is out[g * 32 .. g * 32 + 31]; a block's outputs
-//   are one contiguous range, which expand_store writes coalesced through
-//   shared memory.
+// Design. The TPU kernels carry counter planes across a sequential grid
+// axis over terms. CUDA blocks run in no order, so the term axis is cut
+// inside a block (or a cluster of blocks) instead, and nothing carries
+// between launches. Two bodies:
+//
+// * The split body (vertical_kernel, lookup_kernel). One block of 256
+//   threads per (cell, word tile), where a cell is one batch entry or one
+//   (query, block) pair and a word tile is Wt <= 32 consecutive words
+//   (W is cut into ceil(W / 32) near-equal tiles). Thread t works on word
+//   t % Wt of the tile and on term slice t / Wt of S = 256 / Wt; slice s
+//   takes terms s, s + S, s + 2S, ..., so a warp reads 32 / Wt whole row
+//   segments per load, coalesced. Each thread issues 8 independent row
+//   loads before it ripples any of them into its counter planes
+//   (num_planes(ceil(terms / S)), at most 16, a compile-time count picked
+//   per launch), so a step costs one memory latency, not one per term.
+//   The lookup stages its cell's indices and masks in shared memory first
+//   (cp.async, double-buffered tiles of 1,024 terms), which takes the
+//   index load out of each term's chain. At the
+//   end the threads write their planes to shared memory and each thread
+//   sums one output's bit over the S slices and the planes, so the tile's
+//   Wt * 32 counts are stored as one coalesced range. A slice that would
+//   pass 65,535 terms flushes its planes into those counts first, so any L
+//   runs in one launch. Where a launch has few (cell, tile) pairs, a
+//   cluster of 2-8 blocks splits the pair's terms; rank 0..cs-1 each sum a
+//   share of the tile's counts over the cluster's shared memory
+//   (distributed shared memory), so no global atomics or memsets are
+//   needed.
+// * The 16-plane body (lookup_body: lookup_comp_kernel, the three chunk
+//   kernels, dedup_kernel). One thread per (cell, word) walks all L terms
+//   in order with 16 counter planes in registers; its wrappers feed it
+//   slabs of at most 65,535 terms. Work items are flattened as g = cell *
+//   W + word (cell * Wp + word in the chunk kernels); each thread reads
+//   only its own acc range, neighbouring threads read neighbouring words
+//   of one row, and a block's outputs are one contiguous range, which
+//   expand_store writes coalesced through shared memory.
 
+#include <climits>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxPlanes = 16;   // counts up to 65535 terms
-constexpr int kThreads = 128;    // threads per block, vertical and lookup
+constexpr int kSlabTerms = (1 << kMaxPlanes) - 1;
+constexpr int kThreads = 128;    // threads per block of the 16-plane body
 constexpr int kUnpackThreads = 256;
 constexpr int kGatherThreads = 256;
 constexpr int kPad = 33;         // shared-memory row stride: no bank conflicts
+// the split body (vertical_kernel, lookup_kernel)
+constexpr int kSplitThreads = 256;
+constexpr int kWordTile = 32;     // most words of a block's tile
+constexpr int kStageTerms = 1024; // terms per shared-memory index stage
+constexpr int kUnroll = 8;        // row loads in flight per thread
+constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr int kOwn = kWordTile * 32 / kSplitThreads;  // outputs a thread sums
+// a cluster is chosen only while each slice keeps this many terms
+constexpr int kMinSliceTerms = 2;
 
 // Ripple-carry one row word into the thread's counter planes (Harley-Seal
 // vertical counters): plane j holds bit j of each document's count.
@@ -154,34 +190,10 @@ __global__ void unpack_kernel(const uint32_t* __restrict__ rows,
   out[g] = acc;
 }
 
-// One thread per (cell, word) with its counter planes in registers; the
-// term loop is sequential inside the thread and the expansion to counts
-// happens once at the end.
-__global__ void __launch_bounds__(kThreads)
-vertical_kernel(const uint32_t* __restrict__ rows, int32_t* __restrict__ out,
-                int L, int W, long long total, int n_planes) {
-  const long long g0 = static_cast<long long>(blockIdx.x) * blockDim.x;
-  const long long g = g0 + threadIdx.x;
-  const bool active = g < total;
-  uint32_t p[kMaxPlanes];
-#pragma unroll
-  for (int j = 0; j < kMaxPlanes; ++j) p[j] = 0u;
-  if (active) {
-    const long long cell = g / W;
-    const int w = static_cast<int>(g % W);
-    const uint32_t* src = rows + cell * L * W + w;
-    for (int l = 0; l < L; ++l) {
-      ripple_add(p, src[static_cast<long long>(l) * W], n_planes);
-    }
-  }
-  const long long left = total - g0;
-  expand_store(p, n_planes, active, out + g0 * 32,
-               static_cast<int>(left < kThreads ? left : kThreads));
-}
-
-// The fused gather + vertical count over [cells, L] indices: one thread
-// per (cell, word). Each thread reads its cell's indices and mask itself
-// (a warp-wide broadcast, served from L1 after the first lane) - there is
+// The 16-plane body: the fused gather + vertical count over [cells, L]
+// indices, one thread per (cell, word), at most 65,535 terms a launch.
+// Each thread reads its cell's indices and mask itself (a warp-wide
+// broadcast, served from L1 after the first lane) - there is
 // no scalar prefetch on this card. A term with mask 0 is skipped, which
 // gives the TPU kernel's `row * mask`. With kDecode, row r is read as
 // rows[refs[r]] (a rowdict pair: rows is the dictionary), the index the
@@ -222,13 +234,286 @@ __device__ __forceinline__ void lookup_body(
                      kAcc ? acc + g0 * 32 : nullptr);
 }
 
-__global__ void __launch_bounds__(kThreads)
+
+// ---------------------------------------------------------------------------
+// The split body of vertical_kernel and lookup_kernel
+// ---------------------------------------------------------------------------
+
+// A word tile's geometry for W words: tiles of wt <= 32 words, S slices.
+struct SplitGeometry {
+  int tiles, wt, slices;
+};
+
+__host__ __device__ __forceinline__ SplitGeometry split_geometry(int W) {
+  SplitGeometry g;
+  g.tiles = W > 0 ? (W + kWordTile - 1) / kWordTile : 1;
+  g.wt = W > 0 ? (W + g.tiles - 1) / g.tiles : 1;
+  g.slices = kSplitThreads / g.wt;
+  return g;
+}
+
+// Counter planes that hold counts up to `terms` (num_planes), at most 16.
+__host__ __device__ __forceinline__ int planes_for(int terms) {
+  int n = 1;
+  while (n < kMaxPlanes && (terms >> n) != 0) ++n;
+  return n;
+}
+
+// Ripple-carry one step's kUnroll row words into NP counter planes. NP is
+// a compile-time count: a plane count known only at run time would guard
+// every one of 16 planes per word, which costs more than the loads.
+template <int NP>
+__device__ __forceinline__ void ripple_step(uint32_t (&p)[kMaxPlanes],
+                                            const uint32_t (&v)[kUnroll]) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    uint32_t carry = v[u];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const uint32_t next = p[j] & carry;
+      p[j] ^= carry;
+      carry = next;
+    }
+  }
+}
+
+// ripple_step with np (1-16, uniform across the block) as its NP.
+__device__ __forceinline__ void ripple_step(uint32_t (&p)[kMaxPlanes],
+                                            const uint32_t (&v)[kUnroll],
+                                            int np) {
+  switch (np) {
+    case 1: ripple_step<1>(p, v); break;
+    case 2: ripple_step<2>(p, v); break;
+    case 3: ripple_step<3>(p, v); break;
+    case 4: ripple_step<4>(p, v); break;
+    case 5: ripple_step<5>(p, v); break;
+    case 6: ripple_step<6>(p, v); break;
+    case 7: ripple_step<7>(p, v); break;
+    case 8: ripple_step<8>(p, v); break;
+    case 9: ripple_step<9>(p, v); break;
+    case 10: ripple_step<10>(p, v); break;
+    case 11: ripple_step<11>(p, v); break;
+    case 12: ripple_step<12>(p, v); break;
+    case 13: ripple_step<13>(p, v); break;
+    case 14: ripple_step<14>(p, v); break;
+    case 15: ripple_step<15>(p, v); break;
+    default: ripple_step<16>(p, v); break;
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Sum every slice's counter planes into the outputs this thread owns
+// (e = t + k * 256, in the tile's (word, bit) order), then clear the
+// planes. Every thread of the block calls it at the same point.
+__device__ __forceinline__ void split_flush(uint32_t (&p)[kMaxPlanes],
+                                            int32_t (&own)[kOwn],
+                                            uint32_t* s_planes, int np,
+                                            int S, int wt, int wn) {
+  const int t = threadIdx.x;
+  const int s = t / wt, w = t % wt;
+  if (s < S) {
+#pragma unroll
+    for (int j = 0; j < kMaxPlanes; ++j) {
+      if (j < np) s_planes[(j * S + s) * wt + w] = p[j];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kOwn; ++k) {
+    const int e = t + k * kSplitThreads;
+    if (e < wn * 32) {
+      const uint32_t* col = s_planes + (e >> 5);  // word e / 32 of each plane
+      const int bit = e & 31;
+      int32_t c = 0;
+      for (int j = 0; j < np; ++j) {
+        int32_t cj = 0;
+#pragma unroll 4
+        for (int q = 0; q < S; ++q) {
+          cj += static_cast<int32_t>((col[(j * S + q) * wt] >> bit) & 1u);
+        }
+        c += cj << j;
+      }
+      own[k] += c;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kMaxPlanes; ++j) p[j] = 0u;
+}
+
+// Copy n indices and masks of a cell, from term `start`, into stage `buf`
+// of the shared buffers (cp.async, one commit group).
+__device__ __forceinline__ void split_stage(
+    int32_t (*s_idx)[kStageTerms], int32_t (*s_mask)[kStageTerms], int buf,
+    const int32_t* ci, const int32_t* cm, int start, int n) {
+  for (int i = threadIdx.x; i < n; i += kSplitThreads) {
+    cp_async4(&s_idx[buf][i], ci + start + i);
+    cp_async4(&s_mask[buf][i], cm + start + i);
+  }
+  cp_async_commit();
+}
+
+// Block b of the grid: cluster rank b % cs, (cell, tile) pair b / cs. The
+// block counts terms [lo, hi) of its cell (a cluster's ranks split the
+// terms into near-equal ranges) into the tile's wn * 32 counts, which are
+// out[(cell * W + w0) * 32 ...] and contiguous. kLookup reads the rows
+// through the staged indices (s_idx, s_mask: two stages of kStageTerms);
+// otherwise rows are the cell's contiguous [L, W] block.
+template <bool kLookup>
+__device__ __forceinline__ void split_body(
+    const uint32_t* __restrict__ rows, const int32_t* __restrict__ idx,
+    const int32_t* __restrict__ mask, int32_t* __restrict__ out, int L,
+    int W, int cs, int32_t (*s_idx)[kStageTerms],
+    int32_t (*s_mask)[kStageTerms]) {
+  __shared__ uint32_t s_planes[kMaxPlanes * kSplitThreads];
+  __shared__ int32_t s_red[kWordTile * 32];
+  const int t = threadIdx.x;
+  const SplitGeometry g = split_geometry(W);
+  const int wt = g.wt, S = g.slices;
+  const int s = t / wt, w = t % wt;
+  const int rank = static_cast<int>(blockIdx.x % cs);
+  const long long pair = blockIdx.x / cs;
+  const long long cell = pair / g.tiles;
+  const int w0 = static_cast<int>(pair % g.tiles) * wt;
+  const int wn = W - w0 < wt ? W - w0 : wt;
+  const long long per_rank = (static_cast<long long>(L) + cs - 1) / cs;
+  const long long lo_ll = rank * per_rank < L ? rank * per_rank : L;
+  const long long hi_ll = lo_ll + per_rank < L ? lo_ll + per_rank : L;
+  const int lo = static_cast<int>(lo_ll), hi = static_cast<int>(hi_ll);
+  const int np = planes_for((hi - lo + S - 1) / S);
+  const bool counting = s < S && w < wn;
+  const uint32_t* col = kLookup ? rows + w0 + w
+                                : rows + cell * L * W + w0 + w;
+  const int32_t* ci = kLookup ? idx + cell * L : nullptr;
+  const int32_t* cm = kLookup ? mask + cell * L : nullptr;
+
+  uint32_t p[kMaxPlanes];
+#pragma unroll
+  for (int j = 0; j < kMaxPlanes; ++j) p[j] = 0u;
+  int32_t own[kOwn];
+#pragma unroll
+  for (int k = 0; k < kOwn; ++k) own[k] = 0;
+
+  if constexpr (kLookup) {
+    if (lo < hi) {
+      split_stage(s_idx, s_mask, 0, ci, cm, lo,
+                  hi - lo < kStageTerms ? hi - lo : kStageTerms);
+    }
+  }
+  int since = 0;  // the most terms a slice has added since the last flush
+  int buf = 0;
+  for (int st = lo; st < hi; st += kStageTerms, buf ^= 1) {
+    const int n = hi - st < kStageTerms ? hi - st : kStageTerms;
+    const int per_slice = (n + S - 1) / S;
+    if (since + per_slice > kSlabTerms) {
+      split_flush(p, own, s_planes, np, S, wt, wn);
+      since = 0;
+    }
+    if constexpr (kLookup) {
+      const int next = st + kStageTerms;
+      if (next < hi) {
+        split_stage(s_idx, s_mask, buf ^ 1, ci, cm, next,
+                    hi - next < kStageTerms ? hi - next : kStageTerms);
+      } else {
+        cp_async_commit();
+      }
+      cp_async_wait_prior();
+      __syncthreads();
+    }
+    if (counting) {
+      for (int b = s; b < n; b += S * kUnroll) {
+        uint32_t v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int l = b + u * S;
+          v[u] = 0u;
+          if (l < n) {
+            if constexpr (kLookup) {
+              if (s_mask[buf][l] != 0) {
+                v[u] = col[static_cast<long long>(s_idx[buf][l]) * W];
+              }
+            } else {
+              v[u] = col[static_cast<long long>(st + l) * W];
+            }
+          }
+        }
+        ripple_step(p, v, np);
+      }
+    }
+    since += per_slice;
+    if constexpr (kLookup) __syncthreads();  // this stage is restaged next
+  }
+  split_flush(p, own, s_planes, np, S, wt, wn);
+
+  int32_t* out_tile = out + (cell * W + w0) * 32;
+  if (cs == 1) {
+#pragma unroll
+    for (int k = 0; k < kOwn; ++k) {
+      const int e = t + k * kSplitThreads;
+      if (e < wn * 32) out_tile[e] = own[k];
+    }
+    return;
+  }
+  // A cluster: every rank's counts into its shared memory, then rank r
+  // sums share r of the tile over the cluster and stores it.
+#pragma unroll
+  for (int k = 0; k < kOwn; ++k) {
+    const int e = t + k * kSplitThreads;
+    if (e < wn * 32) s_red[e] = own[k];
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int share = (wn * 32 + cs - 1) / cs;
+  const int end = wn * 32 < (rank + 1) * share ? wn * 32 : (rank + 1) * share;
+  for (int e = rank * share + t; e < end; e += kSplitThreads) {
+    int32_t c = 0;
+    for (int q = 0; q < cs; ++q) {
+      c += cluster.map_shared_rank(&s_red[0], q)[e];
+    }
+    out_tile[e] = c;
+  }
+  cluster.sync();  // no block leaves while another reads its counts
+}
+
+// Replaces _vertical_kernel (vertical_score): rows [B, L, W] -> [B, W, 32].
+// Bound on this card: bytes (each row read once) and, at the main path's
+// few cells, the latency of the row loads; the split body keeps 8 row
+// loads in flight per thread over 256 threads per (cell, word tile),
+// coalesced along the rows, and a cluster splits the rows of a lone cell.
+__global__ void __launch_bounds__(kSplitThreads)
+vertical_kernel(const uint32_t* __restrict__ rows, int32_t* __restrict__ out,
+                int L, int W, int cs) {
+  split_body<false>(rows, nullptr, nullptr, out, L, W, cs, nullptr, nullptr);
+}
+
+// Replaces _lookup_kernel, _lookup_blocks_kernel and _lookup_multi_kernel
+// (lookup_score, lookup_score_blocks, lookup_score_multi): arena [R, W],
+// idx and mask [cells, L] -> [cells, W, 32]; a term counts where its mask
+// is non-zero. Bound: bytes (indices, masks, one row per counted term,
+// the counts) and, in practice, the index -> row chain of dependent loads;
+// the indices are staged in shared memory with cp.async, double-buffered,
+// so each slice's row loads (8 in flight) depend on shared memory only.
+__global__ void __launch_bounds__(kSplitThreads)
 lookup_kernel(const uint32_t* __restrict__ arena,
               const int32_t* __restrict__ idx,
               const int32_t* __restrict__ mask, int32_t* __restrict__ out,
-              int L, int W, long long total, int n_planes) {
-  lookup_body<false, false>(arena, nullptr, idx, mask, nullptr, out, L, W, W,
-                            total, n_planes);
+              int L, int W, int cs) {
+  __shared__ int32_t s_idx[2][kStageTerms];
+  __shared__ int32_t s_mask[2][kStageTerms];
+  split_body<true>(arena, idx, mask, out, L, W, cs, s_idx, s_mask);
 }
 
 // The fused-decode lookup over a rowdict pair (dict [D, W], refs [R]).
@@ -339,6 +624,54 @@ unsigned int blocks_for(long long items, int threads) {
   return static_cast<unsigned int>((items + threads - 1) / threads);
 }
 
+// The cluster size a split launch uses: `cluster` when it is 1-8, else
+// (0) the largest of 1, 2, 4, 8 that keeps the grid within one block per
+// SM and at least kMinSliceTerms terms per slice.
+int split_cluster(long long pairs, int L, int slices, int cluster,
+                  int device) {
+  if (cluster > 0) return cluster;
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)
+      != cudaSuccess) {
+    sms = 132;
+  }
+  int cs = 1;
+  while (cs < kMaxCluster && pairs * cs * 2 <= sms
+         && static_cast<long long>(L)
+                >= 2LL * cs * slices * kMinSliceTerms) {
+    cs *= 2;
+  }
+  return cs;
+}
+
+template <typename Kernel, typename... Args>
+int launch_split(Kernel kernel, long long cells, int L, int W, int cluster,
+                 int device, void* stream, Args... args) {
+  const SplitGeometry g = split_geometry(W);
+  const long long pairs = cells * g.tiles;
+  const int cs = split_cluster(pairs, L, g.slices, cluster, device);
+  if (cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) != 0
+      || pairs * cs > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(pairs * cs));
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1 ? 1 : 0;
+  // the kernel's last argument is the cluster size it was launched with
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args..., cs);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream`
@@ -358,30 +691,59 @@ extern "C" int cobs_unpack(const void* rows, void* out, int B, int L, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split kernels take any L in one launch; `cluster` is the cluster
+// size (1, 2, 4 or 8 blocks per (cell, word tile)), or 0 to let
+// split_cluster choose.
 extern "C" int cobs_vertical(const void* rows, void* out, int B, int L,
-                             int W, int n_planes, int device, void* stream) {
+                             int W, int cluster, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(B) * W;
-  vertical_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<int32_t*>(out), L, W,
-      total, n_planes);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split(
+      vertical_kernel, B, L, W, cluster, device, stream,
+      static_cast<const uint32_t*>(rows), static_cast<int32_t*>(out), L, W);
 }
 
 extern "C" int cobs_lookup(const void* arena, const void* idx,
                            const void* mask, void* out, int cells, int L,
-                           int W, int n_planes, int device, void* stream) {
+                           int W, int cluster, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(cells) * W;
-  lookup_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+  return launch_split(
+      lookup_kernel, cells, L, W, cluster, device, stream,
       static_cast<const uint32_t*>(arena), static_cast<const int32_t*>(idx),
-      static_cast<const int32_t*>(mask), static_cast<int32_t*>(out), L, W,
-      total, n_planes);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const int32_t*>(mask), static_cast<int32_t*>(out), L, W);
+}
+
+// What a split launch of `cells` cells of L terms over W words runs as:
+// info[0..8] = blocks, threads per block, cluster size, word tile, slices,
+// counter planes a slice uses, static shared memory bytes, registers per
+// thread, and the cluster sizes the kernel may take (its max). `lookup`
+// picks lookup_kernel (1) or vertical_kernel (0).
+extern "C" int cobs_split_info(int lookup, int cells, int L, int W,
+                               int cluster, int device, void* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = lookup ? cudaFuncGetAttributes(&fa, lookup_kernel)
+               : cudaFuncGetAttributes(&fa, vertical_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const SplitGeometry g = split_geometry(W);
+  const long long pairs = static_cast<long long>(cells) * g.tiles;
+  const int cs = split_cluster(pairs, L, g.slices, cluster, device);
+  const long long per_rank = (static_cast<long long>(L) + cs - 1) / cs;
+  int* o = static_cast<int*>(info);
+  o[0] = static_cast<int>(pairs * cs);
+  o[1] = kSplitThreads;
+  o[2] = cs;
+  o[3] = g.wt;
+  o[4] = g.slices;
+  const long long per_slice = (per_rank + g.slices - 1) / g.slices;
+  o[5] = planes_for(per_slice < INT_MAX ? static_cast<int>(per_slice)
+                                        : INT_MAX);
+  o[6] = static_cast<int>(fa.sharedSizeBytes);
+  o[7] = fa.numRegs;
+  o[8] = kMaxCluster;
+  return 0;
 }
 
 extern "C" int cobs_lookup_comp(const void* dict, const void* refs,

@@ -174,8 +174,11 @@ def test_wrappers_check_their_inputs():
         k.lookup_score_blocks(arena, idx + 10, idx)
     with pytest.raises(IndexError):
         k.lookup_score_blocks(arena, idx - 1, idx)
-    with pytest.raises(ValueError, match="counter planes"):
-        k.vertical_score(torch.zeros((k.MAX_TERMS + 1, 1), dtype=torch.int32))
+    # more rows than 16 counter planes count: no cap, the plain counts
+    ones = torch.full((k.SLAB_TERMS + 1, 1), -1, dtype=torch.int32)
+    assert torch.equal(k.vertical_score(ones),
+                       torch.full((1, 32), k.SLAB_TERMS + 1,
+                                  dtype=torch.int32))
     with pytest.raises(ValueError, match="no kernel for device"):
         k.vertical_score(torch.zeros((3, 4), dtype=torch.int32,
                                      device="meta"))

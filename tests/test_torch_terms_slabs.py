@@ -1,0 +1,124 @@
+"""The scoring wrappers whose kernels keep 16 counter planes, on more than
+65,535 terms, against the JAX package, on the CPU.
+
+The fused-decode lookups, ``dedup_score`` and the three chunk wrappers
+score a long query on the card in slabs of at most ``SLAB_TERMS`` terms.
+Here each wrapper (its plain version) must equal the JAX
+``repro.kernels.ref`` oracle at L = 65,536, where one cell's count of
+document 0 reaches 65,536 and so needs a 17th counter plane; and the slab
+loops themselves (``_term_slabs``, ``_slab_sum``, ``_slab_chain``), run with
+the plain versions and small slabs, must give the unslabbed counts. Every
+comparison is exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels import ref as jax_ref
+
+from repro_torch.kernels import bitslice_score as k
+
+torch.set_num_threads(2)
+
+L_LONG = 65_536
+WRAPPERS = ["lookup_score_blocks_compressed", "lookup_score_multi_compressed",
+            "dedup_score", "chunk_lookup_score_multi",
+            "chunk_lookup_score_multi_compressed", "chunk_dedup_score"]
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+def _inputs(L: int, W: int, seed: int):
+    """Rows [R, W] with document 0's bit set in every row, a rowdict pair
+    over them, and idx / mask [1, 2, L]: cell 0 counts every term, cell 1
+    a random half."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 2 ** 32, size=(97, W), dtype=np.uint32)
+    rows[:, 0] |= np.uint32(1)
+    refs = rng.integers(0, 97, size=300).astype(np.int32)
+    idx = rng.integers(0, 300, size=(1, 2, L)).astype(np.int32)
+    mask = np.ones((1, 2, L), np.int32)
+    mask[0, 1] = rng.integers(0, 2, size=L)
+    return rows, refs, idx, mask
+
+
+def _multi_ref(rows: np.ndarray, idx: np.ndarray, mask: np.ndarray
+               ) -> np.ndarray:
+    Q, nb, _ = idx.shape
+    out = jax_ref.bitslice_lookup_score_multi_ref(
+        jnp.asarray(rows), jnp.asarray(idx), jnp.asarray(mask))
+    return np.asarray(out).reshape(Q, nb, rows.shape[1], 32)
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_long_wrapper_equals_reference(name):
+    W = 1 + WRAPPERS.index(name) % 2
+    rows, refs, idx, mask = _inputs(L_LONG, W, WRAPPERS.index(name))
+    expanded = rows[refs]                       # the tile refs decodes to
+    acc = np.random.default_rng(5).integers(0, 1000, size=(1, 2, 8, 32)
+                                            ).astype(np.int32)
+    fn = getattr(k, name)
+    if name == "lookup_score_blocks_compressed":
+        got = fn(_t(rows), _t(refs), _t(idx[0]), _t(mask[0]))
+        want = np.asarray(jax_ref.bitslice_lookup_score_blocks_ref(
+            jnp.asarray(expanded), jnp.asarray(idx[0]), jnp.asarray(mask[0])
+        )).reshape(2, W, 32)
+    elif name == "lookup_score_multi_compressed":
+        got = fn(_t(rows), _t(refs), _t(idx), _t(mask))
+        want = _multi_ref(expanded, idx, mask)
+    elif name == "dedup_score":
+        # uniq holds the expanded tile's rows, indir points into it
+        got = fn(_t(expanded), _t(idx), _t(mask))
+        want = np.asarray(jax_ref.bitslice_lookup_score_dedup_ref(
+            jnp.asarray(rows), jnp.asarray(refs), jnp.asarray(idx),
+            jnp.asarray(mask))).reshape(1, 2, W, 32)
+    else:
+        if name == "chunk_lookup_score_multi":
+            got = fn(_t(expanded), _t(idx), _t(mask), _t(acc))
+        elif name == "chunk_dedup_score":
+            got = fn(_t(expanded), _t(idx), _t(mask), _t(acc))
+        else:
+            got = fn(_t(rows), _t(refs), _t(idx), _t(mask), _t(acc))
+        want = acc.copy()
+        want[:, :, :W] += _multi_ref(expanded, idx, mask)
+    assert want.max() > 65_535                  # past 16 counter planes
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("L", [0, 1, 7, 8, 21, 50])
+def test_term_slabs_cover_the_terms_in_order(monkeypatch, L):
+    monkeypatch.setattr(k, "SLAB_TERMS", 7)
+    idx = torch.arange(2 * L, dtype=torch.int32).reshape(2, L)
+    slabs = k._term_slabs(idx, -idx)
+    if L <= 7:
+        assert len(slabs) == 1 and slabs[0][0] is idx
+    else:
+        assert len(slabs) == -(-L // 7)
+        assert all(i.is_contiguous() and m.is_contiguous()
+                   and i.shape[-1] <= 7 for i, m in slabs)
+    assert torch.equal(torch.cat([i for i, _ in slabs], dim=-1), idx)
+    assert torch.equal(torch.cat([m for _, m in slabs], dim=-1), -idx)
+
+
+@pytest.mark.parametrize("L", [1, 7, 8, 50])
+def test_slab_loops_give_the_unslabbed_counts(monkeypatch, L):
+    rows, refs, idx, mask = _inputs(L, 3, L)
+    rows_t, refs_t, idx_t, mask_t = map(_t, (rows, refs, idx, mask))
+    acc = _t(np.random.default_rng(L).integers(0, 9, size=(1, 2, 8, 32)
+                                               ).astype(np.int32))
+    whole_comp = k.lookup_comp_plain(rows_t, refs_t, idx_t, mask_t)
+    whole_chunk = k.chunk_plain(rows_t, refs_t[idx_t.long()].contiguous(),
+                                mask_t, acc)
+    monkeypatch.setattr(k, "SLAB_TERMS", 7)
+    got_comp = k._slab_sum(idx_t, mask_t, lambda i, m: k.lookup_comp_plain(
+        rows_t, refs_t, i, m))
+    got_chunk = k._slab_chain(refs_t[idx_t.long()].contiguous(), mask_t, acc,
+                              lambda i, m, a: k.chunk_plain(rows_t, i, m, a))
+    assert torch.equal(got_comp, whole_comp)
+    assert torch.equal(got_chunk, whole_chunk)
+    np.testing.assert_array_equal(got_comp.numpy(),
+                                  _multi_ref(rows[refs], idx, mask))
