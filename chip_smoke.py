@@ -12,15 +12,18 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    function, FPR 0.3, blocks of 1024 documents;
 3. holds every kernel against its plain PyTorch version on the card, on
    rows and indices drawn from that index and on the shapes of
-   ``tests/test_kernels.py``; holds the split kernels (vertical, lookup)
-   where a split can go wrong: word tiles (W 1 to 384), term slices and
+   ``tests/test_kernels.py``; holds the split kernels (vertical, lookup,
+   the fused-decode lookup, the chunk dedup) where a split can go wrong:
+   word tiles (W 1 to 384, running counts padded past W), term slices and
    clusters (L 1 to 1,000, cluster sizes 1 to 8), 1 to 200 cells, masks
    with zeros, and L of 65,535, 65,536 and 70,144 (against the plain
    unpack of the gathered rows), plus a slice of more than 65,535 terms;
    then answers a 70,100-base query (70,144 padded terms) on an
    8-document index through the ``vertical`` and ``lookup`` engines and
-   one served request, equal to ``method="ref"``, and runs the slabbed
-   wrappers (fused decode, dedup, chunk) at that length ("[long]");
+   one served request, equal to ``method="ref"``, and runs the six
+   wrappers of the fused-decode, dedup and chunk kernels at that length
+   ("[long]": one launch each for the split ones, 16-plane slabs for the
+   others);
 4. runs the main path with every launch counter at 0: 128 queries of the
    serving traffic mix (40/80/160/320 bp, half true positives, half
    verified negatives) through ``search``, ``search_batch`` (batches of 32)
@@ -123,12 +126,16 @@ CHUNK_KERNELS = ("chunk_dedup_score", "chunk_lookup_score_multi",
 MAIN_KERNELS = ("unpack_score", "vertical_score", "lookup_score_blocks",
                 "lookup_score_multi", "lookup_score")
 DEDUP_KERNELS = ("gather_rows", "gather_rows_compressed", "dedup_score")
-# the wrappers of the split kernels (vertical_kernel, lookup_kernel)
-SPLIT_KERNELS = ("vertical_score", "lookup_score_blocks", "lookup_score_multi",
-                 "lookup_score")
-# where a split can go wrong: word tiles, term slices, clusters, cells
-SPLIT_WORDS = (1, 3, 8, 31, 32, 33, 64, 130, 384)
-SPLIT_TERMS = (1, 7, 63, 64, 65, 320, 1000)
+# the wrappers that scored more than 65,535 terms in 16-plane slabs before
+# their kernels took the split body, and those that still do
+UNSLABBED = ("lookup_score_blocks_compressed", "lookup_score_multi_compressed",
+             "chunk_dedup_score")
+SLABBED = ("dedup_score", "chunk_lookup_score_multi",
+           "chunk_lookup_score_multi_compressed")
+# where a split can go wrong: word tiles, term slices, clusters, cells (W 4
+# is the rowdict store's width, L 32 the pruned path's chunk)
+SPLIT_WORDS = (1, 3, 4, 8, 31, 32, 33, 64, 130, 384)
+SPLIT_TERMS = (1, 7, 32, 63, 64, 65, 320, 1000)
 SPLIT_CELLS = (1, 2, 64, 200)
 LONG_TERMS = (65_535, 65_536, 70_144)
 CLUSTERS = (1, 2, 4, 8)
@@ -406,43 +413,55 @@ def masked_rows(rows, idx, mask):
     return rows[idx.long()] * (mask[..., None] != 0).to(rows.dtype)
 
 
-def split_direct(torch, lib, lookup, src, cs, idx=None, mask=None):
-    """One direct launch of cobs_lookup (src = the arena) or cobs_vertical
-    (src = rows [B, L, W]) at cluster size ``cs``; not counted."""
-    dev = torch.cuda.current_device()
-    stream = torch.cuda.current_stream().cuda_stream
-    if lookup:
-        L, W = idx.shape[-1], src.shape[1]
-        out = torch.empty(idx.shape[:-1] + (W, 32), dtype=torch.int32,
-                          device=DEV)
-        err = lib.cobs_lookup(src.data_ptr(), idx.data_ptr(),
-                              mask.data_ptr(), out.data_ptr(),
-                              idx.numel() // max(L, 1), L, W, cs, dev,
-                              stream)
+def split_dims(kernel, inputs) -> tuple[int, int, int, int]:
+    """(cells, L, W, Wp) of split kernel ``kernel``'s inputs, as
+    split_direct takes them."""
+    if kernel == "vertical":
+        cells, L, W = inputs[0].shape
+        return cells, L, W, W
+    idx = inputs[-3 if kernel == "chunk_dedup" else -2]
+    L, W = idx.shape[-1], inputs[0].shape[1]
+    Wp = inputs[-1].shape[2] if kernel == "chunk_dedup" else W
+    return idx.numel() // max(L, 1), L, W, Wp
+
+
+def split_direct(torch, rt, kernel, cs, *inputs):
+    """One direct launch of split kernel ``kernel`` (one of
+    ``_build.SPLIT_KERNELS``) through its own entry point at cluster size
+    ``cs`` on its inputs: vertical (rows [B, L, W]), lookup (arena, idx,
+    mask), lookup_comp (dict, refs, idx, mask) or chunk_dedup (uniq, indir,
+    mask, acc); returns its output. Not counted in ``launches``."""
+    cells, L, W, Wp = split_dims(kernel, inputs)
+    if kernel == "chunk_dedup":
+        out = torch.empty_like(inputs[-1])
+        dims = (cells, L, W, Wp)
     else:
-        B, L, W = src.shape
-        out = torch.empty((B, W, 32), dtype=torch.int32, device=DEV)
-        err = lib.cobs_vertical(src.data_ptr(), out.data_ptr(), B, L, W, cs,
-                                dev, stream)
-    check(err == 0, f"{'cobs_lookup' if lookup else 'cobs_vertical'} at "
-          f"cluster {cs}: CUDA error {err}")
+        lead = (cells,) if kernel == "vertical" else inputs[-2].shape[:-1]
+        out = torch.empty(lead + (W, 32), dtype=torch.int32, device=DEV)
+        dims = (cells, L, W)
+    rt.build.launch(f"cobs_{kernel}", *(t.data_ptr() for t in inputs),
+                    out.data_ptr(), *dims, cs, torch.cuda.current_device(),
+                    torch.cuda.current_stream().cuda_stream)
     return out
 
 
 def check_split_kernels(rt, torch, chk, words, g) -> None:
-    """vertical_score and the three fused lookups where a split can go
-    wrong: every word tiling of SPLIT_WORDS, term count of SPLIT_TERMS and
-    cell count of SPLIT_CELLS with masks holding zeros (and one mask of 3,
+    """The split kernels' wrappers (vertical_score, the three fused
+    lookups, the two fused-decode lookups, chunk_dedup_score) where a split
+    can go wrong: every word tiling of SPLIT_WORDS (running counts padded
+    past W as the executors pad them), term count of SPLIT_TERMS and cell
+    count of SPLIT_CELLS with masks holding zeros (and one mask of 3,
     which counts), each cluster size at a few of them, the long L of
     LONG_TERMS against the plain unpack of the gathered rows, and one slice
     of more than 65,535 terms (the flush of full counter planes)."""
     k = rt.kernels
-    lib = rt.build.library()
     compare = chk.compare
     t0 = time.perf_counter()
     n = 0
     for W in SPLIT_WORDS:
         arena = words(512, W)
+        dict_rows, refs = words(40, W), torch.randint(
+            0, 40, (512,), generator=g, dtype=torch.int32).to(DEV)
         for L in SPLIT_TERMS:
             for cells in SPLIT_CELLS:
                 idx = torch.randint(0, 512, (cells, L), generator=g,
@@ -452,9 +471,16 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                 mask[0, 0] = 0
                 mask[-1, -1] = 3
                 rows = words(cells, L, W)
-                what = f"split W={W} L={L} cells={cells}"
+                acc = rt.ops.chunk_acc_init(cells, 1, W, device=DEV)
+                acc += torch.randint(0, 50, acc.shape, generator=g,
+                                     dtype=torch.int32).to(DEV)
+                what = (f"split W={W} L={L} cells={cells} "
+                        f"Wp={acc.shape[2]}")
                 want_v = k.vertical_score_plain(rows)
                 want = k.lookup_plain(arena, idx, mask)
+                want_c = k.lookup_comp_plain(dict_rows, refs, idx, mask)
+                want_k = k.chunk_plain(arena, idx[:, None], mask[:, None],
+                                       acc)
                 if cells == 1:
                     compare("vertical_score", k.vertical_score(rows[0]),
                             want_v[0], what)
@@ -465,27 +491,44 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                         what)
                 compare("lookup_score_blocks",
                         k.lookup_score_blocks(arena, idx, mask), want, what)
+                compare("lookup_score_blocks_compressed",
+                        k.lookup_score_blocks_compressed(dict_rows, refs, idx,
+                                                         mask), want_c, what)
                 q = 2 if cells % 2 == 0 else 1
                 compare("lookup_score_multi", k.lookup_score_multi(
                     arena, idx.reshape(cells // q, q, L),
                     mask.reshape(cells // q, q, L)),
                     want.reshape(cells // q, q, W, 32), what)
+                compare("lookup_score_multi_compressed",
+                        k.lookup_score_multi_compressed(
+                            dict_rows, refs, idx.reshape(cells // q, q, L),
+                            mask.reshape(cells // q, q, L)),
+                        want_c.reshape(cells // q, q, W, 32), what)
+                compare("chunk_dedup_score", k.chunk_dedup_score(
+                    arena, idx[:, None], mask[:, None], acc), want_k, what)
                 n += 1
-                if W in (1, 8, 33, 130) and L in (63, 320, 1000) \
+                if W in (1, 4, 8, 33, 130) and L in (63, 320, 1000) \
                         and cells <= 2:
                     for cs in CLUSTERS:
+                        wc = f"{what} cluster {cs}"
                         compare("vertical_score", split_direct(
-                            torch, lib, False, rows, cs), want_v,
-                            f"{what} cluster {cs}")
+                            torch, rt, "vertical", cs, rows), want_v, wc)
                         compare("lookup_score_blocks", split_direct(
-                            torch, lib, True, arena, cs, idx, mask), want,
-                            f"{what} cluster {cs}")
+                            torch, rt, "lookup", cs, arena, idx, mask), want,
+                            wc)
+                        compare("lookup_score_blocks_compressed",
+                                split_direct(torch, rt, "lookup_comp", cs,
+                                             dict_rows, refs, idx, mask),
+                                want_c, wc)
+                        compare("chunk_dedup_score", split_direct(
+                            torch, rt, "chunk_dedup", cs, arena, idx, mask,
+                            acc), want_k, wc)
     log(f"[kernels:split] {n} (W, L, cells) shapes and the cluster sizes "
-        f"{CLUSTERS} equal the plain versions in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{CLUSTERS} equal the plain versions (vertical, lookup, "
+        f"lookup_comp, chunk_dedup) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for L in LONG_TERMS:
-        for W, cells in ((1, 1), (8, 2), (33, 2)):
+        for W, cells in ((1, 1), (4, 2), (8, 2), (33, 2)):
             arena = words(4096, W)
             idx = torch.randint(0, 4096, (cells, L), generator=g,
                                 dtype=torch.int32).to(DEV)
@@ -493,18 +536,40 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                 torch.int32).to(DEV)
             mask[0] = 1                       # cell 0 counts every term
             arena[:, 0] |= 1                  # ... in document 0
+            # a rowdict pair whose rows all hold document 0 too
+            dict_rows, refs = words(300, W), torch.randint(
+                0, 300, (4096,), generator=g, dtype=torch.int32).to(DEV)
+            dict_rows[:, 0] |= 1
             rows = words(cells, L, W)
+            acc = rt.ops.chunk_acc_init(cells, 1, W, device=DEV)
+            acc += torch.randint(0, 1000, acc.shape, generator=g,
+                                 dtype=torch.int32).to(DEV)
             want_v = unpack_rows_plain(k, rows)
             want = unpack_rows_plain(k, masked_rows(arena, idx, mask))
+            want_c = unpack_rows_plain(k, masked_rows(
+                dict_rows[refs.long()], idx, mask))
+            want_k = acc.clone()
+            want_k[:, 0, :W] += want
             what = f"long W={W} L={L} cells={cells}"
             check(L < 65_536 or int(want.max()) > 65_535,
                   f"{what}: no count needs a 17th plane")
+            check(L < 65_536 or int(want_c.max()) > 65_535,
+                  f"{what}: no decoded count needs a 17th plane")
             compare("vertical_score", k.vertical_score(rows), want_v, what)
             compare("lookup_score_blocks",
                     k.lookup_score_blocks(arena, idx, mask), want, what)
             compare("lookup_score_multi",
                     k.lookup_score_multi(arena, idx[None], mask[None]),
                     want[None], what)
+            compare("lookup_score_blocks_compressed",
+                    k.lookup_score_blocks_compressed(dict_rows, refs, idx,
+                                                     mask), want_c, what)
+            compare("lookup_score_multi_compressed",
+                    k.lookup_score_multi_compressed(dict_rows, refs,
+                                                    idx[None], mask[None]),
+                    want_c[None], what)
+            compare("chunk_dedup_score", k.chunk_dedup_score(
+                arena, idx[:, None], mask[:, None], acc), want_k, what)
             if cells == 1:
                 compare("lookup_score", k.lookup_score(arena, idx[0],
                                                        mask[0]),
@@ -512,25 +577,40 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                 compare("vertical_score", k.vertical_score(rows[0]),
                         want_v[0], what)
     # a slice of more than 65,535 terms: one block (cluster 1) of
-    # FLUSH_TERMS terms at W = 32 flushes its planes
+    # FLUSH_TERMS terms at W = 32 (8 slices) flushes its planes
     L, W = FLUSH_TERMS, 32
     arena = words(4096, W)
+    dict_rows, refs = words(300, W), torch.randint(
+        0, 300, (4096,), generator=g, dtype=torch.int32).to(DEV)
     idx = torch.randint(0, 4096, (1, L), generator=g,
                         dtype=torch.int32).to(DEV)
     mask = torch.ones((1, L), dtype=torch.int32, device=DEV)
     rows = words(1, L, W)
-    check(rt.build.split_info(True, 1, L, W, 1, torch.cuda.current_device()
-                              )["planes"] == 16,
-          "the flush case does not fill 16 counter planes")
+    acc = torch.randint(0, 1000, (1, 1, W, 32), generator=g,
+                        dtype=torch.int32).to(DEV)
+    dev = torch.cuda.current_device()
+    for kernel in ("lookup", "lookup_comp", "chunk_dedup", "vertical"):
+        check(rt.build.split_info(kernel, 1, L, W, 1, dev)["planes"] == 16,
+              f"the flush case does not fill 16 counter planes ({kernel})")
+    want = unpack_rows_plain(k, masked_rows(arena, idx, mask))
+    want_c = unpack_rows_plain(k, masked_rows(dict_rows[refs.long()], idx,
+                                              mask))
     for cs in (1, 0):
         what = f"flush W={W} L={L} cluster {cs or 'auto'}"
         compare("lookup_score_blocks", split_direct(
-            torch, lib, True, arena, cs, idx, mask),
-            unpack_rows_plain(k, masked_rows(arena, idx, mask)), what)
-        compare("vertical_score", split_direct(torch, lib, False, rows, cs),
+            torch, rt, "lookup", cs, arena, idx, mask), want, what)
+        compare("lookup_score_blocks_compressed", split_direct(
+            torch, rt, "lookup_comp", cs, dict_rows, refs, idx, mask),
+            want_c, what)
+        compare("chunk_dedup_score", split_direct(
+            torch, rt, "chunk_dedup", cs, arena, idx, mask, acc),
+            acc + want[:, None], what)
+        compare("vertical_score", split_direct(torch, rt, "vertical", cs,
+                                               rows),
                 unpack_rows_plain(k, rows), what)
     log(f"[kernels:long] L {LONG_TERMS} and a slice of {L // 8} terms "
-        f"(flushed) equal the plain unpack of the gathered rows in "
+        f"(flushed) equal the plain unpack of the gathered rows (vertical, "
+        f"lookup, lookup_comp, chunk_dedup) in "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -540,9 +620,11 @@ def phase_long_query(rt, torch, chk) -> dict:
     70,100-base sequence, queried with that sequence (70,144 padded terms,
     all counted for document 0: 17 counter planes) through the vertical and
     lookup engines (search, search_batch beside a short query, top_k) and
-    one served request, each equal to ``method="ref"``; then the wrappers
-    that score such a query in slabs of 16-plane launches (fused decode,
-    dedup, chunk), each against the plain unpack of its gathered rows."""
+    one served request, each equal to ``method="ref"``; then the six
+    wrappers of the fused-decode, dedup and chunk kernels at that length,
+    each against the plain unpack of its gathered rows: the split ones
+    (UNSLABBED) in one launch each, the 16-plane ones (SLABBED) in two
+    slabs."""
     k = rt.kernels
     t0 = time.perf_counter()
     corpus = rt.make_corpus(8, k=15, mean_length=400, sigma=1.0, seed=7)
@@ -575,8 +657,8 @@ def phase_long_query(rt, torch, chk) -> dict:
           "[long] the served request != ref")
     out["engine_launches"] = {n: v for n, v in k.launches.items() if v}
     out["served_method"] = resp.method
-    # the slabbed wrappers, L = 70,144: cell 0 counts every term, in
-    # document 0 of every row
+    # the six wrappers, L = 70,144: cell 0 counts every term, in document
+    # 0 of every row
     g = torch.Generator().manual_seed(16)
     L, W = out["padded"], 4
 
@@ -620,16 +702,17 @@ def phase_long_query(rt, torch, chk) -> dict:
                                                       mask, acc),
                 want_acc_c, f"long L={L}")
     slabs = {n: v for n, v in k.launches.items() if v}
-    check(all(v == 2 for v in slabs.values()) and len(slabs) == 6,
-          f"[long] the slabbed wrappers launched {slabs}, not 2 slabs each")
+    check(slabs == {**{n: 1 for n in UNSLABBED}, **{n: 2 for n in SLABBED}},
+          f"[long] the six wrappers launched {slabs}, not 1 launch each for "
+          f"{UNSLABBED} and 2 slabs each for {SLABBED}")
     out["slab_launches"] = slabs
     out["seconds"] = time.perf_counter() - t0
     log(f"[long] a {LONG_BP}-base query ({n_terms} terms, padded to {L}; "
         f"document 0 scores {out['top_score']}): vertical and lookup "
         f"search, search_batch, top_k and a served request "
         f"({resp.method}) equal ref; launches {out['engine_launches']}; "
-        f"slabbed wrappers at L={L} equal the plain counts, 2 launches "
-        f"each; {out['seconds']:.1f} s")
+        f"the six fused-decode, dedup and chunk wrappers at L={L} equal the "
+        f"plain counts, launches {slabs}; {out['seconds']:.1f} s")
     return out
 
 
@@ -1897,11 +1980,9 @@ def lookup_case(torch, k, lib, name, what, src, rows, refs=None):
         head = ((rows.data_ptr(),) if refs is None
                 else (rows.data_ptr(), refs.data_ptr()))
         fn = lib.cobs_lookup if refs is None else lib.cobs_lookup_comp
-        # the split kernel takes a cluster size, the 16-plane one planes
-        last = k.CLUSTER_AUTO if refs is None else k.num_planes(L)
-        calls.append(lambda f=fn, h=head, r=ridx, m=msk, o=o, c=cells, L=L,
-                     last=last: f(*h, r.data_ptr(), m.data_ptr(),
-                                  o.data_ptr(), c, L, W, last, dev, stream))
+        calls.append(lambda f=fn, h=head, r=ridx, m=msk, o=o, c=cells, L=L:
+                     f(*h, r.data_ptr(), m.data_ptr(), o.data_ptr(), c, L, W,
+                       k.CLUSTER_AUTO, dev, stream))
     ridx, msk = src[0]
     L = ridx.shape[-1]
     cells = ridx.numel() // L
@@ -1935,6 +2016,9 @@ def chunk_case(torch, k, lib, name, recs):
     stream = torch.cuda.current_stream().cuda_stream
     fn = getattr(lib, CHUNK_SYMBOLS[name])
     comp = name == "chunk_lookup_score_multi_compressed"
+    # the split kernel takes a cluster size, the 16-plane ones planes
+    last = ((lambda L: k.CLUSTER_AUTO) if name == "chunk_dedup_score"
+            else k.num_planes)
     calls = []
     for args in recs:
         rows, idx, msk, acc = (args[0],) + args[2:] if comp else args
@@ -1945,8 +2029,7 @@ def chunk_case(torch, k, lib, name, recs):
         calls.append(lambda f=fn, h=head, i=idx, m=msk, a=acc, o=o,
                      c=Q * nb, L=L, W=rows.shape[1], Wp=acc.shape[2]:
                      f(*h, i.data_ptr(), m.data_ptr(), a.data_ptr(),
-                       o.data_ptr(), c, L, W, Wp, k.num_planes(L), dev,
-                       stream))
+                       o.data_ptr(), c, L, W, Wp, last(L), dev, stream))
     args = recs[0]
     rows, idx, msk, acc = (args[0],) + args[2:] if comp else args
     W, Wp = rows.shape[1], acc.shape[2]
@@ -2109,16 +2192,27 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
                   [s[2][0] for s in classic_singles]),
         rows_case(torch, k, lib, "vertical_score",
                   [plan(index, long_sets)[2]])]
-    # each split case's first inputs: (lookup, source, idx, mask)
+    # each split case's first inputs: (kernel, its inputs, as split_direct
+    # takes them)
+    by_name = {c[0]: c for c in cases}
+    dedup_rec = chunk["chunk_dedup_score"][0]
     split_inputs = {
-        id(cases[1]): (False, flats[0][None], None, None),
-        id(cases[2]): (True, arena, singles[0][0][0], singles[0][1][0]),
-        id(cases[3]): (True, arena, batch_idx, batch_mask),
-        id(cases[4]): (True, classic.storage.full_device(),
-                       classic_singles[0][0][0], classic_singles[0][1][0]),
-        id(extra_cases[0]): (False, classic_singles[0][2][0][None], None,
-                             None),
-        id(extra_cases[1]): (False, extra_cases[1][7], None, None)}
+        id(by_name["vertical_score"]): ("vertical", flats[0][None]),
+        id(by_name["lookup_score_blocks"]): (
+            "lookup", arena, singles[0][0][0], singles[0][1][0]),
+        id(by_name["lookup_score_multi"]): ("lookup", arena, batch_idx,
+                                         batch_mask),
+        id(by_name["lookup_score"]): (
+            "lookup", classic.storage.full_device(),
+            classic_singles[0][0][0], classic_singles[0][1][0]),
+        id(by_name["lookup_score_blocks_compressed"]): (
+            "lookup_comp", comp["dict_rows"], comp["refs"],
+            comp["singles"][0][0][0], comp["singles"][0][1][0]),
+        id(by_name["lookup_score_multi_compressed"]): (
+            "lookup_comp", comp["dict_rows"], comp["refs"], *comp["batch"]),
+        id(by_name["chunk_dedup_score"]): ("chunk_dedup", *dedup_rec),
+        id(extra_cases[0]): ("vertical", classic_singles[0][2][0][None]),
+        id(extra_cases[1]): ("vertical", extra_cases[1][7])}
     out, extras = [], []
     for case in cases + extra_cases:
         name, shape, calls, plain, nbytes, nops = case[:6]
@@ -2148,7 +2242,8 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
             "library_ms": library_ms,
         }
         if id(case) in split_inputs:
-            rec.update(split_sweep(torch, rt, lib, *split_inputs[id(case)]))
+            kernel, *inputs = split_inputs[id(case)]
+            rec.update(split_sweep(torch, rt, kernel, *inputs))
         (extras if any(case is c for c in extra_cases) else out).append(rec)
         log(f"[time] {name} at {shape}: kernel {rec['ms'] * 1e3:.2f} us "
             f"({rec['ms_source']}), host-launched back-to-back "
@@ -2197,20 +2292,15 @@ def rows_case(torch, k, lib, name, rows_list):
             B * (L * W * 4 + W * 32 * 4), ops, None, r3s[0])
 
 
-def split_sweep(torch, rt, lib, lookup, src, idx, mask) -> dict:
+def split_sweep(torch, rt, kernel, *inputs) -> dict:
     """A split kernel's launch shape at these inputs (the entry point's
     own cluster choice) and its time at each cluster size (``graph_ms``)."""
     dev = torch.cuda.current_device()
-    if lookup:
-        L, W = idx.shape[-1], src.shape[1]
-        cells = idx.numel() // L
-    else:
-        cells, L, W = src.shape
-    shape = rt.build.split_info(lookup, cells, L, W, 0, dev)
+    cells, L, W, Wp = split_dims(kernel, inputs)
+    shape = rt.build.split_info(kernel, cells, L, W, 0, dev, Wp=Wp)
     times = {}
     for cs in CLUSTERS:
-        call = (lambda cs=cs: split_direct(torch, lib, lookup, src, cs, idx,
-                                           mask))
+        call = (lambda cs=cs: split_direct(torch, rt, kernel, cs, *inputs))
         call()
         times[cs] = graph_ms(torch, [call])
     return {"launch_shape": shape, "cluster_ms": times}

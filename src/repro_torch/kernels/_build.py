@@ -32,13 +32,14 @@ _SIGNATURES = {
     "cobs_vertical": (_P, _P, _I, _I, _I, _I, _I, _P),
     # arena, idx, mask, out, cells, L, W, cluster, device, stream
     "cobs_lookup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # lookup (1) or vertical (0), cells, L, W, cluster, device, int[9] out
-    "cobs_split_info": (_I, _I, _I, _I, _I, _I, _P),
-    # dict, refs, idx, mask, out, cells, L, W, n_planes, device, stream
+    # dict, refs, idx, mask, out, cells, L, W, cluster, device, stream
     "cobs_lookup_comp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # arena (uniq), idx (indir), mask, acc, out, cells, L, W, Wp,
-    # n_planes, device, stream
+    # kernel name (one of SPLIT_KERNELS), cells, L, W, Wp, cluster, device,
+    # int[9] out
+    "cobs_split_info": (ctypes.c_char_p, _I, _I, _I, _I, _I, _I, _P),
+    # arena, idx, mask, acc, out, cells, L, W, Wp, n_planes, device, stream
     "cobs_chunk_lookup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # uniq, indir, mask, acc, out, cells, L, W, Wp, cluster, device, stream
     "cobs_chunk_dedup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # dict, refs, idx, mask, acc, out, cells, L, W, Wp, n_planes, device,
     # stream
@@ -102,18 +103,25 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# the split kernels, as cobs_split_info names them
+SPLIT_KERNELS = ("vertical", "lookup", "lookup_comp", "chunk_dedup")
 SPLIT_INFO = ("blocks", "threads", "cluster", "word_tile", "slices",
               "planes", "static_smem_bytes", "registers", "max_cluster")
 
 
-def split_info(lookup: bool, cells: int, L: int, W: int, cluster: int,
-               device: int) -> dict[str, int]:
-    """How ``cobs_lookup`` (or ``cobs_vertical``) launches at this shape:
-    its grid, block and cluster shape, word tile, term slices, counter
-    planes, and the kernel's static shared memory and registers."""
+def split_info(kernel: str, cells: int, L: int, W: int, cluster: int,
+               device: int, *, Wp: int | None = None) -> dict[str, int]:
+    """How split kernel ``kernel`` (one of SPLIT_KERNELS) launches at this
+    shape (``Wp``: the chunk dedup's running-count words, default W): its
+    grid, block and cluster shape, word tile, term slices, counter planes,
+    and the kernel's static shared memory and registers."""
+    if kernel not in SPLIT_KERNELS:
+        raise ValueError(f"unknown split kernel {kernel!r}; one of "
+                         f"{SPLIT_KERNELS}")
     lib = library()
     info = (ctypes.c_int * len(SPLIT_INFO))()
-    err = lib.cobs_split_info(int(lookup), cells, L, W, cluster, device,
+    err = lib.cobs_split_info(kernel.encode(), cells, L, W,
+                              W if Wp is None else Wp, cluster, device,
                               ctypes.addressof(info))
     if err != 0:
         msg = lib.cobs_error_string(err).decode()

@@ -26,14 +26,15 @@ For a CPU tensor it calls the plain version; for a CUDA tensor it launches
 the kernel on the current stream, or raises. ``launches[name]`` counts the
 kernel launches of each wrapper and nothing else.
 
-No wrapper limits the number of terms. ``vertical_score`` and the three
-fused lookups take any L in one launch (their kernels split the term axis
-across a block's threads and flush full counters into the block's counts).
-The other scoring kernels keep 16 counter planes a thread, so their
-wrappers score more than ``SLAB_TERMS`` terms in slabs: the fused-decode
-lookups and ``dedup_score`` add the slabs' counts, and the chunk wrappers
-pass each slab's output on as the next slab's ``acc``. Each slab is one
-launch and one count in ``launches``.
+No wrapper limits the number of terms. ``vertical_score``, the three fused
+lookups, the two fused-decode lookups and ``chunk_dedup_score`` take any L
+in one launch (their kernels split the term axis across a block's threads
+and flush full counters into the block's counts). ``dedup_score``,
+``chunk_lookup_score_multi`` and ``chunk_lookup_score_multi_compressed``
+keep 16 counter planes a thread, so their wrappers score more than
+``SLAB_TERMS`` terms in slabs: ``dedup_score`` adds the slabs' counts, and
+the two chunk lookups pass each slab's output on as the next slab's
+``acc``. Each slab is one launch and one count in ``launches``.
 """
 from __future__ import annotations
 
@@ -41,11 +42,12 @@ import torch
 
 from . import _build
 
-# the most terms one launch of the 16-plane kernels (lookup_comp, the chunk
-# kernels, dedup) takes: 16 counter planes count up to 65,535
+# the most terms one launch of the 16-plane kernels (dedup and the two chunk
+# lookups) takes: 16 counter planes count up to 65,535
 SLAB_TERMS = (1 << 16) - 1
-# cluster size argument of cobs_vertical / cobs_lookup: 0 lets the entry
-# point choose (1 = no cluster; 2, 4 or 8 blocks share a word tile's terms)
+# cluster size argument of the split kernels' entry points (cobs_vertical,
+# cobs_lookup, cobs_lookup_comp, cobs_chunk_dedup): 0 lets the entry point
+# choose (1 = no cluster; 2, 4 or 8 blocks share a word tile's terms)
 CLUSTER_AUTO = 0
 GRID_ORDERS = ("wq", "qw")
 
@@ -250,17 +252,25 @@ def _lookup(name: str, arena: torch.Tensor, rows_idx: torch.Tensor,
     cuda = _on_cuda(arena, rows_idx, mask)
     R, W = arena.shape
     _check_range(rows_idx, R, "the arena")
-    L = rows_idx.shape[-1]
     if not cuda:
         return lookup_plain(arena, rows_idx, mask)
-    cells = rows_idx.shape[:-1].numel()
+    return _lookup_launch(name, "cobs_lookup", (arena.data_ptr(),), rows_idx,
+                          mask, W, arena.device)
+
+
+def _lookup_launch(name: str, symbol: str, head: tuple[int, ...],
+                   rows_idx: torch.Tensor, mask: torch.Tensor, W: int,
+                   dev: torch.device) -> torch.Tensor:
+    """One launch of a split lookup entry point (``cobs_lookup`` after the
+    arena, ``cobs_lookup_comp`` after the rowdict pair; ``head`` holds
+    their pointers) for any L, at the cluster size the entry point picks."""
     out = torch.empty(rows_idx.shape[:-1] + (W, 32), dtype=torch.int32,
-                      device=arena.device)
+                      device=dev)
     if out.numel():
-        _build.launch("cobs_lookup", arena.data_ptr(), rows_idx.data_ptr(),
-                      mask.data_ptr(), out.data_ptr(), cells, L, W,
-                      CLUSTER_AUTO, arena.device.index or 0,
-                      _stream(arena.device))
+        L = rows_idx.shape[-1]
+        _build.launch(symbol, *head, rows_idx.data_ptr(), mask.data_ptr(),
+                      out.data_ptr(), rows_idx.shape[:-1].numel(), L, W,
+                      CLUSTER_AUTO, dev.index or 0, _stream(dev))
         launches[name] += 1
     return out
 
@@ -330,22 +340,9 @@ def _lookup_comp(name: str, dict_rows: torch.Tensor, refs: torch.Tensor,
     _check_range(rows_idx, refs.shape[0], "refs")
     if not cuda:
         return lookup_comp_plain(dict_rows, refs, rows_idx, mask)
-    W = dict_rows.shape[1]
-    cells = rows_idx.shape[:-1].numel()
-    dev = dict_rows.device
-
-    def score(idx_s, mask_s):
-        out = torch.empty(rows_idx.shape[:-1] + (W, 32), dtype=torch.int32,
-                          device=dev)
-        if out.numel():
-            L = idx_s.shape[-1]
-            _build.launch("cobs_lookup_comp", dict_rows.data_ptr(),
-                          refs.data_ptr(), idx_s.data_ptr(),
-                          mask_s.data_ptr(), out.data_ptr(), cells, L, W,
-                          num_planes(L), dev.index or 0, _stream(dev))
-            launches[name] += 1
-        return out
-    return _slab_sum(rows_idx, mask, score)
+    return _lookup_launch(name, "cobs_lookup_comp",
+                          (dict_rows.data_ptr(), refs.data_ptr()), rows_idx,
+                          mask, dict_rows.shape[1], dict_rows.device)
 
 
 def lookup_score_blocks_compressed(dict_rows: torch.Tensor,
@@ -395,12 +392,13 @@ def chunk_plain(rows: torch.Tensor, rows_idx: torch.Tensor,
 def _chunk(name: str, symbol: str, rows: torch.Tensor,
            refs: torch.Tensor | None, rows_idx: torch.Tensor,
            mask: torch.Tensor, acc: torch.Tensor,
-           range_checked: bool) -> torch.Tensor:
+           range_checked: bool, split: bool = False) -> torch.Tensor:
     """Shared checks and launch of the chunk wrappers. rows_idx indexes
     ``refs`` when given, else ``rows``. On a CUDA tensor the range check
     costs one device sync; callers that checked the indices on the host
     before the upload (the executors in ``core/query.py``) pass
-    ``range_checked``."""
+    ``range_checked``. A ``split`` kernel takes any L in one launch; the
+    16-plane ones score slabs of at most SLAB_TERMS terms."""
     _check("acc", acc, (4,))
     _check_indices(rows_idx, mask, 3)
     W = rows.shape[1]
@@ -419,15 +417,19 @@ def _chunk(name: str, symbol: str, rows: torch.Tensor,
             else (rows.data_ptr(), refs.data_ptr()))
 
     def score(idx_s, mask_s, acc_s):
-        out = torch.empty_like(acc)
+        out = torch.empty_like(acc)        # never acc_s: they must not overlap
         if out.numel():
             L = idx_s.shape[-1]
+            # the split kernel takes a cluster size, the 16-plane ones planes
+            last = CLUSTER_AUTO if split else num_planes(L)
             _build.launch(symbol, *head, idx_s.data_ptr(), mask_s.data_ptr(),
                           acc_s.data_ptr(), out.data_ptr(), Q * nb, L, W,
-                          acc.shape[2], num_planes(L),
-                          rows.device.index or 0, _stream(rows.device))
+                          acc.shape[2], last, rows.device.index or 0,
+                          _stream(rows.device))
             launches[name] += 1
         return out
+    if split:
+        return score(rows_idx, mask, acc)
     return _slab_chain(rows_idx, mask, acc, score)
 
 
@@ -467,7 +469,7 @@ def chunk_dedup_score(uniq: torch.Tensor, indir: torch.Tensor,
     ``chunk_dedup_score``."""
     _check("uniq", uniq, (2,))
     return _chunk("chunk_dedup_score", "cobs_chunk_dedup", uniq, None,
-                  indir, mask, acc, range_checked)
+                  indir, mask, acc, range_checked, split=True)
 
 
 # --------------------------------------------------------------------------

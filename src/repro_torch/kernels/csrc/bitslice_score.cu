@@ -44,11 +44,10 @@
 // out = acc + counts, acc and out int32 [Q, nb, Wp, 32] with Wp >= W (the
 // JAX executors pad the word axis of acc to a word block; words >= W read
 // as zero rows). Their bound is the fused lookup's plus acc read once and
-// out written once. All three are the 16-plane body with kAcc set:
-// chunk_dedup_score(uniq, indir, mask, acc) is exactly
+// out written once. chunk_dedup_score(uniq, indir, mask, acc) computes
 // chunk_lookup_score_multi(uniq, indir, mask, acc), the unique-row matrix
-// taking the arena's place; its own __global__ name lets the profiler
-// and the launch counters tell the two uses apart.
+// taking the arena's place; chunk_dedup_kernel runs it on the split body
+// (accumulate mode), the two chunk lookups on the 16-plane body with kAcc.
 //
 // The row-dedup pair of the single-host server: gather_kernel copies each
 // unique arena row (or ANDs each unique k-row set) of a batch once into a
@@ -58,7 +57,7 @@
 // written) / 3.35 TB/s, and one thread a word keeps every load and store
 // coalesced along a row. gather_comp_kernel reads row r as dict[refs[r]],
 // one more 4-byte load a row. dedup_kernel is the 16-plane body over uniq
-// instead of the arena (chunk_dedup_kernel without acc); its bound is the
+// instead of the arena (chunk_lookup_kernel without acc); its bound is the
 // fused lookup's with rows counted once per distinct uniq row.
 //
 // Design. The TPU kernels carry counter planes across a sequential grid
@@ -66,39 +65,46 @@
 // inside a block (or a cluster of blocks) instead, and nothing carries
 // between launches. Two bodies:
 //
-// * The split body (vertical_kernel, lookup_kernel). One block of 256
-//   threads per (cell, word tile), where a cell is one batch entry or one
-//   (query, block) pair and a word tile is Wt <= 32 consecutive words
-//   (W is cut into ceil(W / 32) near-equal tiles). Thread t works on word
-//   t % Wt of the tile and on term slice t / Wt of S = 256 / Wt; slice s
-//   takes terms s, s + S, s + 2S, ..., so a warp reads 32 / Wt whole row
-//   segments per load, coalesced. Each thread issues 8 independent row
-//   loads before it ripples any of them into its counter planes
-//   (num_planes(ceil(terms / S)), at most 16, a compile-time count picked
-//   per launch), so a step costs one memory latency, not one per term.
-//   The lookup stages its cell's indices and masks in shared memory first
-//   (cp.async, double-buffered tiles of 1,024 terms), which takes the
-//   index load out of each term's chain. At the
+// * The split body (split_body: vertical_kernel, lookup_kernel,
+//   lookup_comp_kernel, chunk_dedup_kernel). One block of 256 threads per
+//   (cell, word tile), where a cell is one batch entry or one (query,
+//   block) pair and a word tile is Wt <= 32 consecutive words (W, or the
+//   running counts' Wp, cut into ceil(W / 32) near-equal tiles). Thread t
+//   works on word t % Wt of the tile and on term slice t / Wt of S = 256 /
+//   Wt; slice s takes terms s, s + S, s + 2S, ..., so a warp reads 32 / Wt
+//   whole row segments per load, coalesced. Each thread issues 8
+//   independent row loads before it ripples any of them into its counter
+//   planes (num_planes(ceil(terms / S)), at most 16, a compile-time count
+//   picked per launch), so a step costs one memory latency, not one per
+//   term. Its source mode says where rows come from: the cell's own rows
+//   (vertical), or the rows of indices that the block stages in shared
+//   memory first (cp.async, double-buffered tiles of 1,024 terms), which
+//   takes the index load out of each term's chain; the decoded mode
+//   (lookup_comp) then replaces each staged index by its refs entry, all
+//   of a stage's refs loads in flight at once across the block. At the
 //   end the threads write their planes to shared memory and each thread
 //   sums one output's bit over the S slices and the planes, so the tile's
-//   Wt * 32 counts are stored as one coalesced range. A slice that would
-//   pass 65,535 terms flushes its planes into those counts first, so any L
-//   runs in one launch. Where a launch has few (cell, tile) pairs, a
-//   cluster of 2-8 blocks splits the pair's terms; rank 0..cs-1 each sum a
-//   share of the tile's counts over the cluster's shared memory
-//   (distributed shared memory), so no global atomics or memsets are
-//   needed.
-// * The 16-plane body (lookup_body: lookup_comp_kernel, the three chunk
-//   kernels, dedup_kernel). One thread per (cell, word) walks all L terms
-//   in order with 16 counter planes in registers; its wrappers feed it
-//   slabs of at most 65,535 terms. Work items are flattened as g = cell *
-//   W + word (cell * Wp + word in the chunk kernels); each thread reads
-//   only its own acc range, neighbouring threads read neighbouring words
-//   of one row, and a block's outputs are one contiguous range, which
-//   expand_store writes coalesced through shared memory.
+//   Wt * 32 counts are stored as one coalesced range; the accumulate mode
+//   (chunk_dedup) adds each count's acc element, read once by the storing
+//   thread (before the term loop when there is no cluster). A slice that would pass 65,535 terms
+//   flushes its planes into those counts first, so any L runs in one
+//   launch. Where a launch has few (cell, tile) pairs, a cluster of 2-8
+//   blocks splits the pair's terms; rank 0..cs-1 each sum a share of the
+//   tile's counts over the cluster's shared memory (distributed shared
+//   memory), so no global atomics or memsets are needed.
+// * The 16-plane body (lookup_body: chunk_lookup_kernel,
+//   chunk_lookup_comp_kernel, dedup_kernel). One thread per (cell, word)
+//   walks all L terms in order with 16 counter planes in registers; its
+//   wrappers feed it slabs of at most 65,535 terms. Work items are
+//   flattened as g = cell * W + word (cell * Wp + word in the chunk
+//   kernels); each thread reads only its own acc range, neighbouring
+//   threads read neighbouring words of one row, and a block's outputs are
+//   one contiguous range, which expand_store writes coalesced through
+//   shared memory.
 
 #include <climits>
 #include <cstdint>
+#include <cstring>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -112,7 +118,8 @@ constexpr int kThreads = 128;    // threads per block of the 16-plane body
 constexpr int kUnpackThreads = 256;
 constexpr int kGatherThreads = 256;
 constexpr int kPad = 33;         // shared-memory row stride: no bank conflicts
-// the split body (vertical_kernel, lookup_kernel)
+// the split body (vertical_kernel, lookup_kernel, lookup_comp_kernel,
+// chunk_dedup_kernel)
 constexpr int kSplitThreads = 256;
 constexpr int kWordTile = 32;     // most words of a block's tile
 constexpr int kStageTerms = 1024; // terms per shared-memory index stage
@@ -236,7 +243,8 @@ __device__ __forceinline__ void lookup_body(
 
 
 // ---------------------------------------------------------------------------
-// The split body of vertical_kernel and lookup_kernel
+// The split body of vertical_kernel, lookup_kernel, lookup_comp_kernel and
+// chunk_dedup_kernel
 // ---------------------------------------------------------------------------
 
 // A word tile's geometry for W words: tiles of wt <= 32 words, S slices.
@@ -355,7 +363,8 @@ __device__ __forceinline__ void split_flush(uint32_t (&p)[kMaxPlanes],
 }
 
 // Copy n indices and masks of a cell, from term `start`, into stage `buf`
-// of the shared buffers (cp.async, one commit group).
+// of the shared buffers (cp.async, one commit group). Thread t copies
+// terms t, t + 256, ... of the stage.
 __device__ __forceinline__ void split_stage(
     int32_t (*s_idx)[kStageTerms], int32_t (*s_mask)[kStageTerms], int buf,
     const int32_t* ci, const int32_t* cm, int start, int n) {
@@ -366,39 +375,88 @@ __device__ __forceinline__ void split_stage(
   cp_async_commit();
 }
 
+// The rowdict decode of a stage of n terms that has landed: each thread
+// replaces the indices it staged itself (visible to it once its
+// cp.async.wait_group returns) by their refs entries, its up to 4 loads in
+// flight at once, so the block resolves a stage's refs in one memory
+// round trip. A term whose mask is 0 loads nothing. The block syncs after.
+__device__ __forceinline__ void split_decode(
+    int32_t* s_idx, const int32_t* s_mask, const int32_t* __restrict__ refs,
+    int n) {
+  constexpr int kPer = kStageTerms / kSplitThreads;
+  int32_t r[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kSplitThreads;
+    r[k] = i < n && s_mask[i] != 0 ? refs[s_idx[i]] : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kSplitThreads;
+    if (i < n) s_idx[i] = r[k];
+  }
+}
+
+// Where a split block reads its rows: the cell's contiguous [L, W] block
+// (vertical), the arena row of each staged index (lookup, and the chunk
+// dedup over uniq), or the dictionary row of each staged index's refs
+// entry (the fused-decode lookup over a rowdict pair).
+enum SplitSource { kRows, kIndexed, kDecoded };
+
 // Block b of the grid: cluster rank b % cs, (cell, tile) pair b / cs. The
 // block counts terms [lo, hi) of its cell (a cluster's ranks split the
 // terms into near-equal ranges) into the tile's wn * 32 counts, which are
-// out[(cell * W + w0) * 32 ...] and contiguous. kLookup reads the rows
-// through the staged indices (s_idx, s_mask: two stages of kStageTerms);
-// otherwise rows are the cell's contiguous [L, W] block.
-template <bool kLookup>
+// out[(cell * Wo + w0) * 32 ...] and contiguous; Wo is W, but Wp with
+// kAcc, whose running counts pad the word axis (word tiles are cut from
+// Wp words, and a word >= W loads nothing). A staged source reads its
+// indices and masks through s_idx and s_mask (two stages of kStageTerms).
+// With kAcc each stored count adds the acc element of the same place,
+// read once, by the thread that stores it: before the term loop without a
+// cluster, at the store with one (acc and out do not overlap).
+template <SplitSource kSrc, bool kAcc>
 __device__ __forceinline__ void split_body(
-    const uint32_t* __restrict__ rows, const int32_t* __restrict__ idx,
-    const int32_t* __restrict__ mask, int32_t* __restrict__ out, int L,
-    int W, int cs, int32_t (*s_idx)[kStageTerms],
+    const uint32_t* __restrict__ rows, const int32_t* __restrict__ refs,
+    const int32_t* __restrict__ idx, const int32_t* __restrict__ mask,
+    const int32_t* __restrict__ acc, int32_t* __restrict__ out, int L,
+    int W, int Wp, int cs, int32_t (*s_idx)[kStageTerms],
     int32_t (*s_mask)[kStageTerms]) {
+  constexpr bool kStaged = kSrc != kRows;
   __shared__ uint32_t s_planes[kMaxPlanes * kSplitThreads];
   __shared__ int32_t s_red[kWordTile * 32];
   const int t = threadIdx.x;
-  const SplitGeometry g = split_geometry(W);
+  const int Wo = kAcc ? Wp : W;
+  const SplitGeometry g = split_geometry(Wo);
   const int wt = g.wt, S = g.slices;
   const int s = t / wt, w = t % wt;
   const int rank = static_cast<int>(blockIdx.x % cs);
   const long long pair = blockIdx.x / cs;
   const long long cell = pair / g.tiles;
   const int w0 = static_cast<int>(pair % g.tiles) * wt;
-  const int wn = W - w0 < wt ? W - w0 : wt;
+  const int wn = Wo - w0 < wt ? Wo - w0 : wt;   // the tile's words
+  // ... that load rows
+  const int wc = kAcc && W - w0 < wn ? W - w0 : wn;
+  // Without a cluster this thread stores counts e = t + k * 256 of the
+  // tile; with kAcc it loads their acc elements now, so that the loads
+  // overlap the staging.
+  int32_t pre[kOwn];
+#pragma unroll
+  for (int k = 0; k < kOwn; ++k) {
+    const int e = t + k * kSplitThreads;
+    pre[k] = 0;
+    if constexpr (kAcc) {
+      if (cs == 1 && e < wn * 32) pre[k] = acc[(cell * Wp + w0) * 32 + e];
+    }
+  }
   const long long per_rank = (static_cast<long long>(L) + cs - 1) / cs;
   const long long lo_ll = rank * per_rank < L ? rank * per_rank : L;
   const long long hi_ll = lo_ll + per_rank < L ? lo_ll + per_rank : L;
   const int lo = static_cast<int>(lo_ll), hi = static_cast<int>(hi_ll);
   const int np = planes_for((hi - lo + S - 1) / S);
-  const bool counting = s < S && w < wn;
-  const uint32_t* col = kLookup ? rows + w0 + w
+  const bool counting = s < S && w < wc;
+  const uint32_t* col = kStaged ? rows + w0 + w
                                 : rows + cell * L * W + w0 + w;
-  const int32_t* ci = kLookup ? idx + cell * L : nullptr;
-  const int32_t* cm = kLookup ? mask + cell * L : nullptr;
+  const int32_t* ci = kStaged ? idx + cell * L : nullptr;
+  const int32_t* cm = kStaged ? mask + cell * L : nullptr;
 
   uint32_t p[kMaxPlanes];
 #pragma unroll
@@ -407,7 +465,7 @@ __device__ __forceinline__ void split_body(
 #pragma unroll
   for (int k = 0; k < kOwn; ++k) own[k] = 0;
 
-  if constexpr (kLookup) {
+  if constexpr (kStaged) {
     if (lo < hi) {
       split_stage(s_idx, s_mask, 0, ci, cm, lo,
                   hi - lo < kStageTerms ? hi - lo : kStageTerms);
@@ -422,7 +480,7 @@ __device__ __forceinline__ void split_body(
       split_flush(p, own, s_planes, np, S, wt, wn);
       since = 0;
     }
-    if constexpr (kLookup) {
+    if constexpr (kStaged) {
       const int next = st + kStageTerms;
       if (next < hi) {
         split_stage(s_idx, s_mask, buf ^ 1, ci, cm, next,
@@ -431,6 +489,9 @@ __device__ __forceinline__ void split_body(
         cp_async_commit();
       }
       cp_async_wait_prior();
+      if constexpr (kSrc == kDecoded) {
+        split_decode(s_idx[buf], s_mask[buf], refs, n);
+      }
       __syncthreads();
     }
     if (counting) {
@@ -441,7 +502,7 @@ __device__ __forceinline__ void split_body(
           const int l = b + u * S;
           v[u] = 0u;
           if (l < n) {
-            if constexpr (kLookup) {
+            if constexpr (kStaged) {
               if (s_mask[buf][l] != 0) {
                 v[u] = col[static_cast<long long>(s_idx[buf][l]) * W];
               }
@@ -454,16 +515,16 @@ __device__ __forceinline__ void split_body(
       }
     }
     since += per_slice;
-    if constexpr (kLookup) __syncthreads();  // this stage is restaged next
+    if constexpr (kStaged) __syncthreads();  // this stage is restaged next
   }
   split_flush(p, own, s_planes, np, S, wt, wn);
 
-  int32_t* out_tile = out + (cell * W + w0) * 32;
+  int32_t* out_tile = out + (cell * Wo + w0) * 32;
   if (cs == 1) {
 #pragma unroll
     for (int k = 0; k < kOwn; ++k) {
       const int e = t + k * kSplitThreads;
-      if (e < wn * 32) out_tile[e] = own[k];
+      if (e < wn * 32) out_tile[e] = own[k] + pre[k];
     }
     return;
   }
@@ -480,6 +541,7 @@ __device__ __forceinline__ void split_body(
   const int end = wn * 32 < (rank + 1) * share ? wn * 32 : (rank + 1) * share;
   for (int e = rank * share + t; e < end; e += kSplitThreads) {
     int32_t c = 0;
+    if constexpr (kAcc) c = acc[(cell * Wp + w0) * 32 + e];
     for (int q = 0; q < cs; ++q) {
       c += cluster.map_shared_rank(&s_red[0], q)[e];
     }
@@ -496,7 +558,8 @@ __device__ __forceinline__ void split_body(
 __global__ void __launch_bounds__(kSplitThreads)
 vertical_kernel(const uint32_t* __restrict__ rows, int32_t* __restrict__ out,
                 int L, int W, int cs) {
-  split_body<false>(rows, nullptr, nullptr, out, L, W, cs, nullptr, nullptr);
+  split_body<kRows, false>(rows, nullptr, nullptr, nullptr, nullptr, out, L,
+                           W, W, cs, nullptr, nullptr);
 }
 
 // Replaces _lookup_kernel, _lookup_blocks_kernel and _lookup_multi_kernel
@@ -513,19 +576,30 @@ lookup_kernel(const uint32_t* __restrict__ arena,
               int L, int W, int cs) {
   __shared__ int32_t s_idx[2][kStageTerms];
   __shared__ int32_t s_mask[2][kStageTerms];
-  split_body<true>(arena, idx, mask, out, L, W, cs, s_idx, s_mask);
+  split_body<kIndexed, false>(arena, nullptr, idx, mask, nullptr, out, L, W,
+                              W, cs, s_idx, s_mask);
 }
 
-// The fused-decode lookup over a rowdict pair (dict [D, W], refs [R]).
-__global__ void __launch_bounds__(kThreads)
+// Replaces _lookup_blocks_comp_kernel and _lookup_multi_comp_kernel
+// (lookup_score_blocks_compressed, lookup_score_multi_compressed): the
+// fused lookup over a rowdict pair (dict [D, W], refs [R]), reading row r
+// as dict[refs[r]]; idx and mask [cells, L] -> [cells, W, 32]. Bound:
+// bytes (indices, masks, one refs entry and one dictionary row per counted
+// term, the counts) and, in practice, the idx -> refs -> row chain of
+// dependent loads. The split body stages the indices with cp.async and
+// resolves their refs entries while the stage lands (split_decode: all
+// 256 threads, 4 loads each in flight), so each slice's row loads stay one
+// shared-memory read away, as in lookup_kernel.
+__global__ void __launch_bounds__(kSplitThreads)
 lookup_comp_kernel(const uint32_t* __restrict__ dict,
                    const int32_t* __restrict__ refs,
                    const int32_t* __restrict__ idx,
                    const int32_t* __restrict__ mask,
-                   int32_t* __restrict__ out, int L, int W, long long total,
-                   int n_planes) {
-  lookup_body<true, false>(dict, refs, idx, mask, nullptr, out, L, W, W,
-                           total, n_planes);
+                   int32_t* __restrict__ out, int L, int W, int cs) {
+  __shared__ int32_t s_idx[2][kStageTerms];
+  __shared__ int32_t s_mask[2][kStageTerms];
+  split_body<kDecoded, false>(dict, refs, idx, mask, nullptr, out, L, W, W,
+                              cs, s_idx, s_mask);
 }
 
 // One term chunk of the pruned and bulk executors, fused-gathered from a
@@ -554,17 +628,38 @@ chunk_lookup_comp_kernel(const uint32_t* __restrict__ dict,
                           n_planes);
 }
 
-// One term chunk read through indir from a unique-row matrix uniq [U, W]
-// (host-gathered rows, or device-gathered and ANDed row sets for k > 1).
-__global__ void __launch_bounds__(kThreads)
+// Replaces _chunk_dedup_kernel (chunk_dedup_score): one term chunk read
+// through indir [cells, L] from a unique-row matrix uniq [U, W]
+// (host-gathered rows, or device-gathered and ANDed row sets for k > 1),
+// added into the running counts: out = acc + counts, both [cells, Wp, 32].
+// Bound: bytes (indirections, masks, each distinct uniq row the live terms
+// touch, acc read once, out written once) and, in practice, latency: at
+// the pruned path's chunk (L = 32, W = Wp = 8, 32 cells) a launch is one
+// staging round trip, one row load and the cross-slice sum. The split body
+// in its accumulate mode: the indirections are staged as lookup_kernel's
+// indices are, and (without a cluster, as at that shape) each thread loads
+// the acc elements it will store before the term loop, so their latency
+// overlaps the staging. Geometry at that shape (tools/split_probe.py, one
+// H100 80GB HBM3 at 700 W, synthetic inputs of that shape): the
+// geometry's 32 slices of one term each, 32 blocks, 2.80 us; 16 slices
+// 2.97 us and 8 slices 3.09 us (copies of this source with the slice count
+// capped), and 4.14-4.30 us at a cluster of 2 for each. So the kernel keeps
+// the geometry's 256 / Wt slices. The 16-plane body it replaced took
+// 22.87 us there: 10.24 us at one term (5.56 us without acc, so about
+// 4.7 us of acc loads issued one after another after the barrier) and
+// 0.42 us a term; the split body takes 2.81 us at one term and 0.01 us a
+// term.
+__global__ void __launch_bounds__(kSplitThreads)
 chunk_dedup_kernel(const uint32_t* __restrict__ uniq,
                    const int32_t* __restrict__ indir,
                    const int32_t* __restrict__ mask,
                    const int32_t* __restrict__ acc,
                    int32_t* __restrict__ out, int L, int W, int Wp,
-                   long long total, int n_planes) {
-  lookup_body<false, true>(uniq, nullptr, indir, mask, acc, out, L, W, Wp,
-                           total, n_planes);
+                   int cs) {
+  __shared__ int32_t s_idx[2][kStageTerms];
+  __shared__ int32_t s_mask[2][kStageTerms];
+  split_body<kIndexed, true>(uniq, nullptr, indir, mask, acc, out, L, W, Wp,
+                             cs, s_idx, s_mask);
 }
 
 // The dedup path's indirected score: lookup_kernel over the unique-row
@@ -645,9 +740,9 @@ int split_cluster(long long pairs, int L, int slices, int cluster,
 }
 
 template <typename Kernel, typename... Args>
-int launch_split(Kernel kernel, long long cells, int L, int W, int cluster,
+int launch_split(Kernel kernel, long long cells, int L, int Wo, int cluster,
                  int device, void* stream, Args... args) {
-  const SplitGeometry g = split_geometry(W);
+  const SplitGeometry g = split_geometry(Wo);
   const long long pairs = cells * g.tiles;
   const int cs = split_cluster(pairs, L, g.slices, cluster, device);
   if (cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) != 0
@@ -714,20 +809,46 @@ extern "C" int cobs_lookup(const void* arena, const void* idx,
       static_cast<const int32_t*>(mask), static_cast<int32_t*>(out), L, W);
 }
 
-// What a split launch of `cells` cells of L terms over W words runs as:
-// info[0..8] = blocks, threads per block, cluster size, word tile, slices,
-// counter planes a slice uses, static shared memory bytes, registers per
-// thread, and the cluster sizes the kernel may take (its max). `lookup`
-// picks lookup_kernel (1) or vertical_kernel (0).
-extern "C" int cobs_split_info(int lookup, int cells, int L, int W,
-                               int cluster, int device, void* info) {
+extern "C" int cobs_lookup_comp(const void* dict, const void* refs,
+                                const void* idx, const void* mask, void* out,
+                                int cells, int L, int W, int cluster,
+                                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_split(lookup_comp_kernel, cells, L, W, cluster, device,
+                      stream, static_cast<const uint32_t*>(dict),
+                      static_cast<const int32_t*>(refs),
+                      static_cast<const int32_t*>(idx),
+                      static_cast<const int32_t*>(mask),
+                      static_cast<int32_t*>(out), L, W);
+}
+
+// What a split launch of `cells` cells of L terms over W words (the chunk
+// dedup's over its Wp running-count words) runs as: info[0..8] = blocks,
+// threads per block, cluster size, word tile, slices, counter planes a
+// slice uses, static shared memory bytes, registers per thread, and the
+// cluster sizes the kernel may take (its max). `kernel` names the kernel:
+// "vertical", "lookup", "lookup_comp" or "chunk_dedup".
+extern "C" int cobs_split_info(const char* kernel, int cells, int L, int W,
+                               int Wp, int cluster, int device, void* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
-  err = lookup ? cudaFuncGetAttributes(&fa, lookup_kernel)
-               : cudaFuncGetAttributes(&fa, vertical_kernel);
+  int Wo = W;
+  if (std::strcmp(kernel, "vertical") == 0) {
+    err = cudaFuncGetAttributes(&fa, vertical_kernel);
+  } else if (std::strcmp(kernel, "lookup") == 0) {
+    err = cudaFuncGetAttributes(&fa, lookup_kernel);
+  } else if (std::strcmp(kernel, "lookup_comp") == 0) {
+    err = cudaFuncGetAttributes(&fa, lookup_comp_kernel);
+  } else if (std::strcmp(kernel, "chunk_dedup") == 0) {
+    err = cudaFuncGetAttributes(&fa, chunk_dedup_kernel);
+    Wo = Wp;
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const SplitGeometry g = split_geometry(W);
+  const SplitGeometry g = split_geometry(Wo);
   const long long pairs = static_cast<long long>(cells) * g.tiles;
   const int cs = split_cluster(pairs, L, g.slices, cluster, device);
   const long long per_rank = (static_cast<long long>(L) + cs - 1) / cs;
@@ -746,23 +867,10 @@ extern "C" int cobs_split_info(int lookup, int cells, int L, int W,
   return 0;
 }
 
-extern "C" int cobs_lookup_comp(const void* dict, const void* refs,
-                                const void* idx, const void* mask, void* out,
-                                int cells, int L, int W, int n_planes,
-                                int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(cells) * W;
-  lookup_comp_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(dict), static_cast<const int32_t*>(refs),
-      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(mask),
-      static_cast<int32_t*>(out), L, W, total, n_planes);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The chunk entry points: rows [R, W] (uniq for the dedup kernel), idx
-// (indir) and mask [cells, L], acc and out [cells, Wp, 32].
+// (indir) and mask [cells, L], acc and out [cells, Wp, 32]; acc and out
+// must not overlap. cobs_chunk_dedup takes a cluster size as the split
+// kernels do, the other two a plane count (at most 65,535 terms).
 extern "C" int cobs_chunk_lookup(const void* arena, const void* idx,
                                  const void* mask, const void* acc,
                                  void* out, int cells, int L, int W, int Wp,
@@ -797,17 +905,17 @@ extern "C" int cobs_chunk_lookup_comp(const void* dict, const void* refs,
 
 extern "C" int cobs_chunk_dedup(const void* uniq, const void* indir,
                                 const void* mask, const void* acc, void* out,
-                                int cells, int L, int W, int Wp, int n_planes,
+                                int cells, int L, int W, int Wp, int cluster,
                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(cells) * Wp;
-  chunk_dedup_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(uniq), static_cast<const int32_t*>(indir),
-      static_cast<const int32_t*>(mask), static_cast<const int32_t*>(acc),
-      static_cast<int32_t*>(out), L, W, Wp, total, n_planes);
-  return static_cast<int>(cudaGetLastError());
+  if (Wp < W) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_split(chunk_dedup_kernel, cells, L, Wp, cluster, device,
+                      stream, static_cast<const uint32_t*>(uniq),
+                      static_cast<const int32_t*>(indir),
+                      static_cast<const int32_t*>(mask),
+                      static_cast<const int32_t*>(acc),
+                      static_cast<int32_t*>(out), L, W, Wp);
 }
 
 // The dedup pair: uniq_idx [U, k] (k = 1 for a flat [U] list), out

@@ -203,9 +203,11 @@ def test_chunk_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
 
 def test_chunk_kernels_in_the_source():
     src = _build.SOURCE.read_text()
-    for kernel in ("chunk_lookup_kernel", "chunk_lookup_comp_kernel",
-                   "chunk_dedup_kernel"):
+    for kernel in ("chunk_lookup_kernel", "chunk_lookup_comp_kernel"):
         assert f"\n{kernel}(" in src and f"{kernel}<<<" in src
+    # the chunk dedup kernel runs the split body, launched with a cluster
+    assert "\nchunk_dedup_kernel(" in src
+    assert "launch_split(chunk_dedup_kernel" in src
     for symbol in ("cobs_chunk_lookup", "cobs_chunk_lookup_comp",
                    "cobs_chunk_dedup"):
         assert symbol in _build._SIGNATURES

@@ -237,6 +237,7 @@ def test_comp_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     assert k.launches == before
     assert "cobs_lookup_comp" in _build._SIGNATURES
     assert " cobs_lookup_comp(" in _build.SOURCE.read_text()
+    assert "launch_split(lookup_comp_kernel" in _build.SOURCE.read_text()
 
 
 @pytest.mark.parametrize("n_hashes", [1, 3])

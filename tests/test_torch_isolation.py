@@ -1,7 +1,8 @@
 """The PyTorch port stands alone and never falls back to the CPU.
 
 * importing ``repro_torch`` loads neither ``jax`` nor ``repro``, and no
-  source file of the port (nor ``chip_smoke.py``) imports them;
+  source file of the port (nor ``chip_smoke.py`` or
+  ``tools/split_probe.py``) imports them;
 * ``device=None`` means the CUDA card: without one, every entry point
   raises instead of running on the CPU;
 * a CPU tensor, passed on purpose, takes the plain path;
@@ -60,7 +61,8 @@ def test_import_loads_no_jax_and_no_repro():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "tools" / "split_probe.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_and_no_repro(path):
     for node in ast.walk(ast.parse(path.read_text())):

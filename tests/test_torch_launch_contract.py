@@ -1,0 +1,91 @@
+"""What the six scoring wrappers that take long queries hand the kernel
+library, on the CPU.
+
+With the CUDA check and the launcher stubbed, each wrapper is called on
+CPU tensors at L = 70,144 and its calls into the library are recorded:
+the fused-decode lookups and ``chunk_dedup_score`` run split kernels, one
+launch for any L at the cluster size the entry point picks
+(``CLUSTER_AUTO``); ``dedup_score`` and the two chunk lookups keep 16
+counter planes and launch one slab of at most ``SLAB_TERMS`` terms each,
+with the planes that slab needs. ``_build.split_info`` must refuse a
+kernel that is not a split kernel before it touches the library. No
+kernel runs here: this checks the Python side of the launch contract
+only.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import bitslice_score as k
+
+L = 70_144
+W, WP, CELLS = 4, 8, 2
+SPLIT = {"lookup_score_blocks_compressed": "cobs_lookup_comp",
+         "lookup_score_multi_compressed": "cobs_lookup_comp",
+         "chunk_dedup_score": "cobs_chunk_dedup"}
+SLABBED = {"dedup_score": "cobs_dedup_score",
+           "chunk_lookup_score_multi": "cobs_chunk_lookup",
+           "chunk_lookup_score_multi_compressed": "cobs_chunk_lookup_comp"}
+
+
+def _call(name: str) -> None:
+    """``name`` on CPU tensors of CELLS cells and L terms over W words (W
+    padded to WP in the running counts)."""
+    g = torch.Generator().manual_seed(0)
+    rows = torch.randint(-2 ** 31, 2 ** 31, (9, W), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    refs = torch.randint(0, 9, (30,), generator=g, dtype=torch.int32)
+    idx = torch.randint(0, 30, (CELLS, 1, L), generator=g, dtype=torch.int32)
+    mask = torch.ones((CELLS, 1, L), dtype=torch.int32)
+    acc = torch.zeros((CELLS, 1, WP, 32), dtype=torch.int32)
+    fn = getattr(k, name)
+    if name == "lookup_score_blocks_compressed":
+        fn(rows, refs, idx[:, 0].contiguous(), mask[:, 0].contiguous())
+    elif name == "lookup_score_multi_compressed":
+        fn(rows, refs, idx, mask)
+    elif name == "dedup_score":
+        fn(rows, idx % 9, mask)
+    elif name == "chunk_lookup_score_multi_compressed":
+        fn(rows, refs, idx, mask, acc)
+    else:
+        fn(rows, idx % 9, mask, acc)
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT) + sorted(SLABBED))
+def test_long_query_launches(monkeypatch, name):
+    calls = []
+    monkeypatch.setattr(k, "_on_cuda", lambda *tensors: True)
+    monkeypatch.setattr(k, "_stream", lambda dev: 0)
+    monkeypatch.setattr(_build, "launch",
+                        lambda symbol, *args: calls.append((symbol, args)))
+    before = dict(k.launches)
+    _call(name)
+    chunk = name.startswith("chunk_")
+    # each call ends (cells, L, W[, Wp], cluster or planes, device, stream)
+    tail = 7 if chunk else 6
+    if name in SPLIT:
+        want = [(SPLIT[name], (CELLS, L, W) + ((WP,) if chunk else ())
+                 + (k.CLUSTER_AUTO, 0, 0))]
+    else:
+        slabs = (k.SLAB_TERMS, L - k.SLAB_TERMS)
+        want = [(SLABBED[name], (CELLS, n, W) + ((WP,) if chunk else ())
+                 + (k.num_planes(n), 0, 0)) for n in slabs]
+        assert [w[1][-3] for w in want] == [16, 13]
+    assert [(symbol, args[-tail:]) for symbol, args in calls] == want
+    assert k.launches[name] - before[name] == len(want)
+    for symbol, args in calls:
+        assert len(args) == len(_build._SIGNATURES[symbol])
+
+
+@pytest.mark.parametrize("kernel", ["dedup", "chunk_lookup", "Lookup"])
+def test_split_info_refuses_other_kernels(monkeypatch, kernel):
+    def refuse(*a, **kw):
+        raise AssertionError("the kernel library was touched")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    with pytest.raises(ValueError, match="unknown split kernel"):
+        _build.split_info(kernel, 1, 1, 1, 0, 0)
+    # the split kernels are the ones whose entry points take a cluster size
+    assert {f"cobs_{name}" for name in _build.SPLIT_KERNELS} == {
+        "cobs_vertical", "cobs_lookup", "cobs_lookup_comp",
+        "cobs_chunk_dedup"}

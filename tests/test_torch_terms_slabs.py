@@ -1,8 +1,10 @@
-"""The scoring wrappers whose kernels keep 16 counter planes, on more than
-65,535 terms, against the JAX package, on the CPU.
+"""The fused-decode, dedup and chunk scoring wrappers on more than 65,535
+terms, against the JAX package, on the CPU.
 
-The fused-decode lookups, ``dedup_score`` and the three chunk wrappers
-score a long query on the card in slabs of at most ``SLAB_TERMS`` terms.
+On the card ``dedup_score`` and the two chunk lookups score a long query
+in slabs of at most ``SLAB_TERMS`` terms (their kernels keep 16 counter
+planes), and the fused-decode lookups and ``chunk_dedup_score`` take it in
+one launch (``test_torch_launch_contract.py`` checks which is which).
 Here each wrapper (its plain version) must equal the JAX
 ``repro.kernels.ref`` oracle at L = 65,536, where one cell's count of
 document 0 reaches 65,536 and so needs a 17th counter plane; and the slab

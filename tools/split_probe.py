@@ -1,0 +1,360 @@
+#!/usr/bin/env python3
+"""Questions about the split scoring kernels that ``chip_smoke.py`` does not
+ask in every run, measured on one CUDA card.
+
+    python3 tools/split_probe.py [--against DIR]
+
+Run from a checkout of the repository. It
+
+1. times ``chunk_dedup_kernel`` at the pruned path's chunk shape (indir
+   [32, 1, 32], uniq [1024, 8], acc [32, 1, 8, 32]; random rows and
+   indices, nine masks in ten set, seed 0) with the geometry's 256 / Wt =
+   32 term slices and with 16 and 8: each slice count a copy of the kernel
+   source whose slice count is capped at compile time, built by nvcc, and
+   launched at cluster sizes 1 and 2;
+2. tiles the same inputs along the term axis to L = 1, 32 and 320 and
+   times the split ``chunk_dedup_kernel`` (``cobs_chunk_dedup``) against
+   the 16-plane body with running counts (``cobs_chunk_lookup``) and
+   without (``cobs_dedup_score``): each body's cost a launch and a term;
+3. with ``--against DIR``, a checkout of another commit whose
+   ``cobs_vertical`` and ``cobs_lookup`` take the same arguments: builds
+   that checkout's kernel source beside this one, says whether the SASS of
+   ``vertical_kernel`` and ``lookup_kernel`` is the same in both (with each
+   one's ptxas report), and times both libraries' ``cobs_vertical`` and
+   ``cobs_lookup`` at the main path's shapes (random rows and indices,
+   arenas of the main index's height) in the order this, other, other,
+   this, three times over.
+
+Every launch is first checked equal to its plain PyTorch version. Times
+are the median of 5 replays of a CUDA graph of 64 launches, per launch.
+Prints the card's name and power limit and writes the numbers to
+``chiprun_out/split_probe.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+OUT_DIR = ROOT / "chiprun_out"
+PROBE_DIR = ROOT / "build" / "probe"
+SOURCE_REL = Path("src/repro_torch/kernels/csrc/bitslice_score.cu")
+# the slice count of a split block, as split_body computes it
+SLICE_LINE = "  const int wt = g.wt, S = g.slices;\n"
+SLICES = (32, 16, 8)
+CHUNK_LENGTHS = (1, 32, 320)
+# (what, kernel, cells shape, L, W, arena rows) at the main path's shapes
+MAIN_SHAPES = (
+    ("row 2 vertical rows [320, 64]", "vertical", (1,), 320, 64, 0),
+    ("row 3 lookup idx [2, 320]", "lookup", (2,), 320, 32, 3_813_888),
+    ("row 4 lookup idx [32, 2, 320]", "lookup", (32, 2), 320, 32, 3_813_888),
+    ("row 5 lookup idx [320]", "lookup", (), 320, 8, 3_649_024),
+)
+# the entry points both libraries must share for --against
+SHARED = ("cobs_vertical", "cobs_lookup")
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def nvcc_build(build, src: Path, out: Path) -> subprocess.Popen:
+    """Start nvcc on ``src`` with the port's flags; returns the process."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish(proc: subprocess.Popen, what: str) -> str:
+    report, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise SystemExit(f"split_probe: nvcc failed on {what}:\n{report}")
+    return report
+
+
+def ptxas_lines(report: str) -> dict[str, str]:
+    out, kernel = {}, "?"
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d+([A-Za-z_]+_kernel)E", line)
+            kernel = m.group(1) if m else line.strip()
+        elif "Used" in line or "spill" in line:
+            out[kernel] = (out.get(kernel, "") + " "
+                           + line.split(":", 1)[-1].strip()).strip()
+    return out
+
+
+def sass(lib: Path, tool: Path) -> dict[str, str] | None:
+    """Each kernel's SASS in ``lib`` without its (file-hashed) name line,
+    or None when ``tool`` (cuobjdump) is not there."""
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name_line, _, body = part.partition("\n")
+        m = re.search(r"\d+([A-Za-z_]+_kernel)E", name_line)
+        if m:
+            out[m.group(1)] = body.split("\n\t\t......")[0]
+    return out
+
+
+def load(path: Path, signatures: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def graph_ms(torch, call, n: int = 64, rounds: int = 5) -> float:
+    s = torch.cuda.current_stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s, capture_error_mode="thread_local"):
+        for _ in range(n):
+            call()
+    graph.replay()
+    s.synchronize()
+    per = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(s)
+        graph.replay()
+        b.record(s)
+        b.synchronize()
+        per.append(a.elapsed_time(b) / n)
+    return statistics.median(per)
+
+
+def checked(torch, what, call, out, want) -> None:
+    err = call()
+    if err != 0:
+        raise SystemExit(f"split_probe: {what}: CUDA error {err}")
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        bad = int((out != want).sum())
+        raise SystemExit(f"split_probe: {what}: {bad} counts differ from the "
+                         f"plain version")
+
+
+def card_line() -> str:
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60)
+    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 \
+        else f"nvidia-smi failed: {proc.stderr.strip()}"
+
+
+def chunk_inputs(torch, g, dev):
+    uniq = torch.randint(-2 ** 31, 2 ** 31, (1024, 8), generator=g,
+                         dtype=torch.int64).to(torch.int32).to(dev)
+    indir = torch.randint(0, 1024, (32, 1, 32), generator=g,
+                          dtype=torch.int32).to(dev)
+    mask = (torch.rand((32, 1, 32), generator=g) < 0.9).to(
+        torch.int32).to(dev)
+    acc = torch.randint(0, 50, (32, 1, 8, 32), generator=g,
+                        dtype=torch.int32).to(dev)
+    return uniq, indir, mask, acc
+
+
+def probe_geometry(torch, k, libs, inputs, dev_i, stream) -> dict:
+    """Row 11's shape at each slice count of ``libs`` and clusters 1, 2."""
+    uniq, indir, mask, acc = inputs
+    Q, nb, L = indir.shape
+    W, Wp = uniq.shape[1], acc.shape[2]
+    want = k.chunk_plain(uniq, indir, mask, acc)
+    out = torch.empty_like(acc)
+    res = {}
+    for S, lib in libs.items():
+        for cs in (1, 2):
+            def call(lib=lib, cs=cs):
+                return lib.cobs_chunk_dedup(
+                    uniq.data_ptr(), indir.data_ptr(), mask.data_ptr(),
+                    acc.data_ptr(), out.data_ptr(), Q * nb, L, W, Wp, cs,
+                    dev_i, stream())
+            checked(torch, f"chunk_dedup {S} slices cluster {cs}", call, out,
+                    want)
+            res[f"{S} slices, cluster {cs}"] = graph_ms(torch, call)
+    return res
+
+
+def probe_lengths(torch, k, lib, inputs, dev_i, stream) -> dict:
+    """The row-11 inputs tiled to each of CHUNK_LENGTHS through the split
+    body and the two 16-plane bodies."""
+    uniq, indir, mask, acc = inputs
+    Q, nb, Lc = indir.shape
+    W, Wp = uniq.shape[1], acc.shape[2]
+    ms = {"split (cobs_chunk_dedup)": {}, "16-plane with acc "
+          "(cobs_chunk_lookup)": {}, "16-plane (cobs_dedup_score)": {}}
+    bodies = list(ms)
+    for L in CHUNK_LENGTHS:
+        reps = -(-L // Lc)
+        ind = indir.repeat(1, 1, reps)[..., :L].contiguous()
+        msk = mask.repeat(1, 1, reps)[..., :L].contiguous()
+        out = torch.empty_like(acc)
+        out2 = torch.empty((Q, nb, W, 32), dtype=torch.int32,
+                           device=acc.device)
+        head = (uniq.data_ptr(), ind.data_ptr(), msk.data_ptr())
+        want = k.chunk_plain(uniq, ind, msk, acc)
+        calls = (
+            (lambda: lib.cobs_chunk_dedup(
+                *head, acc.data_ptr(), out.data_ptr(), Q * nb, L, W, Wp, 0,
+                dev_i, stream()), out, want),
+            (lambda: lib.cobs_chunk_lookup(
+                *head, acc.data_ptr(), out.data_ptr(), Q * nb, L, W, Wp,
+                k.num_planes(L), dev_i, stream()), out, want),
+            (lambda: lib.cobs_dedup_score(
+                *head, out2.data_ptr(), Q * nb, L, W, k.num_planes(L), dev_i,
+                stream()), out2, k.lookup_plain(uniq, ind, msk)))
+        for body, (call, o, w) in zip(bodies, calls):
+            checked(torch, f"{body} at L={L}", call, o, w)
+            ms[body][L] = graph_ms(torch, call)
+    lo, hi = CHUNK_LENGTHS[1], CHUNK_LENGTHS[2]
+    return {"ms": ms, "per_term_ms": {
+        body: (t[hi] - t[lo]) / (hi - lo) for body, t in ms.items()}}
+
+
+def probe_against(torch, k, libs, dev_i, stream, g) -> dict:
+    """Both libraries' cobs_vertical and cobs_lookup at MAIN_SHAPES, in the
+    order this, other, other, this, three times over."""
+    res = {}
+    for what, kernel, lead, L, W, rows in MAIN_SHAPES:
+        dev = torch.device("cuda", dev_i)
+        if kernel == "vertical":
+            src = torch.randint(-2 ** 31, 2 ** 31, lead + (L, W),
+                                generator=g, dtype=torch.int64).to(
+                torch.int32).to(dev)
+            want = k.vertical_score_plain(src)
+            out = torch.empty_like(want)
+
+            def call(lib):
+                return lib.cobs_vertical(src.data_ptr(), out.data_ptr(),
+                                         lead[0], L, W, 0, dev_i, stream())
+        else:
+            arena = torch.randint(-2 ** 31, 2 ** 31, (rows, W), generator=g,
+                                  dtype=torch.int64).to(torch.int32).to(dev)
+            idx = torch.randint(0, rows, lead + (L,), generator=g,
+                                dtype=torch.int32).to(dev)
+            mask = (torch.rand(lead + (L,), generator=g) < 0.95).to(
+                torch.int32).to(dev)
+            want = k.lookup_plain(arena, idx, mask)
+            out = torch.empty_like(want)
+            cells = idx.numel() // L
+
+            def call(lib):
+                return lib.cobs_lookup(arena.data_ptr(), idx.data_ptr(),
+                                       mask.data_ptr(), out.data_ptr(),
+                                       cells, L, W, 0, dev_i, stream())
+        runs = {"this": [], "other": []}
+        for side in ("this", "other"):
+            checked(torch, f"{what} ({side})", lambda: call(libs[side]), out,
+                    want)
+        for _ in range(3):
+            for side in ("this", "other", "other", "this"):
+                runs[side].append(graph_ms(torch,
+                                           lambda: call(libs[side])))
+        res[what] = runs
+        del want, out
+        torch.cuda.empty_cache()
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", type=Path, default=None,
+                    help="a checkout of another commit to compare with")
+    args = ap.parse_args()
+    if not (ROOT / SOURCE_REL).is_file():
+        print("split_probe: run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("split_probe: CUDA is not available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bitslice_score as k
+    text = (ROOT / SOURCE_REL).read_text()
+    if text.count(SLICE_LINE) != 1:
+        print("split_probe: split_body's slice count line has changed; "
+              "update SLICE_LINE", file=sys.stderr)
+        return 2
+    # every library at once, one nvcc each
+    procs, paths = {}, {}
+    for S in SLICES:
+        src = PROBE_DIR / f"slices{S}.cu"
+        PROBE_DIR.mkdir(parents=True, exist_ok=True)
+        src.write_text(text if S == SLICES[0] else text.replace(
+            SLICE_LINE, f"  const int wt = g.wt, S = g.slices < {S} ? "
+                        f"g.slices : {S};\n"))
+        paths[S] = PROBE_DIR / f"slices{S}.so"
+        procs[S] = nvcc_build(_build, src, paths[S])
+    if args.against is not None:
+        paths["other"] = PROBE_DIR / "other.so"
+        procs["other"] = nvcc_build(_build, args.against / SOURCE_REL,
+                                    paths["other"])
+    reports = {key: finish(p, str(key)) for key, p in procs.items()}
+    libs = {S: load(paths[S], _build._SIGNATURES) for S in SLICES}
+    rec = {"card": card_line(), "torch": torch.__version__,
+           "cuda": torch.version.cuda,
+           "ptxas": {str(key): ptxas_lines(r) for key, r in reports.items()}}
+    for key, lines in rec["ptxas"].items():
+        for kern in ("chunk_dedup_kernel", "lookup_kernel", "vertical_kernel"):
+            if kern in lines:
+                log(f"[ptxas] {key}: {kern}: {lines[kern]}")
+    dev_i = torch.cuda.current_device()
+    g = torch.Generator().manual_seed(0)
+    with torch.cuda.stream(torch.cuda.Stream()):
+        def stream():
+            return torch.cuda.current_stream().cuda_stream
+        inputs = chunk_inputs(torch, g, torch.device("cuda", dev_i))
+        rec["geometry_ms"] = probe_geometry(torch, k, libs, inputs, dev_i,
+                                            stream)
+        for what, t in rec["geometry_ms"].items():
+            log(f"[geometry] chunk_dedup at indir [32, 1, 32], Wp = W = 8, "
+                f"{what}: {t * 1e3:.2f} us")
+        rec["lengths"] = probe_lengths(torch, k, libs[SLICES[0]], inputs,
+                                       dev_i, stream)
+        for body, times in rec["lengths"]["ms"].items():
+            log(f"[lengths] {body}: " + ", ".join(
+                f"L {L}: {t * 1e3:.2f} us" for L, t in times.items())
+                + f"; {rec['lengths']['per_term_ms'][body] * 1e3:.4f} us a "
+                  f"term from L {CHUNK_LENGTHS[1]} to {CHUNK_LENGTHS[2]}")
+        if args.against is not None:
+            tool = Path(_build._nvcc()).with_name("cuobjdump")
+            this = sass(paths[SLICES[0]], tool)
+            other = sass(paths["other"], tool)
+            rec["same_sass"] = None if this is None else {
+                kern: this.get(kern) == other.get(kern)
+                for kern in ("vertical_kernel", "lookup_kernel")}
+            log(f"[against] {args.against}: same SASS {rec['same_sass']}")
+            other_lib = load(paths["other"], {
+                name: _build._SIGNATURES[name] for name in SHARED})
+            rec["against"] = probe_against(
+                torch, k, {"this": libs[SLICES[0]], "other": other_lib},
+                dev_i, stream, g)
+            for what, runs in rec["against"].items():
+                log(f"[against] {what}: this " + ", ".join(
+                    f"{t * 1e3:.2f}" for t in runs["this"]) + " us; other "
+                    + ", ".join(f"{t * 1e3:.2f}" for t in runs["other"])
+                    + f" us; medians {statistics.median(runs['this']) * 1e3:.2f}"
+                    f" / {statistics.median(runs['other']) * 1e3:.2f}")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "split_probe.json").write_text(json.dumps(rec, indent=1))
+    print(rec["card"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
