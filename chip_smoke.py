@@ -13,17 +13,17 @@ Run from a checkout of the repository on a machine with one CUDA card. It
 3. holds every kernel against its plain PyTorch version on the card, on
    rows and indices drawn from that index and on the shapes of
    ``tests/test_kernels.py``; holds the split kernels (vertical, lookup,
-   the fused-decode lookup, the chunk dedup) where a split can go wrong:
-   word tiles (W 1 to 384, running counts padded past W), term slices and
-   clusters (L 1 to 1,000, cluster sizes 1 to 8), 1 to 200 cells, masks
-   with zeros, and L of 65,535, 65,536 and 70,144 (against the plain
-   unpack of the gathered rows), plus a slice of more than 65,535 terms;
-   then answers a 70,100-base query (70,144 padded terms) on an
-   8-document index through the ``vertical`` and ``lookup`` engines and
-   one served request, equal to ``method="ref"``, and runs the six
-   wrappers of the fused-decode, dedup and chunk kernels at that length
-   ("[long]": one launch each for the split ones, 16-plane slabs for the
-   others);
+   the fused-decode lookup, the chunk dedup, dedup, unpack) where a split
+   can go wrong: word tiles (W 1 to 384, running counts padded past W),
+   term slices and clusters (L 1 to 1,000, cluster sizes 1 to 8), 1 to
+   200 cells, masks with zeros, and L of 65,535, 65,536 and 70,144
+   (against the plain unpack of the gathered rows), plus a slice of more
+   than 65,535 terms; then answers a 70,100-base query (70,144 padded
+   terms) on an 8-document index through the ``vertical``, ``lookup`` and
+   ``unpack`` engines and one served request, equal to ``method="ref"``,
+   and runs the six wrappers of the fused-decode, dedup and chunk kernels
+   at that length ("[long]": one launch each for the split ones, 16-plane
+   slabs for the two chunk lookups);
 4. runs the main path with every launch counter at 0: 128 queries of the
    serving traffic mix (40/80/160/320 bp, half true positives, half
    verified negatives) through ``search``, ``search_batch`` (batches of 32)
@@ -65,9 +65,10 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    main path's shapes (a CUDA graph of 64 launches, so no host gaps)
    against its bound, its plain version and, for the gathers,
    ``torch.index_select``; the split kernels also at vertical
-   rows [320, 8] and [32, 320, 64], each at cluster sizes 1, 2, 4 and 8
-   beside the size the entry point chooses, with their launch shape
-   (blocks, threads, cluster, word tile, slices, planes, shared memory,
+   rows [320, 8] and [32, 320, 64] and unpack and vertical rows [64, 64]
+   (a short singleton), each at cluster sizes 1, 2, 4 and 8 beside the
+   size the entry point chooses, with their launch shape (blocks,
+   threads, cluster, word tile, slices, planes, shared memory,
    registers).
 
 It prints the card's name and power limit and a ``{"kernels": ...}`` line,
@@ -129,9 +130,8 @@ DEDUP_KERNELS = ("gather_rows", "gather_rows_compressed", "dedup_score")
 # the wrappers that scored more than 65,535 terms in 16-plane slabs before
 # their kernels took the split body, and those that still do
 UNSLABBED = ("lookup_score_blocks_compressed", "lookup_score_multi_compressed",
-             "chunk_dedup_score")
-SLABBED = ("dedup_score", "chunk_lookup_score_multi",
-           "chunk_lookup_score_multi_compressed")
+             "chunk_dedup_score", "dedup_score")
+SLABBED = ("chunk_lookup_score_multi", "chunk_lookup_score_multi_compressed")
 # where a split can go wrong: word tiles, term slices, clusters, cells (W 4
 # is the rowdict store's width, L 32 the pruned path's chunk)
 SPLIT_WORDS = (1, 3, 4, 8, 31, 32, 33, 64, 130, 384)
@@ -416,7 +416,7 @@ def masked_rows(rows, idx, mask):
 def split_dims(kernel, inputs) -> tuple[int, int, int, int]:
     """(cells, L, W, Wp) of split kernel ``kernel``'s inputs, as
     split_direct takes them."""
-    if kernel == "vertical":
+    if kernel in ("vertical", "unpack"):
         cells, L, W = inputs[0].shape
         return cells, L, W, W
     idx = inputs[-3 if kernel == "chunk_dedup" else -2]
@@ -428,18 +428,21 @@ def split_dims(kernel, inputs) -> tuple[int, int, int, int]:
 def split_direct(torch, rt, kernel, cs, *inputs):
     """One direct launch of split kernel ``kernel`` (one of
     ``_build.SPLIT_KERNELS``) through its own entry point at cluster size
-    ``cs`` on its inputs: vertical (rows [B, L, W]), lookup (arena, idx,
-    mask), lookup_comp (dict, refs, idx, mask) or chunk_dedup (uniq, indir,
-    mask, acc); returns its output. Not counted in ``launches``."""
+    ``cs`` on its inputs: vertical or unpack (rows [B, L, W]), lookup
+    (arena, idx, mask), dedup (uniq, indir, mask), lookup_comp (dict, refs,
+    idx, mask) or chunk_dedup (uniq, indir, mask, acc); returns its output.
+    Not counted in ``launches``."""
     cells, L, W, Wp = split_dims(kernel, inputs)
     if kernel == "chunk_dedup":
         out = torch.empty_like(inputs[-1])
         dims = (cells, L, W, Wp)
     else:
-        lead = (cells,) if kernel == "vertical" else inputs[-2].shape[:-1]
+        lead = ((cells,) if kernel in ("vertical", "unpack")
+                else inputs[-2].shape[:-1])
         out = torch.empty(lead + (W, 32), dtype=torch.int32, device=DEV)
         dims = (cells, L, W)
-    rt.build.launch(f"cobs_{kernel}", *(t.data_ptr() for t in inputs),
+    rt.build.launch(rt.build.SPLIT_KERNELS[kernel],
+                    *(t.data_ptr() for t in inputs),
                     out.data_ptr(), *dims, cs, torch.cuda.current_device(),
                     torch.cuda.current_stream().cuda_stream)
     return out
@@ -447,13 +450,14 @@ def split_direct(torch, rt, kernel, cs, *inputs):
 
 def check_split_kernels(rt, torch, chk, words, g) -> None:
     """The split kernels' wrappers (vertical_score, the three fused
-    lookups, the two fused-decode lookups, chunk_dedup_score) where a split
-    can go wrong: every word tiling of SPLIT_WORDS (running counts padded
-    past W as the executors pad them), term count of SPLIT_TERMS and cell
-    count of SPLIT_CELLS with masks holding zeros (and one mask of 3,
-    which counts), each cluster size at a few of them, the long L of
-    LONG_TERMS against the plain unpack of the gathered rows, and one slice
-    of more than 65,535 terms (the flush of full counter planes)."""
+    lookups, the two fused-decode lookups, chunk_dedup_score, dedup_score,
+    unpack_score) where a split can go wrong: every word tiling of
+    SPLIT_WORDS (running counts padded past W as the executors pad them),
+    term count of SPLIT_TERMS and cell count of SPLIT_CELLS with masks
+    holding zeros (and one mask of 3, which counts), each cluster size at a
+    few of them, the long L of LONG_TERMS against the plain unpack of the
+    gathered rows (one launch each), and one slice of more than 65,535
+    terms (the flush of full counter planes)."""
     k = rt.kernels
     compare = chk.compare
     t0 = time.perf_counter()
@@ -477,6 +481,7 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                 what = (f"split W={W} L={L} cells={cells} "
                         f"Wp={acc.shape[2]}")
                 want_v = k.vertical_score_plain(rows)
+                want_u = unpack_rows_plain(k, rows)
                 want = k.lookup_plain(arena, idx, mask)
                 want_c = k.lookup_comp_plain(dict_rows, refs, idx, mask)
                 want_k = k.chunk_plain(arena, idx[:, None], mask[:, None],
@@ -484,11 +489,14 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                 if cells == 1:
                     compare("vertical_score", k.vertical_score(rows[0]),
                             want_v[0], what)
+                    compare("unpack_score", k.unpack_score(rows[0]),
+                            want_u[0], what)
                     compare("lookup_score",
                             k.lookup_score(arena, idx[0], mask[0]), want[0],
                             what)
                 compare("vertical_score", k.vertical_score(rows), want_v,
                         what)
+                compare("unpack_score", k.unpack_score(rows), want_u, what)
                 compare("lookup_score_blocks",
                         k.lookup_score_blocks(arena, idx, mask), want, what)
                 compare("lookup_score_blocks_compressed",
@@ -506,6 +514,11 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                         want_c.reshape(cells // q, q, W, 32), what)
                 compare("chunk_dedup_score", k.chunk_dedup_score(
                     arena, idx[:, None], mask[:, None], acc), want_k, what)
+                # the arena as the unique-row matrix, idx as indir
+                compare("dedup_score", k.dedup_score(
+                    arena, idx.reshape(cells // q, q, L),
+                    mask.reshape(cells // q, q, L)),
+                    want.reshape(cells // q, q, W, 32), what)
                 n += 1
                 if W in (1, 4, 8, 33, 130) and L in (63, 320, 1000) \
                         and cells <= 2:
@@ -523,9 +536,15 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                         compare("chunk_dedup_score", split_direct(
                             torch, rt, "chunk_dedup", cs, arena, idx, mask,
                             acc), want_k, wc)
+                        compare("dedup_score", split_direct(
+                            torch, rt, "dedup", cs, arena, idx, mask), want,
+                            wc)
+                        compare("unpack_score", split_direct(
+                            torch, rt, "unpack", cs, rows), want_u, wc)
     log(f"[kernels:split] {n} (W, L, cells) shapes and the cluster sizes "
         f"{CLUSTERS} equal the plain versions (vertical, lookup, "
-        f"lookup_comp, chunk_dedup) in {time.perf_counter() - t0:.1f} s")
+        f"lookup_comp, chunk_dedup, dedup, unpack) in "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for L in LONG_TERMS:
         for W, cells in ((1, 1), (4, 2), (8, 2), (33, 2)):
@@ -570,6 +589,20 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                     want_c[None], what)
             compare("chunk_dedup_score", k.chunk_dedup_score(
                 arena, idx[:, None], mask[:, None], acc), want_k, what)
+            before = dict(k.launches)
+            compare("dedup_score", k.dedup_score(arena, idx[None],
+                                                 mask[None]),
+                    want[None], what)
+            compare("unpack_score", k.unpack_score(rows), want_v, what)
+            if cells == 1:
+                compare("unpack_score", k.unpack_score(rows[0]), want_v[0],
+                        what)
+            once = {n: k.launches[n] - before[n]
+                    for n in ("dedup_score", "unpack_score")}
+            check(once == {"dedup_score": 1,
+                           "unpack_score": 2 if cells == 1 else 1},
+                  f"{what}: dedup_score and unpack_score launched {once}, "
+                  f"not once a call")
             if cells == 1:
                 compare("lookup_score", k.lookup_score(arena, idx[0],
                                                        mask[0]),
@@ -589,7 +622,8 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
     acc = torch.randint(0, 1000, (1, 1, W, 32), generator=g,
                         dtype=torch.int32).to(DEV)
     dev = torch.cuda.current_device()
-    for kernel in ("lookup", "lookup_comp", "chunk_dedup", "vertical"):
+    for kernel in ("lookup", "lookup_comp", "chunk_dedup", "dedup",
+                   "vertical"):
         check(rt.build.split_info(kernel, 1, L, W, 1, dev)["planes"] == 16,
               f"the flush case does not fill 16 counter planes ({kernel})")
     want = unpack_rows_plain(k, masked_rows(arena, idx, mask))
@@ -605,25 +639,27 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
         compare("chunk_dedup_score", split_direct(
             torch, rt, "chunk_dedup", cs, arena, idx, mask, acc),
             acc + want[:, None], what)
+        compare("dedup_score", split_direct(
+            torch, rt, "dedup", cs, arena, idx, mask), want, what)
         compare("vertical_score", split_direct(torch, rt, "vertical", cs,
                                                rows),
                 unpack_rows_plain(k, rows), what)
-    log(f"[kernels:long] L {LONG_TERMS} and a slice of {L // 8} terms "
-        f"(flushed) equal the plain unpack of the gathered rows (vertical, "
-        f"lookup, lookup_comp, chunk_dedup) in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[kernels:long] L {LONG_TERMS} (dedup and unpack in one launch) "
+        f"and a slice of {L // 8} terms (flushed) equal the plain unpack of "
+        f"the gathered rows (vertical, lookup, lookup_comp, chunk_dedup, "
+        f"dedup, unpack) in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_long_query(rt, torch, chk) -> dict:
     """A query of more than 65,535 terms on the card: an 8-document compact
     index (k = 15, one hash, FPR 0.3) whose first document is a random
     70,100-base sequence, queried with that sequence (70,144 padded terms,
-    all counted for document 0: 17 counter planes) through the vertical and
-    lookup engines (search, search_batch beside a short query, top_k) and
-    one served request, each equal to ``method="ref"``; then the six
-    wrappers of the fused-decode, dedup and chunk kernels at that length,
-    each against the plain unpack of its gathered rows: the split ones
-    (UNSLABBED) in one launch each, the 16-plane ones (SLABBED) in two
+    all counted for document 0: 17 counter planes) through the vertical,
+    lookup and unpack engines (search, search_batch beside a short query,
+    top_k) and one served request, each equal to ``method="ref"``; then the
+    six wrappers of the fused-decode, dedup and chunk kernels at that
+    length, each against the plain unpack of its gathered rows: the split
+    ones (UNSLABBED) in one launch each, the 16-plane ones (SLABBED) in two
     slabs."""
     k = rt.kernels
     t0 = time.perf_counter()
@@ -644,7 +680,7 @@ def phase_long_query(rt, torch, chk) -> dict:
     out = {"terms": n_terms, "padded": -(-n_terms // 64) * 64,
            "top_score": int(want[-1].scores[0])}
     k.reset_launches()
-    for method in ("vertical", "lookup"):
+    for method in ("vertical", "lookup", "unpack"):
         eng = rt.QueryEngine(index, method=method)
         got = ([eng.search(codes, thr)] + eng.search_batch([short, codes], thr)
                + [eng.top_k(codes, 5)])
@@ -708,8 +744,8 @@ def phase_long_query(rt, torch, chk) -> dict:
     out["slab_launches"] = slabs
     out["seconds"] = time.perf_counter() - t0
     log(f"[long] a {LONG_BP}-base query ({n_terms} terms, padded to {L}; "
-        f"document 0 scores {out['top_score']}): vertical and lookup "
-        f"search, search_batch, top_k and a served request "
+        f"document 0 scores {out['top_score']}): vertical, lookup and "
+        f"unpack search, search_batch, top_k and a served request "
         f"({resp.method}) equal ref; launches {out['engine_launches']}; "
         f"the six fused-decode, dedup and chunk wrappers at L={L} equal the "
         f"plain counts, launches {slabs}; {out['seconds']:.1f} s")
@@ -1584,7 +1620,6 @@ def dedup_vs_fused(torch, k, lib, gather_args, dedup_args) -> dict:
     _, indir, mask = dedup_args
     U, W = uniq_idx.shape[0], arena.shape[1]
     Q, nb, L = indir.shape
-    planes = k.num_planes(L)
     idx = uniq_idx.long()[indir.long()].to(torch.int32).contiguous()
     uniq = torch.empty((U, W), dtype=torch.int32, device=DEV)
     out_d = torch.empty((Q, nb, W, 32), dtype=torch.int32, device=DEV)
@@ -1596,7 +1631,7 @@ def dedup_vs_fused(torch, k, lib, gather_args, dedup_args) -> dict:
                              uniq.data_ptr(), U, 1, W, dev, stream)
         lib.cobs_dedup_score(uniq.data_ptr(), indir.data_ptr(),
                              mask.data_ptr(), out_d.data_ptr(), Q * nb, L, W,
-                             planes, dev, stream)
+                             k.CLUSTER_AUTO, dev, stream)
 
     def fused():
         lib.cobs_lookup(arena.data_ptr(), idx.data_ptr(), mask.data_ptr(),
@@ -2111,7 +2146,7 @@ def dedup_case(torch, k, lib, recs):
         calls.append(lambda u=uniq, i=indir, m=msk, o=o, c=Q * nb, L=L, W=W:
                      lib.cobs_dedup_score(u.data_ptr(), i.data_ptr(),
                                           m.data_ptr(), o.data_ptr(), c, L,
-                                          W, k.num_planes(L), dev, stream))
+                                          W, k.CLUSTER_AUTO, dev, stream))
     uniq, indir, msk = recs[0]
     W = uniq.shape[1]
     cells, L = indir.numel() // indir.shape[-1], indir.shape[-1]
@@ -2146,6 +2181,10 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
     term_sets = [q_mod.compile_pattern(q, index.params) for q in queries]
     long_sets = [t for t in term_sets if t.shape[0] > 256][:BATCH]
     singles = [plan(index, [t]) for t in long_sets]
+    # the shortest bucket (40- and 80-bp queries pad to 64 terms), which
+    # the planner scores with unpack as singletons
+    short_flats = [plan(index, [t])[2][0] for t in term_sets
+                   if t.shape[0] <= 64][:BATCH]
     batch_idx, batch_mask, _ = plan(index, term_sets[:BATCH])
     classic_singles = [plan(classic, [t]) for t in long_sets]
 
@@ -2186,17 +2225,21 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
     # the split kernels at more shapes, not in the kernels line: vertical on
     # rows [320, 8] (the raw store's one-block tiles; here the gathered
     # rows of the 256-document classic index) and on a batch of 32
-    # 320-term queries [32, 320, 64]
+    # 320-term queries [32, 320, 64]; unpack and vertical on the rows of a
+    # short singleton query, [64, 64]
     extra_cases = [
         rows_case(torch, k, lib, "vertical_score",
                   [s[2][0] for s in classic_singles]),
         rows_case(torch, k, lib, "vertical_score",
-                  [plan(index, long_sets)[2]])]
+                  [plan(index, long_sets)[2]]),
+        rows_case(torch, k, lib, "unpack_score", short_flats),
+        rows_case(torch, k, lib, "vertical_score", short_flats)]
     # each split case's first inputs: (kernel, its inputs, as split_direct
     # takes them)
     by_name = {c[0]: c for c in cases}
     dedup_rec = chunk["chunk_dedup_score"][0]
     split_inputs = {
+        id(by_name["unpack_score"]): ("unpack", flats[0][None]),
         id(by_name["vertical_score"]): ("vertical", flats[0][None]),
         id(by_name["lookup_score_blocks"]): (
             "lookup", arena, singles[0][0][0], singles[0][1][0]),
@@ -2211,8 +2254,11 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
         id(by_name["lookup_score_multi_compressed"]): (
             "lookup_comp", comp["dict_rows"], comp["refs"], *comp["batch"]),
         id(by_name["chunk_dedup_score"]): ("chunk_dedup", *dedup_rec),
+        id(by_name["dedup_score"]): ("dedup", *serve["dedup_score"][0]),
         id(extra_cases[0]): ("vertical", classic_singles[0][2][0][None]),
-        id(extra_cases[1]): ("vertical", extra_cases[1][7])}
+        id(extra_cases[1]): ("vertical", extra_cases[1][7]),
+        id(extra_cases[2]): ("unpack", short_flats[0][None]),
+        id(extra_cases[3]): ("vertical", short_flats[0][None])}
     out, extras = [], []
     for case in cases + extra_cases:
         name, shape, calls, plain, nbytes, nops = case[:6]
@@ -2277,11 +2323,10 @@ def rows_case(torch, k, lib, name, rows_list):
     r3s = [r if r.dim() == 3 else r[None] for r in rows_list]
     B, L, W = r3s[0].shape
     fn = lib.cobs_unpack if name == "unpack_score" else lib.cobs_vertical
-    extra = () if name == "unpack_score" else (k.CLUSTER_AUTO,)
     outs = [torch.empty((B, W, 32), dtype=torch.int32, device=DEV)
             for _ in r3s]
     calls = [(lambda r=r, o=o: fn(r.data_ptr(), o.data_ptr(), B, L, W,
-                                   *extra, dev, stream))
+                                   k.CLUSTER_AUTO, dev, stream))
              for r, o in zip(r3s, outs)]
     plain = (k.unpack_score_plain if name == "unpack_score"
              else k.vertical_score_plain)

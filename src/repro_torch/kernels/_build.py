@@ -25,10 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # rows, out, B, L, W, device, stream
-    "cobs_unpack": (_P, _P, _I, _I, _I, _I, _P),
     # rows, out, B, L, W, cluster (0 = the entry point's choice), device,
     # stream
+    "cobs_unpack": (_P, _P, _I, _I, _I, _I, _I, _P),
     "cobs_vertical": (_P, _P, _I, _I, _I, _I, _I, _P),
     # arena, idx, mask, out, cells, L, W, cluster, device, stream
     "cobs_lookup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -49,7 +48,7 @@ _SIGNATURES = {
     "cobs_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     # dict, refs, uniq_idx, out, U, k, W, device, stream
     "cobs_gather_rows_comp": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # uniq, indir, mask, out, cells, L, W, n_planes, device, stream
+    # uniq, indir, mask, out, cells, L, W, cluster, device, stream
     "cobs_dedup_score": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
@@ -103,8 +102,12 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-# the split kernels, as cobs_split_info names them
-SPLIT_KERNELS = ("vertical", "lookup", "lookup_comp", "chunk_dedup")
+# the kernels that take a cluster size, as cobs_split_info names them, and
+# their entry points
+SPLIT_KERNELS = {"vertical": "cobs_vertical", "lookup": "cobs_lookup",
+                 "lookup_comp": "cobs_lookup_comp",
+                 "chunk_dedup": "cobs_chunk_dedup",
+                 "dedup": "cobs_dedup_score", "unpack": "cobs_unpack"}
 SPLIT_INFO = ("blocks", "threads", "cluster", "word_tile", "slices",
               "planes", "static_smem_bytes", "registers", "max_cluster")
 
@@ -113,11 +116,12 @@ def split_info(kernel: str, cells: int, L: int, W: int, cluster: int,
                device: int, *, Wp: int | None = None) -> dict[str, int]:
     """How split kernel ``kernel`` (one of SPLIT_KERNELS) launches at this
     shape (``Wp``: the chunk dedup's running-count words, default W): its
-    grid, block and cluster shape, word tile, term slices, counter planes,
-    and the kernel's static shared memory and registers."""
+    grid, block and cluster shape, word tile, term slices, counter planes
+    (0 for ``unpack``, which has none), and the kernel's static shared
+    memory and registers."""
     if kernel not in SPLIT_KERNELS:
         raise ValueError(f"unknown split kernel {kernel!r}; one of "
-                         f"{SPLIT_KERNELS}")
+                         f"{tuple(SPLIT_KERNELS)}")
     lib = library()
     info = (ctypes.c_int * len(SPLIT_INFO))()
     err = lib.cobs_split_info(kernel.encode(), cells, L, W,

@@ -27,14 +27,15 @@ the kernel on the current stream, or raises. ``launches[name]`` counts the
 kernel launches of each wrapper and nothing else.
 
 No wrapper limits the number of terms. ``vertical_score``, the three fused
-lookups, the two fused-decode lookups and ``chunk_dedup_score`` take any L
-in one launch (their kernels split the term axis across a block's threads
-and flush full counters into the block's counts). ``dedup_score``,
-``chunk_lookup_score_multi`` and ``chunk_lookup_score_multi_compressed``
-keep 16 counter planes a thread, so their wrappers score more than
-``SLAB_TERMS`` terms in slabs: ``dedup_score`` adds the slabs' counts, and
-the two chunk lookups pass each slab's output on as the next slab's
-``acc``. Each slab is one launch and one count in ``launches``.
+lookups, the two fused-decode lookups, ``chunk_dedup_score`` and
+``dedup_score`` take any L in one launch (their kernels split the term axis
+across a block's threads and flush full counters into the block's counts),
+and so does ``unpack_score`` (a warp per word splits the terms, its lanes
+counting in int32). ``chunk_lookup_score_multi`` and
+``chunk_lookup_score_multi_compressed`` keep 16 counter planes a thread, so
+their wrappers score more than ``SLAB_TERMS`` terms in slabs, each slab's
+output passed on as the next slab's ``acc``. Each slab is one launch and
+one count in ``launches``.
 """
 from __future__ import annotations
 
@@ -42,12 +43,12 @@ import torch
 
 from . import _build
 
-# the most terms one launch of the 16-plane kernels (dedup and the two chunk
-# lookups) takes: 16 counter planes count up to 65,535
+# the most terms one launch of the 16-plane kernels (the two chunk lookups)
+# takes: 16 counter planes count up to 65,535
 SLAB_TERMS = (1 << 16) - 1
-# cluster size argument of the split kernels' entry points (cobs_vertical,
-# cobs_lookup, cobs_lookup_comp, cobs_chunk_dedup): 0 lets the entry point
-# choose (1 = no cluster; 2, 4 or 8 blocks share a word tile's terms)
+# cluster size argument of the entry points of _build.SPLIT_KERNELS: 0 lets
+# the entry point choose (1 = no cluster; 2, 4 or 8 blocks share a word
+# tile's terms)
 CLUSTER_AUTO = 0
 GRID_ORDERS = ("wq", "qw")
 
@@ -112,16 +113,6 @@ def _term_slabs(rows_idx: torch.Tensor, mask: torch.Tensor
             for a in range(0, L, SLAB_TERMS)]
 
 
-def _slab_sum(rows_idx: torch.Tensor, mask: torch.Tensor, score
-              ) -> torch.Tensor:
-    """``score(idx, mask)`` on each term slab, the counts summed."""
-    out = None
-    for idx_s, mask_s in _term_slabs(rows_idx, mask):
-        part = score(idx_s, mask_s)
-        out = part if out is None else out.add_(part)
-    return out
-
-
 def _slab_chain(rows_idx: torch.Tensor, mask: torch.Tensor,
                 acc: torch.Tensor, score) -> torch.Tensor:
     """``score(idx, mask, acc)`` on each term slab, each slab's output the
@@ -173,22 +164,25 @@ def vertical_score_plain(rows: torch.Tensor) -> torch.Tensor:
     return _expand(planes)
 
 
-def _rows_launch(name: str, symbol: str, rows: torch.Tensor, *extra: int
+def _rows_launch(name: str, symbol: str, rows: torch.Tensor
                  ) -> torch.Tensor:
-    """Launch C entry point ``symbol`` on rows [L, W] or [B, L, W]."""
+    """Launch C entry point ``symbol`` on rows [L, W] or [B, L, W], once
+    for any L, at the cluster size the entry point picks."""
     r3 = rows if rows.dim() == 3 else rows[None]
     B, L, W = r3.shape
     out = torch.empty((B, W, 32), dtype=torch.int32, device=rows.device)
     if out.numel():
-        _build.launch(symbol, r3.data_ptr(), out.data_ptr(), B, L, W, *extra,
-                      rows.device.index or 0, _stream(rows.device))
+        _build.launch(symbol, r3.data_ptr(), out.data_ptr(), B, L, W,
+                      CLUSTER_AUTO, rows.device.index or 0,
+                      _stream(rows.device))
         launches[name] += 1
     return out if rows.dim() == 3 else out[0]
 
 
 def unpack_score(rows: torch.Tensor) -> torch.Tensor:
     """int32 [L, W] -> int32 [W, 32] per-bit counts (a leading batch axis
-    [B, L, W] gives [B, W, 32]). Replaces the Pallas ``unpack_score``."""
+    [B, L, W] gives [B, W, 32]). Replaces the Pallas ``unpack_score``; any
+    L in one launch."""
     _check("rows", rows, (2, 3))
     if not _on_cuda(rows):
         return unpack_score_plain(rows)
@@ -202,8 +196,7 @@ def vertical_score(rows: torch.Tensor) -> torch.Tensor:
     _check("rows", rows, (2, 3))
     if not _on_cuda(rows):
         return vertical_score_plain(rows)
-    return _rows_launch("vertical_score", "cobs_vertical", rows,
-                        CLUSTER_AUTO)
+    return _rows_launch("vertical_score", "cobs_vertical", rows)
 
 
 # --------------------------------------------------------------------------
@@ -262,8 +255,9 @@ def _lookup_launch(name: str, symbol: str, head: tuple[int, ...],
                    rows_idx: torch.Tensor, mask: torch.Tensor, W: int,
                    dev: torch.device) -> torch.Tensor:
     """One launch of a split lookup entry point (``cobs_lookup`` after the
-    arena, ``cobs_lookup_comp`` after the rowdict pair; ``head`` holds
-    their pointers) for any L, at the cluster size the entry point picks."""
+    arena, ``cobs_lookup_comp`` after the rowdict pair, ``cobs_dedup_score``
+    after uniq; ``head`` holds their pointers) for any L, at the cluster
+    size the entry point picks."""
     out = torch.empty(rows_idx.shape[:-1] + (W, 32), dtype=torch.int32,
                       device=dev)
     if out.numel():
@@ -561,7 +555,8 @@ def dedup_score(uniq: torch.Tensor, indir: torch.Tensor, mask: torch.Tensor,
                 *, range_checked: bool = False) -> torch.Tensor:
     """Indirected multi-query score: uniq int32 [U, W] (from a gather),
     indir / mask int32 [Q, nb, L] -> int32 [Q, nb, W, 32]; a term counts
-    where its mask is non-zero. Replaces the Pallas ``dedup_score``."""
+    where its mask is non-zero. Replaces the Pallas ``dedup_score``; any L
+    in one launch."""
     _check("uniq", uniq, (2,))
     _check_indices(indir, mask, 3)
     cuda = _on_cuda(uniq, indir, mask)
@@ -569,18 +564,6 @@ def dedup_score(uniq: torch.Tensor, indir: torch.Tensor, mask: torch.Tensor,
         _check_range(indir, uniq.shape[0], "uniq")
     if not cuda:
         return dedup_plain(uniq, indir, mask)
-    W = uniq.shape[1]
-    Q, nb, _ = indir.shape
-
-    def score(idx_s, mask_s):
-        out = torch.empty((Q, nb, W, 32), dtype=torch.int32,
-                          device=uniq.device)
-        if out.numel():
-            L = idx_s.shape[-1]
-            _build.launch("cobs_dedup_score", uniq.data_ptr(),
-                          idx_s.data_ptr(), mask_s.data_ptr(),
-                          out.data_ptr(), Q * nb, L, W, num_planes(L),
-                          uniq.device.index or 0, _stream(uniq.device))
-            launches["dedup_score"] += 1
-        return out
-    return _slab_sum(indir, mask, score)
+    return _lookup_launch("dedup_score", "cobs_dedup_score",
+                          (uniq.data_ptr(),), indir, mask, uniq.shape[1],
+                          uniq.device)

@@ -56,51 +56,55 @@
 // gather is a copy: its bound is (U * k indices + U * k rows read + U rows
 // written) / 3.35 TB/s, and one thread a word keeps every load and store
 // coalesced along a row. gather_comp_kernel reads row r as dict[refs[r]],
-// one more 4-byte load a row. dedup_kernel is the 16-plane body over uniq
-// instead of the arena (chunk_lookup_kernel without acc); its bound is the
-// fused lookup's with rows counted once per distinct uniq row.
+// one more 4-byte load a row. dedup_kernel is lookup_kernel over uniq
+// instead of the arena (the split body); its bound is the fused lookup's
+// with rows counted once per distinct uniq row.
 //
 // Design. The TPU kernels carry counter planes across a sequential grid
 // axis over terms. CUDA blocks run in no order, so the term axis is cut
 // inside a block (or a cluster of blocks) instead, and nothing carries
-// between launches. Two bodies:
+// between launches. Three bodies:
 //
 // * The split body (split_body: vertical_kernel, lookup_kernel,
-//   lookup_comp_kernel, chunk_dedup_kernel). One block of 256 threads per
-//   (cell, word tile), where a cell is one batch entry or one (query,
-//   block) pair and a word tile is Wt <= 32 consecutive words (W, or the
-//   running counts' Wp, cut into ceil(W / 32) near-equal tiles). Thread t
-//   works on word t % Wt of the tile and on term slice t / Wt of S = 256 /
-//   Wt; slice s takes terms s, s + S, s + 2S, ..., so a warp reads 32 / Wt
-//   whole row segments per load, coalesced. Each thread issues 8
-//   independent row loads before it ripples any of them into its counter
-//   planes (num_planes(ceil(terms / S)), at most 16, a compile-time count
-//   picked per launch), so a step costs one memory latency, not one per
-//   term. Its source mode says where rows come from: the cell's own rows
-//   (vertical), or the rows of indices that the block stages in shared
-//   memory first (cp.async, double-buffered tiles of 1,024 terms), which
-//   takes the index load out of each term's chain; the decoded mode
-//   (lookup_comp) then replaces each staged index by its refs entry, all
-//   of a stage's refs loads in flight at once across the block. At the
-//   end the threads write their planes to shared memory and each thread
-//   sums one output's bit over the S slices and the planes, so the tile's
-//   Wt * 32 counts are stored as one coalesced range; the accumulate mode
-//   (chunk_dedup) adds each count's acc element, read once by the storing
-//   thread (before the term loop when there is no cluster). A slice that would pass 65,535 terms
-//   flushes its planes into those counts first, so any L runs in one
-//   launch. Where a launch has few (cell, tile) pairs, a cluster of 2-8
-//   blocks splits the pair's terms; rank 0..cs-1 each sum a share of the
-//   tile's counts over the cluster's shared memory (distributed shared
-//   memory), so no global atomics or memsets are needed.
+//   lookup_comp_kernel, chunk_dedup_kernel, dedup_kernel). One block of 256
+//   threads per (cell, word tile), where a cell is one batch entry or one
+//   (query, block) pair and a word tile is Wt <= 32 consecutive words (W, or
+//   the running counts' Wp, cut into ceil(W / 32) near-equal tiles). Thread t
+//   works on word t % Wt of the tile and on term slice t / Wt of S = 256 / Wt;
+//   slice s takes terms s, s + S, s + 2S, ..., so a warp reads 32 / Wt whole
+//   row segments per load, coalesced. Each thread issues 8 independent row
+//   loads before it ripples any of them into its counter planes
+//   (num_planes(ceil(terms / S)), at most 16, a compile-time count picked per
+//   launch), so a step costs one memory latency, not one per term. Its source
+//   mode says where rows come from: the cell's own rows (vertical), or the
+//   rows of indices that the block stages in shared memory first (cp.async,
+//   double-buffered tiles of 1,024 terms), which takes the index load out of
+//   each term's chain; the decoded mode (lookup_comp) then replaces each
+//   staged index by its refs entry, all of a stage's refs loads in flight at
+//   once across the block. At the end the threads write their planes to shared
+//   memory and each thread sums one output's bit over the S slices and the
+//   planes, so the tile's Wt * 32 counts are stored as one coalesced range;
+//   the accumulate mode (chunk_dedup) adds each count's acc element, read once
+//   by the storing thread (before the term loop when there is no cluster). A
+//   slice that would pass 65,535 terms flushes its planes into those counts
+//   first, so any L runs in one launch. Where a launch has few (cell, tile)
+//   pairs, a cluster of 2-8 blocks splits the pair's terms; rank 0..cs-1 each
+//   sum a share of the tile's counts over the cluster's shared memory
+//   (distributed shared memory), so no global atomics or memsets are needed.
+// * The unpack body (unpack_kernel), which keeps the TPU kernel's 32-way
+//   expansion: one block of 8 warps per (cell, word), lane b counting bit
+//   b of the word in an int32 (each row load a broadcast to the warp), the
+//   warps splitting the term loop into slices with 8 row loads in flight,
+//   summed in shared memory into one 128-byte line; no planes, so any L in
+//   one launch; a cluster splits a word's terms as in the split body.
 // * The 16-plane body (lookup_body: chunk_lookup_kernel,
-//   chunk_lookup_comp_kernel, dedup_kernel). One thread per (cell, word)
-//   walks all L terms in order with 16 counter planes in registers; its
-//   wrappers feed it slabs of at most 65,535 terms. Work items are
-//   flattened as g = cell * W + word (cell * Wp + word in the chunk
-//   kernels); each thread reads only its own acc range, neighbouring
-//   threads read neighbouring words of one row, and a block's outputs are
-//   one contiguous range, which expand_store writes coalesced through
-//   shared memory.
+//   chunk_lookup_comp_kernel). One thread per (cell, word) walks all L
+//   terms in order with 16 counter planes in registers; its wrappers feed
+//   it slabs of at most 65,535 terms. Work items are flattened as g =
+//   cell * Wp + word; each thread reads only its own acc range,
+//   neighbouring threads read neighbouring words of one row, and a block's
+//   outputs are one contiguous range, which expand_store writes coalesced
+//   through shared memory.
 
 #include <climits>
 #include <cstdint>
@@ -115,19 +119,22 @@ namespace {
 constexpr int kMaxPlanes = 16;   // counts up to 65535 terms
 constexpr int kSlabTerms = (1 << kMaxPlanes) - 1;
 constexpr int kThreads = 128;    // threads per block of the 16-plane body
-constexpr int kUnpackThreads = 256;
+constexpr int kUnpackWarps = 8;  // warps (term slices) of an unpack block
 constexpr int kGatherThreads = 256;
 constexpr int kPad = 33;         // shared-memory row stride: no bank conflicts
 // the split body (vertical_kernel, lookup_kernel, lookup_comp_kernel,
-// chunk_dedup_kernel)
+// chunk_dedup_kernel, dedup_kernel); kUnroll also in unpack_kernel
 constexpr int kSplitThreads = 256;
 constexpr int kWordTile = 32;     // most words of a block's tile
 constexpr int kStageTerms = 1024; // terms per shared-memory index stage
 constexpr int kUnroll = 8;        // row loads in flight per thread
 constexpr int kMaxCluster = 8;    // the portable cluster size
 constexpr int kOwn = kWordTile * 32 / kSplitThreads;  // outputs a thread sums
-// a cluster is chosen only while each slice keeps this many terms
+// a cluster is chosen only while each slice keeps this many terms; for
+// unpack_kernel, whose clusters cost more than they save until each warp
+// keeps 4 steps of row loads (tools/split_probe.py, PERF.md section 6)
 constexpr int kMinSliceTerms = 2;
+constexpr int kUnpackMinSliceTerms = 4 * kUnroll;
 
 // Ripple-carry one row word into the thread's counter planes (Harley-Seal
 // vertical counters): plane j holds bit j of each document's count.
@@ -175,28 +182,6 @@ __device__ __forceinline__ void expand_store(const uint32_t (&p)[kMaxPlanes],
   }
 }
 
-// One thread per output (cell, word, bit): it walks the L rows of its cell
-// and adds bit `bit` of its word. The 32 lanes of a warp share one word,
-// so each load is a broadcast and each store is coalesced.
-__global__ void unpack_kernel(const uint32_t* __restrict__ rows,
-                              int32_t* __restrict__ out, int L, int W,
-                              long long total) {
-  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (g >= total) return;
-  const long long item = g >> 5;
-  const int bit = static_cast<int>(g & 31);
-  const long long cell = item / W;
-  const int w = static_cast<int>(item % W);
-  const uint32_t* src = rows + cell * L * W + w;
-  int32_t acc = 0;
-  for (int l = 0; l < L; ++l) {
-    acc += static_cast<int32_t>((src[static_cast<long long>(l) * W] >> bit)
-                                & 1u);
-  }
-  out[g] = acc;
-}
-
 // The 16-plane body: the fused gather + vertical count over [cells, L]
 // indices, one thread per (cell, word), at most 65,535 terms a launch.
 // Each thread reads its cell's indices and mask itself (a warp-wide
@@ -241,10 +226,9 @@ __device__ __forceinline__ void lookup_body(
                      kAcc ? acc + g0 * 32 : nullptr);
 }
 
-
 // ---------------------------------------------------------------------------
-// The split body of vertical_kernel, lookup_kernel, lookup_comp_kernel and
-// chunk_dedup_kernel
+// The split body of vertical_kernel, lookup_kernel, lookup_comp_kernel,
+// chunk_dedup_kernel and dedup_kernel
 // ---------------------------------------------------------------------------
 
 // A word tile's geometry for W words: tiles of wt <= 32 words, S slices.
@@ -400,8 +384,12 @@ __device__ __forceinline__ void split_decode(
 // Where a split block reads its rows: the cell's contiguous [L, W] block
 // (vertical), the arena row of each staged index (lookup, and the chunk
 // dedup over uniq), or the dictionary row of each staged index's refs
-// entry (the fused-decode lookup over a rowdict pair).
-enum SplitSource { kRows, kIndexed, kDecoded };
+// entry (the fused-decode lookup over a rowdict pair). kUniq (dedup over
+// uniq) loads as kIndexed does; it is a mode of its own so that
+// dedup_kernel is an instantiation of its own: sharing lookup_kernel's
+// (and with it the body's function-scope shared arrays) changed
+// lookup_kernel's SASS and slowed it by up to 2% (PERF.md section 6).
+enum SplitSource { kRows, kIndexed, kDecoded, kUniq };
 
 // Block b of the grid: cluster rank b % cs, (cell, tile) pair b / cs. The
 // block counts terms [lo, hi) of its cell (a cluster's ranks split the
@@ -662,15 +650,103 @@ chunk_dedup_kernel(const uint32_t* __restrict__ uniq,
                              cs, s_idx, s_mask);
 }
 
-// The dedup path's indirected score: lookup_kernel over the unique-row
-// matrix uniq [U, W], with indir [cells, L] indexing uniq's rows.
-__global__ void __launch_bounds__(kThreads)
+// Replaces _dedup_score_kernel (dedup_score): lookup_kernel's body over the
+// unique-row matrix uniq [U, W] of the row-dedup pair, indir and mask
+// [cells, L] indexing uniq's rows -> [cells, W, 32]. Bound: bytes
+// (indirections, masks, each distinct uniq row the live terms touch, the
+// counts written) and, in practice, the indir -> row chain of dependent
+// loads, as in lookup_kernel: the same split body (indirections staged
+// with cp.async, 8 row loads in flight per thread, slices summed through
+// shared memory into one coalesced store, a cluster where a launch has
+// few (cell, tile) pairs), any L in one launch. The uniq matrix of a read
+// batch (about 2,000 rows of 128 bytes) sits in L2, where each block
+// re-reads its rows. At the dense read batch (indir [32, 2, 128], uniq
+// [2048, 32]; 128 blocks in clusters of 2) on one H100 80GB HBM3 at 700 W
+// (chip_smoke.py): 7.1-7.2 us against a byte bound of 0.17 us; the
+// 16-plane body it replaced (one thread per (cell, word) walking every
+// term in order) took 46.4-46.9 us there.
+__global__ void __launch_bounds__(kSplitThreads)
 dedup_kernel(const uint32_t* __restrict__ uniq,
              const int32_t* __restrict__ indir,
              const int32_t* __restrict__ mask, int32_t* __restrict__ out,
-             int L, int W, long long total, int n_planes) {
-  lookup_body<false, false>(uniq, nullptr, indir, mask, nullptr, out, L, W,
-                            W, total, n_planes);
+             int L, int W, int cs) {
+  __shared__ int32_t s_idx[2][kStageTerms];
+  __shared__ int32_t s_mask[2][kStageTerms];
+  split_body<kUniq, false>(uniq, nullptr, indir, mask, nullptr, out, L, W, W,
+                           cs, s_idx, s_mask);
+}
+
+// Replaces _unpack_kernel (unpack_score): rows [B, L, W] -> [B, W, 32], each
+// count an int32 that adds (word >> bit) & 1 over the L rows (the TPU
+// kernel's 32-way expansion; no counter planes, so nothing to expand at
+// the end and no 65,535-term flush: any L runs in one launch). Bound:
+// bytes (each row read once, the counts written once; well under a
+// microsecond at the planner's shapes) and, in practice, the latency of
+// the row loads. One block of kUnpackWarps warps per (cell, word): lane b
+// of a warp counts bit b, so each row load is one 4-byte broadcast to the
+// warp; warp s takes the term slice s, s + kUnpackWarps, ... and keeps
+// kUnroll row loads in flight. The warps' 32 counts are summed in shared
+// memory and stored as one 128-byte line. A lone cell at W = 64 is 64
+// blocks; where a launch has few (cell, word) pairs and each warp would
+// keep at least 4 steps of loads, a cluster of 2-8 blocks splits the
+// word's terms and rank 0 sums the cluster's counts over distributed
+// shared memory. On one H100 80GB HBM3 at 700 W (chip_smoke.py): rows
+// [320, 64] 3.65-3.66 us, rows [64, 64] (a short singleton) 2.2-2.3 us,
+// against byte bounds of 0.027 and 0.007 us; the thread-per-(cell, word,
+// bit) body it replaced took 11.6-11.8 us at [320, 64]. 4 warps a word
+// took 5.0 and 2.1 us, 16 warps 3.0 and 2.0, a cluster of 2 at these 64
+// pairs 0.4-1.2 us more (tools/split_probe.py).
+__global__ void __launch_bounds__(kUnpackWarps * 32)
+unpack_kernel(const uint32_t* __restrict__ rows, int32_t* __restrict__ out,
+              int L, int W, int cs) {
+  __shared__ int32_t s_red[kUnpackWarps * 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rank = static_cast<int>(blockIdx.x % cs);
+  const long long item = blockIdx.x / cs;          // (cell, word)
+  const long long cell = item / W;
+  const int w = static_cast<int>(item % W);
+  const long long per_rank = (static_cast<long long>(L) + cs - 1) / cs;
+  const long long lo_ll = rank * per_rank < L ? rank * per_rank : L;
+  const long long hi_ll = lo_ll + per_rank < L ? lo_ll + per_rank : L;
+  const int lo = static_cast<int>(lo_ll), hi = static_cast<int>(hi_ll);
+  const uint32_t* col = rows + cell * L * W + w;
+  int32_t c = 0;
+  for (int b = lo + warp; b < hi; b += kUnpackWarps * kUnroll) {
+    uint32_t v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int l = b + u * kUnpackWarps;
+      v[u] = l < hi ? col[static_cast<long long>(l) * W] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      c += static_cast<int32_t>((v[u] >> lane) & 1u);
+    }
+  }
+  s_red[warp * 32 + lane] = c;
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int q = 1; q < kUnpackWarps; ++q) c += s_red[q * 32 + lane];
+  }
+  if (cs == 1) {
+    if (warp == 0) out[item * 32 + lane] = c;
+    return;
+  }
+  // A cluster: each rank's 32 counts in its s_red[0..31] (only warp 0
+  // reads or writes s_red after the barrier), then rank 0 sums them over
+  // the cluster and stores the line.
+  if (warp == 0) s_red[lane] = c;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (rank == 0 && warp == 0) {
+    int32_t t = 0;
+    for (int q = 0; q < cs; ++q) {
+      t += cluster.map_shared_rank(&s_red[0], q)[lane];
+    }
+    out[item * 32 + lane] = t;
+  }
+  cluster.sync();  // no block leaves while rank 0 reads its counts
 }
 
 // Unique-row gather: thread g writes word g % W of out row u = g / W, the
@@ -721,9 +797,9 @@ unsigned int blocks_for(long long items, int threads) {
 
 // The cluster size a split launch uses: `cluster` when it is 1-8, else
 // (0) the largest of 1, 2, 4, 8 that keeps the grid within one block per
-// SM and at least kMinSliceTerms terms per slice.
-int split_cluster(long long pairs, int L, int slices, int cluster,
-                  int device) {
+// SM and at least `min_terms` terms per slice.
+int split_cluster(long long pairs, int L, int slices, int min_terms,
+                  int cluster, int device) {
   if (cluster > 0) return cluster;
   int sms = 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)
@@ -732,26 +808,27 @@ int split_cluster(long long pairs, int L, int slices, int cluster,
   }
   int cs = 1;
   while (cs < kMaxCluster && pairs * cs * 2 <= sms
-         && static_cast<long long>(L)
-                >= 2LL * cs * slices * kMinSliceTerms) {
+         && static_cast<long long>(L) >= 2LL * cs * slices * min_terms) {
     cs *= 2;
   }
   return cs;
 }
 
+// Launch `kernel` as pairs * cs blocks of `threads`, in clusters of cs (the
+// cluster size split_cluster picks for `slices` term slices a block of at
+// least `min_terms` terms each).
 template <typename Kernel, typename... Args>
-int launch_split(Kernel kernel, long long cells, int L, int Wo, int cluster,
-                 int device, void* stream, Args... args) {
-  const SplitGeometry g = split_geometry(Wo);
-  const long long pairs = cells * g.tiles;
-  const int cs = split_cluster(pairs, L, g.slices, cluster, device);
+int launch_clustered(Kernel kernel, long long pairs, int L, int slices,
+                     int min_terms, int threads, int cluster, int device,
+                     void* stream, Args... args) {
+  const int cs = split_cluster(pairs, L, slices, min_terms, cluster, device);
   if (cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) != 0
       || pairs * cs > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned int>(pairs * cs));
-  cfg.blockDim = dim3(kSplitThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
@@ -767,6 +844,16 @@ int launch_split(Kernel kernel, long long cells, int L, int Wo, int cluster,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A split-body kernel over `cells` cells of L terms and Wo output words.
+template <typename Kernel, typename... Args>
+int launch_split(Kernel kernel, long long cells, int L, int Wo, int cluster,
+                 int device, void* stream, Args... args) {
+  const SplitGeometry g = split_geometry(Wo);
+  return launch_clustered(kernel, cells * g.tiles, L, g.slices,
+                          kMinSliceTerms, kSplitThreads, cluster, device,
+                          stream, args...);
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream`
@@ -774,16 +861,16 @@ int launch_split(Kernel kernel, long long cells, int L, int Wo, int cluster,
 // cudaGetLastError() (0 = launched). The wrappers in bitslice_score.py
 // validate shapes, types and index ranges before calling.
 
+// unpack_kernel takes any L in one launch, one block (or cluster) per
+// (cell, word); `cluster` as for the split kernels below.
 extern "C" int cobs_unpack(const void* rows, void* out, int B, int L, int W,
-                           int device, void* stream) {
+                           int cluster, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(B) * W * 32;
-  unpack_kernel<<<blocks_for(total, kUnpackThreads), kUnpackThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<int32_t*>(out), L, W,
-      total);
-  return static_cast<int>(cudaGetLastError());
+  return launch_clustered(
+      unpack_kernel, static_cast<long long>(B) * W, L, kUnpackWarps,
+      kUnpackMinSliceTerms, kUnpackWarps * 32, cluster, device, stream,
+      static_cast<const uint32_t*>(rows), static_cast<int32_t*>(out), L, W);
 }
 
 // The split kernels take any L in one launch; `cluster` is the cluster
@@ -828,13 +915,15 @@ extern "C" int cobs_lookup_comp(const void* dict, const void* refs,
 // threads per block, cluster size, word tile, slices, counter planes a
 // slice uses, static shared memory bytes, registers per thread, and the
 // cluster sizes the kernel may take (its max). `kernel` names the kernel:
-// "vertical", "lookup", "lookup_comp" or "chunk_dedup".
+// "vertical", "lookup", "lookup_comp", "chunk_dedup", "dedup" or "unpack"
+// (one word a block, a slice a warp, no counter planes: 0).
 extern "C" int cobs_split_info(const char* kernel, int cells, int L, int W,
                                int Wp, int cluster, int device, void* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
   int Wo = W;
+  const bool unpack = std::strcmp(kernel, "unpack") == 0;
   if (std::strcmp(kernel, "vertical") == 0) {
     err = cudaFuncGetAttributes(&fa, vertical_kernel);
   } else if (std::strcmp(kernel, "lookup") == 0) {
@@ -844,23 +933,30 @@ extern "C" int cobs_split_info(const char* kernel, int cells, int L, int W,
   } else if (std::strcmp(kernel, "chunk_dedup") == 0) {
     err = cudaFuncGetAttributes(&fa, chunk_dedup_kernel);
     Wo = Wp;
+  } else if (std::strcmp(kernel, "dedup") == 0) {
+    err = cudaFuncGetAttributes(&fa, dedup_kernel);
+  } else if (unpack) {
+    err = cudaFuncGetAttributes(&fa, unpack_kernel);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const SplitGeometry g = split_geometry(Wo);
+  SplitGeometry g = split_geometry(Wo);
+  if (unpack) g = {Wo > 0 ? Wo : 1, 1, kUnpackWarps};
   const long long pairs = static_cast<long long>(cells) * g.tiles;
-  const int cs = split_cluster(pairs, L, g.slices, cluster, device);
+  const int cs = split_cluster(
+      pairs, L, g.slices, unpack ? kUnpackMinSliceTerms : kMinSliceTerms,
+      cluster, device);
   const long long per_rank = (static_cast<long long>(L) + cs - 1) / cs;
   int* o = static_cast<int*>(info);
   o[0] = static_cast<int>(pairs * cs);
-  o[1] = kSplitThreads;
+  o[1] = unpack ? kUnpackWarps * 32 : kSplitThreads;
   o[2] = cs;
   o[3] = g.wt;
   o[4] = g.slices;
   const long long per_slice = (per_rank + g.slices - 1) / g.slices;
-  o[5] = planes_for(per_slice < INT_MAX ? static_cast<int>(per_slice)
-                                        : INT_MAX);
+  o[5] = unpack ? 0 : planes_for(per_slice < INT_MAX
+                                     ? static_cast<int>(per_slice) : INT_MAX);
   o[6] = static_cast<int>(fa.sharedSizeBytes);
   o[7] = fa.numRegs;
   o[8] = kMaxCluster;
@@ -951,17 +1047,15 @@ extern "C" int cobs_gather_rows_comp(const void* dict, const void* refs,
 
 extern "C" int cobs_dedup_score(const void* uniq, const void* indir,
                                 const void* mask, void* out, int cells,
-                                int L, int W, int n_planes, int device,
+                                int L, int W, int cluster, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(cells) * W;
-  dedup_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(uniq), static_cast<const int32_t*>(indir),
-      static_cast<const int32_t*>(mask), static_cast<int32_t*>(out), L, W,
-      total, n_planes);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split(dedup_kernel, cells, L, W, cluster, device, stream,
+                      static_cast<const uint32_t*>(uniq),
+                      static_cast<const int32_t*>(indir),
+                      static_cast<const int32_t*>(mask),
+                      static_cast<int32_t*>(out), L, W);
 }
 
 extern "C" const char* cobs_error_string(int err) {

@@ -1,17 +1,20 @@
-"""What the six scoring wrappers that take long queries hand the kernel
+"""What the scoring wrappers that take long queries hand the kernel
 library, on the CPU.
 
 With the CUDA check and the launcher stubbed, each wrapper is called on
 CPU tensors at L = 70,144 and its calls into the library are recorded:
-the fused-decode lookups and ``chunk_dedup_score`` run split kernels, one
-launch for any L at the cluster size the entry point picks
-(``CLUSTER_AUTO``); ``dedup_score`` and the two chunk lookups keep 16
-counter planes and launch one slab of at most ``SLAB_TERMS`` terms each,
-with the planes that slab needs. ``_build.split_info`` must refuse a
-kernel that is not a split kernel before it touches the library. No
-kernel runs here: this checks the Python side of the launch contract
-only.
+the fused-decode lookups, ``chunk_dedup_score``, ``dedup_score`` and
+``unpack_score`` run kernels that take a cluster size, one launch for any
+L at the cluster size the entry point picks (``CLUSTER_AUTO``); the two
+chunk lookups keep 16 counter planes and launch one slab of at most
+``SLAB_TERMS`` terms each, with the planes that slab needs.
+``_build.split_info`` must refuse a kernel that is not a split kernel
+before it touches the library, and the source must launch each split
+kernel through its cluster launcher. No kernel runs here: this checks the
+Python side of the launch contract only.
 """
+import re
+
 import pytest
 import torch
 
@@ -22,9 +25,9 @@ L = 70_144
 W, WP, CELLS = 4, 8, 2
 SPLIT = {"lookup_score_blocks_compressed": "cobs_lookup_comp",
          "lookup_score_multi_compressed": "cobs_lookup_comp",
-         "chunk_dedup_score": "cobs_chunk_dedup"}
-SLABBED = {"dedup_score": "cobs_dedup_score",
-           "chunk_lookup_score_multi": "cobs_chunk_lookup",
+         "chunk_dedup_score": "cobs_chunk_dedup",
+         "dedup_score": "cobs_dedup_score", "unpack_score": "cobs_unpack"}
+SLABBED = {"chunk_lookup_score_multi": "cobs_chunk_lookup",
            "chunk_lookup_score_multi_compressed": "cobs_chunk_lookup_comp"}
 
 
@@ -45,6 +48,9 @@ def _call(name: str) -> None:
         fn(rows, refs, idx, mask)
     elif name == "dedup_score":
         fn(rows, idx % 9, mask)
+    elif name == "unpack_score":
+        fn(torch.randint(-2 ** 31, 2 ** 31, (CELLS, L, W), generator=g,
+                         dtype=torch.int64).to(torch.int32))
     elif name == "chunk_lookup_score_multi_compressed":
         fn(rows, refs, idx, mask, acc)
     else:
@@ -77,7 +83,8 @@ def test_long_query_launches(monkeypatch, name):
         assert len(args) == len(_build._SIGNATURES[symbol])
 
 
-@pytest.mark.parametrize("kernel", ["dedup", "chunk_lookup", "Lookup"])
+@pytest.mark.parametrize("kernel", ["chunk_lookup_comp", "chunk_lookup",
+                                    "Lookup"])
 def test_split_info_refuses_other_kernels(monkeypatch, kernel):
     def refuse(*a, **kw):
         raise AssertionError("the kernel library was touched")
@@ -86,6 +93,31 @@ def test_split_info_refuses_other_kernels(monkeypatch, kernel):
     with pytest.raises(ValueError, match="unknown split kernel"):
         _build.split_info(kernel, 1, 1, 1, 0, 0)
     # the split kernels are the ones whose entry points take a cluster size
-    assert {f"cobs_{name}" for name in _build.SPLIT_KERNELS} == {
+    assert set(_build.SPLIT_KERNELS.values()) == {
         "cobs_vertical", "cobs_lookup", "cobs_lookup_comp",
-        "cobs_chunk_dedup"}
+        "cobs_chunk_dedup", "cobs_dedup_score", "cobs_unpack"}
+
+
+# each split kernel and the launcher that launches it with a cluster size
+SPLIT_SOURCE = {"vertical_kernel": "launch_split",
+                "lookup_kernel": "launch_split",
+                "lookup_comp_kernel": "launch_split",
+                "chunk_dedup_kernel": "launch_split",
+                "dedup_kernel": "launch_split",
+                "unpack_kernel": "launch_clustered"}
+
+
+@pytest.mark.parametrize("kernel", sorted(SPLIT_SOURCE))
+def test_split_kernels_in_the_source(kernel):
+    src = _build.SOURCE.read_text()
+    assert re.search(rf"{SPLIT_SOURCE[kernel]}\(\s*{kernel},", src)
+    assert not re.search(rf"\b{kernel}<<<", src)   # never a plain launch
+    body = src.split(f"\n{kernel}(", 1)[1].split("\n}\n", 1)[0]
+    if kernel != "unpack_kernel":
+        assert "split_body<" in body
+    else:
+        # a warp per word, a lane per bit, kUnroll loads in flight, summed
+        # in shared memory
+        for piece in ("lane = threadIdx.x & 31", "v[kUnroll]",
+                      "s_red[kUnpackWarps * 32]", "(v[u] >> lane) & 1u"):
+            assert piece in body

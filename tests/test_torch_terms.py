@@ -4,12 +4,13 @@ against the JAX package, on the CPU.
 The index is an 8-document compact index (k = 15, one hash, FPR 0.3) whose
 first document is a random 70,100-base sequence, and the query is that
 sequence: 70,082 distinct terms, padded to 70,144, all of which document 0
-matches, a count that needs 17 counter planes. The port's ``vertical`` and
-``lookup`` engines must answer ``search`` and ``search_batch`` (the long
-query beside a short one) as the JAX ``QueryEngine(method="ref")`` does;
-``top_k`` and a served request are in ``test_torch_terms_served.py`` (which
-imports this file's index), the wrappers that score long queries in slabs
-in ``test_torch_terms_slabs.py``. Every comparison is exact.
+matches, a count that needs 17 counter planes. The port's ``vertical``,
+``lookup`` and ``unpack`` engines must answer ``search`` and
+``search_batch`` (the long query beside a short one) as the JAX
+``QueryEngine(method="ref")`` does; ``top_k`` and a served request are in
+``test_torch_terms_served.py`` (which imports this file's index), the
+scoring wrappers at more than 65,535 terms in ``test_torch_terms_slabs.py``.
+Every comparison is exact.
 """
 import numpy as np
 import pytest
@@ -66,7 +67,7 @@ def test_the_long_query_passes_the_old_cap(world):
     assert want.doc_ids.tolist() == [0] and int(want.scores[0]) > 65_535
 
 
-@pytest.mark.parametrize("method", ["vertical", "lookup"])
+@pytest.mark.parametrize("method", ["vertical", "lookup", "unpack"])
 def test_long_search_equals_reference(world, method):
     jax_index, port, long_pat, _ = world
     want = JaxEngine(jax_index, method="ref").search(long_pat, THRESHOLD)
@@ -76,7 +77,7 @@ def test_long_search_equals_reference(world, method):
     assert_same_result(got, want)
 
 
-@pytest.mark.parametrize("method", ["vertical", "lookup"])
+@pytest.mark.parametrize("method", ["vertical", "lookup", "unpack"])
 def test_long_search_batch_equals_reference(world, method):
     jax_index, port, long_pat, short_pat = world
     pats = [short_pat, long_pat]

@@ -13,17 +13,25 @@ Run from a checkout of the repository. It
    source whose slice count is capped at compile time, built by nvcc, and
    launched at cluster sizes 1 and 2;
 2. tiles the same inputs along the term axis to L = 1, 32 and 320 and
-   times the split ``chunk_dedup_kernel`` (``cobs_chunk_dedup``) against
-   the 16-plane body with running counts (``cobs_chunk_lookup``) and
-   without (``cobs_dedup_score``): each body's cost a launch and a term;
-3. with ``--against DIR``, a checkout of another commit whose
-   ``cobs_vertical`` and ``cobs_lookup`` take the same arguments: builds
-   that checkout's kernel source beside this one, says whether the SASS of
-   ``vertical_kernel`` and ``lookup_kernel`` is the same in both (with each
-   one's ptxas report), and times both libraries' ``cobs_vertical`` and
-   ``cobs_lookup`` at the main path's shapes (random rows and indices,
-   arenas of the main index's height) in the order this, other, other,
-   this, three times over.
+   times the split ``chunk_dedup_kernel`` (``cobs_chunk_dedup``) and
+   ``dedup_kernel`` (``cobs_dedup_score``, the split body without running
+   counts) against the 16-plane body with running counts
+   (``cobs_chunk_lookup``): each body's cost a launch and a term;
+3. times ``unpack_kernel`` at rows [320, 64], [64, 64] and two shapes
+   where it picks a cluster, [1000, 8] and [4096, 1] (random rows, seed
+   0), with 8 warps a word and with 4 and 16 (copies of the kernel
+   source with ``kUnpackWarps`` changed, built by nvcc), at cluster sizes
+   1, 2 and the entry point's choice, beside ``vertical_kernel`` at the
+   same rows and, with ``--against``, the other checkout's
+   ``cobs_unpack`` (whose older form takes no cluster size);
+4. with ``--against DIR``, a checkout of another commit whose
+   ``cobs_vertical``, ``cobs_lookup``, ``cobs_lookup_comp`` and
+   ``cobs_chunk_dedup`` take the same arguments: builds that checkout's
+   kernel source beside this one, says whether the SASS of the four
+   kernels is the same in both (with each one's ptxas report), and times
+   both libraries' entry points at the main path's shapes (random rows
+   and indices, arenas of the main index's height) in the order this,
+   other, other, this, three times over.
 
 Every launch is first checked equal to its plain PyTorch version. Times
 are the median of 5 replays of a CUDA graph of 64 launches, per launch.
@@ -50,15 +58,33 @@ SOURCE_REL = Path("src/repro_torch/kernels/csrc/bitslice_score.cu")
 SLICE_LINE = "  const int wt = g.wt, S = g.slices;\n"
 SLICES = (32, 16, 8)
 CHUNK_LENGTHS = (1, 32, 320)
-# (what, kernel, cells shape, L, W, arena rows) at the main path's shapes
+# the warps of an unpack block
+WARPS_LINE = ("constexpr int kUnpackWarps = 8;  // warps (term slices) of an "
+              "unpack block\n")
+WARPS = (8, 4, 16)
+UNPACK_SHAPES = (("row 1 rows [320, 64]", 320, 64),
+                 ("row 1a rows [64, 64]", 64, 64),
+                 ("rows [1000, 8]", 1000, 8), ("rows [4096, 1]", 4096, 1))
+# (what, kernel, cells shape, L, W, arena rows) at the main path's shapes;
+# lookup_comp's arena rows are refs entries over a dictionary of 4,096
 MAIN_SHAPES = (
     ("row 2 vertical rows [320, 64]", "vertical", (1,), 320, 64, 0),
     ("row 3 lookup idx [2, 320]", "lookup", (2,), 320, 32, 3_813_888),
     ("row 4 lookup idx [32, 2, 320]", "lookup", (32, 2), 320, 32, 3_813_888),
     ("row 5 lookup idx [320]", "lookup", (), 320, 8, 3_649_024),
+    ("row 9 lookup_comp idx [32, 1, 320]", "lookup_comp", (32, 1), 320, 4,
+     88_064),
+    ("row 10 lookup_comp idx [1, 320]", "lookup_comp", (1,), 320, 4,
+     88_064),
+    ("row 11 chunk_dedup indir [32, 1, 32]", "chunk_dedup", (32, 1), 32, 8,
+     1024),
 )
-# the entry points both libraries must share for --against
-SHARED = ("cobs_vertical", "cobs_lookup")
+# the entry points both libraries must share for --against, and their
+# kernels
+SHARED = ("cobs_vertical", "cobs_lookup", "cobs_lookup_comp",
+          "cobs_chunk_dedup")
+SHARED_KERNELS = ("vertical_kernel", "lookup_kernel", "lookup_comp_kernel",
+                  "chunk_dedup_kernel")
 
 
 def log(*parts) -> None:
@@ -196,7 +222,8 @@ def probe_lengths(torch, k, lib, inputs, dev_i, stream) -> dict:
     Q, nb, Lc = indir.shape
     W, Wp = uniq.shape[1], acc.shape[2]
     ms = {"split (cobs_chunk_dedup)": {}, "16-plane with acc "
-          "(cobs_chunk_lookup)": {}, "16-plane (cobs_dedup_score)": {}}
+          "(cobs_chunk_lookup)": {}, "split without acc (cobs_dedup_score)":
+          {}}
     bodies = list(ms)
     for L in CHUNK_LENGTHS:
         reps = -(-L // Lc)
@@ -215,8 +242,8 @@ def probe_lengths(torch, k, lib, inputs, dev_i, stream) -> dict:
                 *head, acc.data_ptr(), out.data_ptr(), Q * nb, L, W, Wp,
                 k.num_planes(L), dev_i, stream()), out, want),
             (lambda: lib.cobs_dedup_score(
-                *head, out2.data_ptr(), Q * nb, L, W, k.num_planes(L), dev_i,
-                stream()), out2, k.lookup_plain(uniq, ind, msk)))
+                *head, out2.data_ptr(), Q * nb, L, W, 0, dev_i, stream()),
+             out2, k.lookup_plain(uniq, ind, msk)))
         for body, (call, o, w) in zip(bodies, calls):
             checked(torch, f"{body} at L={L}", call, o, w)
             ms[body][L] = graph_ms(torch, call)
@@ -225,37 +252,90 @@ def probe_lengths(torch, k, lib, inputs, dev_i, stream) -> dict:
         body: (t[hi] - t[lo]) / (hi - lo) for body, t in ms.items()}}
 
 
-def probe_against(torch, k, libs, dev_i, stream, g) -> dict:
-    """Both libraries' cobs_vertical and cobs_lookup at MAIN_SHAPES, in the
-    order this, other, other, this, three times over."""
+def probe_unpack(torch, k, libs, dev_i, stream, g, other=None) -> dict:
+    """unpack_kernel at UNPACK_SHAPES with each warp count of ``libs``, at
+    clusters 1, 2 and the entry point's choice (0), vertical_kernel at the
+    same rows (the first library's), and ``other`` = (library, whether its
+    cobs_unpack takes a cluster size) when given."""
     res = {}
+    dev = torch.device("cuda", dev_i)
+    for what, L, W in UNPACK_SHAPES:
+        rows = torch.randint(-2 ** 31, 2 ** 31, (1, L, W), generator=g,
+                             dtype=torch.int64).to(torch.int32).to(dev)
+        want = k.unpack_score_plain(rows)
+        out = torch.empty_like(want)
+        times = {}
+        for warps, lib in libs.items():
+            for cs in (1, 2, 0):
+                def call(lib=lib, cs=cs):
+                    return lib.cobs_unpack(rows.data_ptr(), out.data_ptr(),
+                                           1, L, W, cs, dev_i, stream())
+                key = f"unpack {warps} warps, cluster {cs or 'auto'}"
+                checked(torch, f"{what} {key}", call, out, want)
+                times[key] = graph_ms(torch, call)
+        lib = libs[WARPS[0]]
+
+        def vert():
+            return lib.cobs_vertical(rows.data_ptr(), out.data_ptr(), 1, L,
+                                     W, 0, dev_i, stream())
+        checked(torch, f"{what} vertical", vert, out, want)
+        times["vertical, cluster auto"] = graph_ms(torch, vert)
+        if other is not None:
+            lib_o, cluster_arg = other
+
+            def unpack_o():
+                return lib_o.cobs_unpack(rows.data_ptr(), out.data_ptr(), 1,
+                                         L, W, *((0,) if cluster_arg else ()),
+                                         dev_i, stream())
+            checked(torch, f"{what} other unpack", unpack_o, out, want)
+            times["other unpack"] = graph_ms(torch, unpack_o)
+        res[what] = times
+    return res
+
+
+def probe_against(torch, k, libs, dev_i, stream, g) -> dict:
+    """Both libraries' split entry points at MAIN_SHAPES, in the order
+    this, other, other, this, three times over."""
+    res = {}
+    dev = torch.device("cuda", dev_i)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int64).to(torch.int32).to(dev)
     for what, kernel, lead, L, W, rows in MAIN_SHAPES:
-        dev = torch.device("cuda", dev_i)
+        cells = 1
+        for n in lead:
+            cells *= n
         if kernel == "vertical":
-            src = torch.randint(-2 ** 31, 2 ** 31, lead + (L, W),
-                                generator=g, dtype=torch.int64).to(
-                torch.int32).to(dev)
+            src = ints(-2 ** 31, 2 ** 31, *lead, L, W)
             want = k.vertical_score_plain(src)
             out = torch.empty_like(want)
-
-            def call(lib):
-                return lib.cobs_vertical(src.data_ptr(), out.data_ptr(),
-                                         lead[0], L, W, 0, dev_i, stream())
+            args = (src.data_ptr(), out.data_ptr(), lead[0], L, W)
         else:
-            arena = torch.randint(-2 ** 31, 2 ** 31, (rows, W), generator=g,
-                                  dtype=torch.int64).to(torch.int32).to(dev)
-            idx = torch.randint(0, rows, lead + (L,), generator=g,
-                                dtype=torch.int32).to(dev)
+            table = ints(-2 ** 31, 2 ** 31,
+                         4096 if kernel == "lookup_comp" else rows, W)
+            idx = ints(0, rows, *lead, L)
             mask = (torch.rand(lead + (L,), generator=g) < 0.95).to(
                 torch.int32).to(dev)
-            want = k.lookup_plain(arena, idx, mask)
+            if kernel == "lookup":
+                want = k.lookup_plain(table, idx, mask)
+                head = (table.data_ptr(),)
+            elif kernel == "lookup_comp":
+                refs = ints(0, 4096, rows)
+                want = k.lookup_comp_plain(table, refs, idx, mask)
+                head = (table.data_ptr(), refs.data_ptr())
+            else:
+                acc = ints(0, 50, *lead, W, 32)
+                want = k.chunk_plain(table, idx, mask, acc)
+                head = (table.data_ptr(),)
             out = torch.empty_like(want)
-            cells = idx.numel() // L
+            tail = (out.data_ptr(), cells, L, W)
+            if kernel == "chunk_dedup":
+                tail = (acc.data_ptr(),) + tail + (W,)
+            args = head + (idx.data_ptr(), mask.data_ptr()) + tail
 
-            def call(lib):
-                return lib.cobs_lookup(arena.data_ptr(), idx.data_ptr(),
-                                       mask.data_ptr(), out.data_ptr(),
-                                       cells, L, W, 0, dev_i, stream())
+        def call(lib, kernel=kernel, args=args):
+            return getattr(lib, f"cobs_{kernel}")(*args, 0, dev_i, stream())
         runs = {"this": [], "other": []}
         for side in ("this", "other"):
             checked(torch, f"{what} ({side})", lambda: call(libs[side]), out,
@@ -286,31 +366,42 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitslice_score as k
     text = (ROOT / SOURCE_REL).read_text()
-    if text.count(SLICE_LINE) != 1:
-        print("split_probe: split_body's slice count line has changed; "
-              "update SLICE_LINE", file=sys.stderr)
-        return 2
+    for line, what in ((SLICE_LINE, "split_body's slice count"),
+                       (WARPS_LINE, "kUnpackWarps")):
+        if text.count(line) != 1:
+            print(f"split_probe: {what} line has changed; update "
+                  f"split_probe.py", file=sys.stderr)
+            return 2
     # every library at once, one nvcc each
     procs, paths = {}, {}
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
     for S in SLICES:
         src = PROBE_DIR / f"slices{S}.cu"
-        PROBE_DIR.mkdir(parents=True, exist_ok=True)
         src.write_text(text if S == SLICES[0] else text.replace(
             SLICE_LINE, f"  const int wt = g.wt, S = g.slices < {S} ? "
                         f"g.slices : {S};\n"))
         paths[S] = PROBE_DIR / f"slices{S}.so"
         procs[S] = nvcc_build(_build, src, paths[S])
+    for n in WARPS[1:]:
+        key = f"warps{n}"
+        src = PROBE_DIR / f"{key}.cu"
+        src.write_text(text.replace(WARPS_LINE, WARPS_LINE.replace(
+            "kUnpackWarps = 8;", f"kUnpackWarps = {n};")))
+        paths[key] = PROBE_DIR / f"{key}.so"
+        procs[key] = nvcc_build(_build, src, paths[key])
     if args.against is not None:
         paths["other"] = PROBE_DIR / "other.so"
         procs["other"] = nvcc_build(_build, args.against / SOURCE_REL,
                                     paths["other"])
     reports = {key: finish(p, str(key)) for key, p in procs.items()}
     libs = {S: load(paths[S], _build._SIGNATURES) for S in SLICES}
+    warp_libs = {WARPS[0]: libs[SLICES[0]], **{
+        n: load(paths[f"warps{n}"], _build._SIGNATURES) for n in WARPS[1:]}}
     rec = {"card": card_line(), "torch": torch.__version__,
            "cuda": torch.version.cuda,
            "ptxas": {str(key): ptxas_lines(r) for key, r in reports.items()}}
     for key, lines in rec["ptxas"].items():
-        for kern in ("chunk_dedup_kernel", "lookup_kernel", "vertical_kernel"):
+        for kern in (*SHARED_KERNELS, "dedup_kernel", "unpack_kernel"):
             if kern in lines:
                 log(f"[ptxas] {key}: {kern}: {lines[kern]}")
     dev_i = torch.cuda.current_device()
@@ -331,13 +422,27 @@ def main() -> int:
                 f"L {L}: {t * 1e3:.2f} us" for L, t in times.items())
                 + f"; {rec['lengths']['per_term_ms'][body] * 1e3:.4f} us a "
                   f"term from L {CHUNK_LENGTHS[1]} to {CHUNK_LENGTHS[2]}")
+        other = None
+        if args.against is not None:
+            cluster_arg = re.search(
+                r"int cobs_unpack\([^)]*int cluster",
+                (args.against / SOURCE_REL).read_text()) is not None
+            other = (load(paths["other"], {"cobs_unpack": (
+                _build._SIGNATURES["cobs_unpack"] if cluster_arg else
+                (ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 4,
+                 ctypes.c_void_p))}), cluster_arg)
+        rec["unpack_ms"] = probe_unpack(torch, k, warp_libs, dev_i, stream,
+                                        g, other)
+        for what, times in rec["unpack_ms"].items():
+            log(f"[unpack] {what}: " + ", ".join(
+                f"{key} {t * 1e3:.2f} us" for key, t in times.items()))
         if args.against is not None:
             tool = Path(_build._nvcc()).with_name("cuobjdump")
             this = sass(paths[SLICES[0]], tool)
             other = sass(paths["other"], tool)
             rec["same_sass"] = None if this is None else {
                 kern: this.get(kern) == other.get(kern)
-                for kern in ("vertical_kernel", "lookup_kernel")}
+                for kern in SHARED_KERNELS}
             log(f"[against] {args.against}: same SASS {rec['same_sass']}")
             other_lib = load(paths["other"], {
                 name: _build._SIGNATURES[name] for name in SHARED})
