@@ -13,17 +13,16 @@ Run from a checkout of the repository on a machine with one CUDA card. It
 3. holds every kernel against its plain PyTorch version on the card, on
    rows and indices drawn from that index and on the shapes of
    ``tests/test_kernels.py``; holds the split kernels (vertical, lookup,
-   the fused-decode lookup, the chunk dedup, dedup, unpack) where a split
-   can go wrong: word tiles (W 1 to 384, running counts padded past W),
-   term slices and clusters (L 1 to 1,000, cluster sizes 1 to 8), 1 to
-   200 cells, masks with zeros, and L of 65,535, 65,536 and 70,144
+   the fused-decode lookup, the three chunk kernels, dedup, unpack) where
+   a split can go wrong: word tiles (W 1 to 384, running counts padded
+   past W), term slices and clusters (L 1 to 1,025, across the 1,024-term
+   index stage; cluster sizes 1 to 8), 1 to 200 cells, masks with zeros, and L of 65,535, 65,536 and 70,144
    (against the plain unpack of the gathered rows), plus a slice of more
    than 65,535 terms; then answers a 70,100-base query (70,144 padded
    terms) on an 8-document index through the ``vertical``, ``lookup`` and
    ``unpack`` engines and one served request, equal to ``method="ref"``,
    and runs the six wrappers of the fused-decode, dedup and chunk kernels
-   at that length ("[long]": one launch each for the split ones, 16-plane
-   slabs for the two chunk lookups);
+   at that length ("[long]": one launch each);
 4. runs the main path with every launch counter at 0: 128 queries of the
    serving traffic mix (40/80/160/320 bp, half true positives, half
    verified negatives) through ``search``, ``search_batch`` (batches of 32)
@@ -127,15 +126,16 @@ CHUNK_KERNELS = ("chunk_dedup_score", "chunk_lookup_score_multi",
 MAIN_KERNELS = ("unpack_score", "vertical_score", "lookup_score_blocks",
                 "lookup_score_multi", "lookup_score")
 DEDUP_KERNELS = ("gather_rows", "gather_rows_compressed", "dedup_score")
-# the wrappers that scored more than 65,535 terms in 16-plane slabs before
-# their kernels took the split body, and those that still do
-UNSLABBED = ("lookup_score_blocks_compressed", "lookup_score_multi_compressed",
-             "chunk_dedup_score", "dedup_score")
-SLABBED = ("chunk_lookup_score_multi", "chunk_lookup_score_multi_compressed")
+# the wrappers [long] holds at 70,144 terms, each in one launch
+LONG_WRAPPERS = ("lookup_score_blocks_compressed",
+                 "lookup_score_multi_compressed", "chunk_lookup_score_multi",
+                 "chunk_lookup_score_multi_compressed", "chunk_dedup_score",
+                 "dedup_score")
 # where a split can go wrong: word tiles, term slices, clusters, cells (W 4
-# is the rowdict store's width, L 32 the pruned path's chunk)
+# is the rowdict store's width, its running counts padded to Wp = 8; L 32
+# the pruned path's chunk, 1,025 one term past the first index stage)
 SPLIT_WORDS = (1, 3, 4, 8, 31, 32, 33, 64, 130, 384)
-SPLIT_TERMS = (1, 7, 32, 63, 64, 65, 320, 1000)
+SPLIT_TERMS = (1, 7, 32, 63, 64, 65, 320, 1000, 1025)
 SPLIT_CELLS = (1, 2, 64, 200)
 LONG_TERMS = (65_535, 65_536, 70_144)
 CLUSTERS = (1, 2, 4, 8)
@@ -419,9 +419,10 @@ def split_dims(kernel, inputs) -> tuple[int, int, int, int]:
     if kernel in ("vertical", "unpack"):
         cells, L, W = inputs[0].shape
         return cells, L, W, W
-    idx = inputs[-3 if kernel == "chunk_dedup" else -2]
+    chunk = kernel.startswith("chunk_")
+    idx = inputs[-3 if chunk else -2]
     L, W = idx.shape[-1], inputs[0].shape[1]
-    Wp = inputs[-1].shape[2] if kernel == "chunk_dedup" else W
+    Wp = inputs[-1].shape[2] if chunk else W
     return idx.numel() // max(L, 1), L, W, Wp
 
 
@@ -430,10 +431,11 @@ def split_direct(torch, rt, kernel, cs, *inputs):
     ``_build.SPLIT_KERNELS``) through its own entry point at cluster size
     ``cs`` on its inputs: vertical or unpack (rows [B, L, W]), lookup
     (arena, idx, mask), dedup (uniq, indir, mask), lookup_comp (dict, refs,
-    idx, mask) or chunk_dedup (uniq, indir, mask, acc); returns its output.
+    idx, mask), chunk_lookup or chunk_dedup (rows, idx, mask, acc) or
+    chunk_lookup_comp (dict, refs, idx, mask, acc); returns its output.
     Not counted in ``launches``."""
     cells, L, W, Wp = split_dims(kernel, inputs)
-    if kernel == "chunk_dedup":
+    if kernel.startswith("chunk_"):
         out = torch.empty_like(inputs[-1])
         dims = (cells, L, W, Wp)
     else:
@@ -450,8 +452,8 @@ def split_direct(torch, rt, kernel, cs, *inputs):
 
 def check_split_kernels(rt, torch, chk, words, g) -> None:
     """The split kernels' wrappers (vertical_score, the three fused
-    lookups, the two fused-decode lookups, chunk_dedup_score, dedup_score,
-    unpack_score) where a split can go wrong: every word tiling of
+    lookups, the two fused-decode lookups, the three chunk wrappers,
+    dedup_score, unpack_score) where a split can go wrong: every word tiling of
     SPLIT_WORDS (running counts padded past W as the executors pad them),
     term count of SPLIT_TERMS and cell count of SPLIT_CELLS with masks
     holding zeros (and one mask of 3, which counts), each cluster size at a
@@ -486,6 +488,8 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                 want_c = k.lookup_comp_plain(dict_rows, refs, idx, mask)
                 want_k = k.chunk_plain(arena, idx[:, None], mask[:, None],
                                        acc)
+                want_kc = k.chunk_plain(dict_rows, idx[:, None],
+                                        mask[:, None], acc, refs)
                 if cells == 1:
                     compare("vertical_score", k.vertical_score(rows[0]),
                             want_v[0], what)
@@ -514,13 +518,21 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                         want_c.reshape(cells // q, q, W, 32), what)
                 compare("chunk_dedup_score", k.chunk_dedup_score(
                     arena, idx[:, None], mask[:, None], acc), want_k, what)
+                compare("chunk_lookup_score_multi",
+                        k.chunk_lookup_score_multi(
+                            arena, idx[:, None], mask[:, None], acc), want_k,
+                        what)
+                compare("chunk_lookup_score_multi_compressed",
+                        k.chunk_lookup_score_multi_compressed(
+                            dict_rows, refs, idx[:, None], mask[:, None],
+                            acc), want_kc, what)
                 # the arena as the unique-row matrix, idx as indir
                 compare("dedup_score", k.dedup_score(
                     arena, idx.reshape(cells // q, q, L),
                     mask.reshape(cells // q, q, L)),
                     want.reshape(cells // q, q, W, 32), what)
                 n += 1
-                if W in (1, 4, 8, 33, 130) and L in (63, 320, 1000) \
+                if W in (1, 4, 8, 33, 130) and L in (63, 320, 1000, 1025) \
                         and cells <= 2:
                     for cs in CLUSTERS:
                         wc = f"{what} cluster {cs}"
@@ -536,6 +548,13 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                         compare("chunk_dedup_score", split_direct(
                             torch, rt, "chunk_dedup", cs, arena, idx, mask,
                             acc), want_k, wc)
+                        compare("chunk_lookup_score_multi", split_direct(
+                            torch, rt, "chunk_lookup", cs, arena, idx, mask,
+                            acc), want_k, wc)
+                        compare("chunk_lookup_score_multi_compressed",
+                                split_direct(torch, rt, "chunk_lookup_comp",
+                                             cs, dict_rows, refs, idx, mask,
+                                             acc), want_kc, wc)
                         compare("dedup_score", split_direct(
                             torch, rt, "dedup", cs, arena, idx, mask), want,
                             wc)
@@ -543,7 +562,8 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                             torch, rt, "unpack", cs, rows), want_u, wc)
     log(f"[kernels:split] {n} (W, L, cells) shapes and the cluster sizes "
         f"{CLUSTERS} equal the plain versions (vertical, lookup, "
-        f"lookup_comp, chunk_dedup, dedup, unpack) in "
+        f"lookup_comp, chunk_lookup, chunk_lookup_comp, chunk_dedup, dedup, "
+        f"unpack) in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for L in LONG_TERMS:
@@ -567,8 +587,9 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
             want = unpack_rows_plain(k, masked_rows(arena, idx, mask))
             want_c = unpack_rows_plain(k, masked_rows(
                 dict_rows[refs.long()], idx, mask))
-            want_k = acc.clone()
+            want_k, want_kc = acc.clone(), acc.clone()
             want_k[:, 0, :W] += want
+            want_kc[:, 0, :W] += want_c
             what = f"long W={W} L={L} cells={cells}"
             check(L < 65_536 or int(want.max()) > 65_535,
                   f"{what}: no count needs a 17th plane")
@@ -587,9 +608,15 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                     k.lookup_score_multi_compressed(dict_rows, refs,
                                                     idx[None], mask[None]),
                     want_c[None], what)
+            before = dict(k.launches)
             compare("chunk_dedup_score", k.chunk_dedup_score(
                 arena, idx[:, None], mask[:, None], acc), want_k, what)
-            before = dict(k.launches)
+            compare("chunk_lookup_score_multi", k.chunk_lookup_score_multi(
+                arena, idx[:, None], mask[:, None], acc), want_k, what)
+            compare("chunk_lookup_score_multi_compressed",
+                    k.chunk_lookup_score_multi_compressed(
+                        dict_rows, refs, idx[:, None], mask[:, None], acc),
+                    want_kc, what)
             compare("dedup_score", k.dedup_score(arena, idx[None],
                                                  mask[None]),
                     want[None], what)
@@ -598,11 +625,16 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
                 compare("unpack_score", k.unpack_score(rows[0]), want_v[0],
                         what)
             once = {n: k.launches[n] - before[n]
-                    for n in ("dedup_score", "unpack_score")}
-            check(once == {"dedup_score": 1,
+                    for n in ("chunk_dedup_score", "chunk_lookup_score_multi",
+                              "chunk_lookup_score_multi_compressed",
+                              "dedup_score", "unpack_score")}
+            check(once == {"chunk_dedup_score": 1,
+                           "chunk_lookup_score_multi": 1,
+                           "chunk_lookup_score_multi_compressed": 1,
+                           "dedup_score": 1,
                            "unpack_score": 2 if cells == 1 else 1},
-                  f"{what}: dedup_score and unpack_score launched {once}, "
-                  f"not once a call")
+                  f"{what}: the chunk, dedup and unpack wrappers launched "
+                  f"{once}, not once a call")
             if cells == 1:
                 compare("lookup_score", k.lookup_score(arena, idx[0],
                                                        mask[0]),
@@ -622,8 +654,8 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
     acc = torch.randint(0, 1000, (1, 1, W, 32), generator=g,
                         dtype=torch.int32).to(DEV)
     dev = torch.cuda.current_device()
-    for kernel in ("lookup", "lookup_comp", "chunk_dedup", "dedup",
-                   "vertical"):
+    for kernel in ("lookup", "lookup_comp", "chunk_lookup",
+                   "chunk_lookup_comp", "chunk_dedup", "dedup", "vertical"):
         check(rt.build.split_info(kernel, 1, L, W, 1, dev)["planes"] == 16,
               f"the flush case does not fill 16 counter planes ({kernel})")
     want = unpack_rows_plain(k, masked_rows(arena, idx, mask))
@@ -639,15 +671,22 @@ def check_split_kernels(rt, torch, chk, words, g) -> None:
         compare("chunk_dedup_score", split_direct(
             torch, rt, "chunk_dedup", cs, arena, idx, mask, acc),
             acc + want[:, None], what)
+        compare("chunk_lookup_score_multi", split_direct(
+            torch, rt, "chunk_lookup", cs, arena, idx, mask, acc),
+            acc + want[:, None], what)
+        compare("chunk_lookup_score_multi_compressed", split_direct(
+            torch, rt, "chunk_lookup_comp", cs, dict_rows, refs, idx, mask,
+            acc), acc + want_c[:, None], what)
         compare("dedup_score", split_direct(
             torch, rt, "dedup", cs, arena, idx, mask), want, what)
         compare("vertical_score", split_direct(torch, rt, "vertical", cs,
                                                rows),
                 unpack_rows_plain(k, rows), what)
-    log(f"[kernels:long] L {LONG_TERMS} (dedup and unpack in one launch) "
-        f"and a slice of {L // 8} terms (flushed) equal the plain unpack of "
-        f"the gathered rows (vertical, lookup, lookup_comp, chunk_dedup, "
-        f"dedup, unpack) in {time.perf_counter() - t0:.1f} s")
+    log(f"[kernels:long] L {LONG_TERMS} (the chunk, dedup and unpack "
+        f"wrappers in one launch) and a slice of {L // 8} terms (flushed) "
+        f"equal the plain unpack of the gathered rows (vertical, lookup, "
+        f"lookup_comp, chunk_lookup, chunk_lookup_comp, chunk_dedup, dedup, "
+        f"unpack) in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_long_query(rt, torch, chk) -> dict:
@@ -658,9 +697,8 @@ def phase_long_query(rt, torch, chk) -> dict:
     lookup and unpack engines (search, search_batch beside a short query,
     top_k) and one served request, each equal to ``method="ref"``; then the
     six wrappers of the fused-decode, dedup and chunk kernels at that
-    length, each against the plain unpack of its gathered rows: the split
-    ones (UNSLABBED) in one launch each, the 16-plane ones (SLABBED) in two
-    slabs."""
+    length (LONG_WRAPPERS), each against the plain unpack of its gathered
+    rows, in one launch each."""
     k = rt.kernels
     t0 = time.perf_counter()
     corpus = rt.make_corpus(8, k=15, mean_length=400, sigma=1.0, seed=7)
@@ -716,7 +754,7 @@ def phase_long_query(rt, torch, chk) -> dict:
     want_acc, want_acc_c = acc.clone(), acc.clone()
     want_acc[:, :, :W] += want_d
     want_acc_c[:, :, :W] += want_c
-    check(int(want_d.max()) > 65_535, "[long] no slab count passes 65,535")
+    check(int(want_d.max()) > 65_535, "[long] no count passes 65,535")
     k.reset_launches()
     chk.compare("lookup_score_multi_compressed",
                 k.lookup_score_multi_compressed(dict_rows, refs, idx, mask),
@@ -737,18 +775,17 @@ def phase_long_query(rt, torch, chk) -> dict:
                 k.chunk_lookup_score_multi_compressed(dict_rows, refs, idx,
                                                       mask, acc),
                 want_acc_c, f"long L={L}")
-    slabs = {n: v for n, v in k.launches.items() if v}
-    check(slabs == {**{n: 1 for n in UNSLABBED}, **{n: 2 for n in SLABBED}},
-          f"[long] the six wrappers launched {slabs}, not 1 launch each for "
-          f"{UNSLABBED} and 2 slabs each for {SLABBED}")
-    out["slab_launches"] = slabs
+    once = {n: v for n, v in k.launches.items() if v}
+    check(once == {n: 1 for n in LONG_WRAPPERS},
+          f"[long] the six wrappers launched {once}, not 1 launch each")
+    out["long_launches"] = once
     out["seconds"] = time.perf_counter() - t0
     log(f"[long] a {LONG_BP}-base query ({n_terms} terms, padded to {L}; "
         f"document 0 scores {out['top_score']}): vertical, lookup and "
         f"unpack search, search_batch, top_k and a served request "
         f"({resp.method}) equal ref; launches {out['engine_launches']}; "
         f"the six fused-decode, dedup and chunk wrappers at L={L} equal the "
-        f"plain counts, launches {slabs}; {out['seconds']:.1f} s")
+        f"plain counts, launches {once}; {out['seconds']:.1f} s")
     return out
 
 
@@ -2051,9 +2088,6 @@ def chunk_case(torch, k, lib, name, recs):
     stream = torch.cuda.current_stream().cuda_stream
     fn = getattr(lib, CHUNK_SYMBOLS[name])
     comp = name == "chunk_lookup_score_multi_compressed"
-    # the split kernel takes a cluster size, the 16-plane ones planes
-    last = ((lambda L: k.CLUSTER_AUTO) if name == "chunk_dedup_score"
-            else k.num_planes)
     calls = []
     for args in recs:
         rows, idx, msk, acc = (args[0],) + args[2:] if comp else args
@@ -2064,7 +2098,8 @@ def chunk_case(torch, k, lib, name, recs):
         calls.append(lambda f=fn, h=head, i=idx, m=msk, a=acc, o=o,
                      c=Q * nb, L=L, W=rows.shape[1], Wp=acc.shape[2]:
                      f(*h, i.data_ptr(), m.data_ptr(), a.data_ptr(),
-                       o.data_ptr(), c, L, W, Wp, last(L), dev, stream))
+                       o.data_ptr(), c, L, W, Wp, k.CLUSTER_AUTO, dev,
+                       stream))
     args = recs[0]
     rows, idx, msk, acc = (args[0],) + args[2:] if comp else args
     W, Wp = rows.shape[1], acc.shape[2]
@@ -2237,7 +2272,6 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
     # each split case's first inputs: (kernel, its inputs, as split_direct
     # takes them)
     by_name = {c[0]: c for c in cases}
-    dedup_rec = chunk["chunk_dedup_score"][0]
     split_inputs = {
         id(by_name["unpack_score"]): ("unpack", flats[0][None]),
         id(by_name["vertical_score"]): ("vertical", flats[0][None]),
@@ -2253,7 +2287,13 @@ def phase_timings(rt, torch, index, classic, queries, max_err, launches,
             comp["singles"][0][0][0], comp["singles"][0][1][0]),
         id(by_name["lookup_score_multi_compressed"]): (
             "lookup_comp", comp["dict_rows"], comp["refs"], *comp["batch"]),
-        id(by_name["chunk_dedup_score"]): ("chunk_dedup", *dedup_rec),
+        id(by_name["chunk_dedup_score"]): (
+            "chunk_dedup", *chunk["chunk_dedup_score"][0]),
+        id(by_name["chunk_lookup_score_multi"]): (
+            "chunk_lookup", *chunk["chunk_lookup_score_multi"][0]),
+        id(by_name["chunk_lookup_score_multi_compressed"]): (
+            "chunk_lookup_comp",
+            *chunk["chunk_lookup_score_multi_compressed"][0]),
         id(by_name["dedup_score"]): ("dedup", *serve["dedup_score"][0]),
         id(extra_cases[0]): ("vertical", classic_singles[0][2][0][None]),
         id(extra_cases[1]): ("vertical", extra_cases[1][7]),

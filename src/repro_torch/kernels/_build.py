@@ -36,11 +36,11 @@ _SIGNATURES = {
     # kernel name (one of SPLIT_KERNELS), cells, L, W, Wp, cluster, device,
     # int[9] out
     "cobs_split_info": (ctypes.c_char_p, _I, _I, _I, _I, _I, _I, _P),
-    # arena, idx, mask, acc, out, cells, L, W, Wp, n_planes, device, stream
+    # arena, idx, mask, acc, out, cells, L, W, Wp, cluster, device, stream
     "cobs_chunk_lookup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # uniq, indir, mask, acc, out, cells, L, W, Wp, cluster, device, stream
     "cobs_chunk_dedup": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # dict, refs, idx, mask, acc, out, cells, L, W, Wp, n_planes, device,
+    # dict, refs, idx, mask, acc, out, cells, L, W, Wp, cluster, device,
     # stream
     "cobs_chunk_lookup_comp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _P),
@@ -106,6 +106,8 @@ def library() -> ctypes.CDLL:
 # their entry points
 SPLIT_KERNELS = {"vertical": "cobs_vertical", "lookup": "cobs_lookup",
                  "lookup_comp": "cobs_lookup_comp",
+                 "chunk_lookup": "cobs_chunk_lookup",
+                 "chunk_lookup_comp": "cobs_chunk_lookup_comp",
                  "chunk_dedup": "cobs_chunk_dedup",
                  "dedup": "cobs_dedup_score", "unpack": "cobs_unpack"}
 SPLIT_INFO = ("blocks", "threads", "cluster", "word_tile", "slices",
@@ -115,7 +117,7 @@ SPLIT_INFO = ("blocks", "threads", "cluster", "word_tile", "slices",
 def split_info(kernel: str, cells: int, L: int, W: int, cluster: int,
                device: int, *, Wp: int | None = None) -> dict[str, int]:
     """How split kernel ``kernel`` (one of SPLIT_KERNELS) launches at this
-    shape (``Wp``: the chunk dedup's running-count words, default W): its
+    shape (``Wp``: a chunk kernel's running-count words, default W): its
     grid, block and cluster shape, word tile, term slices, counter planes
     (0 for ``unpack``, which has none), and the kernel's static shared
     memory and registers."""

@@ -27,15 +27,11 @@ the kernel on the current stream, or raises. ``launches[name]`` counts the
 kernel launches of each wrapper and nothing else.
 
 No wrapper limits the number of terms. ``vertical_score``, the three fused
-lookups, the two fused-decode lookups, ``chunk_dedup_score`` and
+lookups, the two fused-decode lookups, the three chunk wrappers and
 ``dedup_score`` take any L in one launch (their kernels split the term axis
 across a block's threads and flush full counters into the block's counts),
 and so does ``unpack_score`` (a warp per word splits the terms, its lanes
-counting in int32). ``chunk_lookup_score_multi`` and
-``chunk_lookup_score_multi_compressed`` keep 16 counter planes a thread, so
-their wrappers score more than ``SLAB_TERMS`` terms in slabs, each slab's
-output passed on as the next slab's ``acc``. Each slab is one launch and
-one count in ``launches``.
+counting in int32).
 """
 from __future__ import annotations
 
@@ -43,9 +39,6 @@ import torch
 
 from . import _build
 
-# the most terms one launch of the 16-plane kernels (the two chunk lookups)
-# takes: 16 counter planes count up to 65,535
-SLAB_TERMS = (1 << 16) - 1
 # cluster size argument of the entry points of _build.SPLIT_KERNELS: 0 lets
 # the entry point choose (1 = no cluster; 2, 4 or 8 blocks share a word
 # tile's terms)
@@ -99,28 +92,6 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {dev}")
     return dev.type == "cuda"
-
-
-def _term_slabs(rows_idx: torch.Tensor, mask: torch.Tensor
-                ) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """(idx, mask) cut along the term axis into contiguous slabs of at
-    most SLAB_TERMS terms (one slab, uncopied, when L fits)."""
-    L = rows_idx.shape[-1]
-    if L <= SLAB_TERMS:
-        return [(rows_idx, mask)]
-    return [(rows_idx[..., a:a + SLAB_TERMS].contiguous(),
-             mask[..., a:a + SLAB_TERMS].contiguous())
-            for a in range(0, L, SLAB_TERMS)]
-
-
-def _slab_chain(rows_idx: torch.Tensor, mask: torch.Tensor,
-                acc: torch.Tensor, score) -> torch.Tensor:
-    """``score(idx, mask, acc)`` on each term slab, each slab's output the
-    next slab's ``acc``."""
-    out = acc
-    for idx_s, mask_s in _term_slabs(rows_idx, mask):
-        out = score(idx_s, mask_s, out)
-    return out
 
 
 def _stream(dev: torch.device) -> int:
@@ -386,17 +357,17 @@ def chunk_plain(rows: torch.Tensor, rows_idx: torch.Tensor,
 def _chunk(name: str, symbol: str, rows: torch.Tensor,
            refs: torch.Tensor | None, rows_idx: torch.Tensor,
            mask: torch.Tensor, acc: torch.Tensor,
-           range_checked: bool, split: bool = False) -> torch.Tensor:
-    """Shared checks and launch of the chunk wrappers. rows_idx indexes
+           range_checked: bool) -> torch.Tensor:
+    """Shared checks and launch of the chunk wrappers: one launch for any
+    L, at the cluster size the entry point picks. rows_idx indexes
     ``refs`` when given, else ``rows``. On a CUDA tensor the range check
     costs one device sync; callers that checked the indices on the host
     before the upload (the executors in ``core/query.py``) pass
-    ``range_checked``. A ``split`` kernel takes any L in one launch; the
-    16-plane ones score slabs of at most SLAB_TERMS terms."""
+    ``range_checked``."""
     _check("acc", acc, (4,))
     _check_indices(rows_idx, mask, 3)
     W = rows.shape[1]
-    Q, nb, _ = rows_idx.shape
+    Q, nb, L = rows_idx.shape
     if acc.shape[:2] != (Q, nb) or acc.shape[3] != 32 or acc.shape[2] < W:
         raise ValueError(f"acc shape {tuple(acc.shape)} does not hold "
                          f"[{Q}, {nb}, >= {W}, 32] running counts")
@@ -409,22 +380,14 @@ def _chunk(name: str, symbol: str, rows: torch.Tensor,
         return chunk_plain(rows, rows_idx, mask, acc, refs)
     head = ((rows.data_ptr(),) if refs is None
             else (rows.data_ptr(), refs.data_ptr()))
-
-    def score(idx_s, mask_s, acc_s):
-        out = torch.empty_like(acc)        # never acc_s: they must not overlap
-        if out.numel():
-            L = idx_s.shape[-1]
-            # the split kernel takes a cluster size, the 16-plane ones planes
-            last = CLUSTER_AUTO if split else num_planes(L)
-            _build.launch(symbol, *head, idx_s.data_ptr(), mask_s.data_ptr(),
-                          acc_s.data_ptr(), out.data_ptr(), Q * nb, L, W,
-                          acc.shape[2], last, rows.device.index or 0,
-                          _stream(rows.device))
-            launches[name] += 1
-        return out
-    if split:
-        return score(rows_idx, mask, acc)
-    return _slab_chain(rows_idx, mask, acc, score)
+    out = torch.empty_like(acc)            # never acc: they must not overlap
+    if out.numel():
+        _build.launch(symbol, *head, rows_idx.data_ptr(), mask.data_ptr(),
+                      acc.data_ptr(), out.data_ptr(), Q * nb, L, W,
+                      acc.shape[2], CLUSTER_AUTO, rows.device.index or 0,
+                      _stream(rows.device))
+        launches[name] += 1
+    return out
 
 
 def chunk_lookup_score_multi(arena: torch.Tensor, rows_idx: torch.Tensor,
@@ -463,7 +426,7 @@ def chunk_dedup_score(uniq: torch.Tensor, indir: torch.Tensor,
     ``chunk_dedup_score``."""
     _check("uniq", uniq, (2,))
     return _chunk("chunk_dedup_score", "cobs_chunk_dedup", uniq, None,
-                  indir, mask, acc, range_checked, split=True)
+                  indir, mask, acc, range_checked)
 
 
 # --------------------------------------------------------------------------

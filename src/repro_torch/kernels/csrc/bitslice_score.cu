@@ -6,23 +6,30 @@
 // (word, bit) order. Each kernel replaces Pallas kernels of
 // src/repro/kernels/bitslice_score.py:
 //
-//   unpack_kernel      <- _unpack_kernel   (unpack_score)
-//   vertical_kernel    <- _vertical_kernel (vertical_score)
+//   unpack_kernel      <- _unpack_kernel   (unpack_score); the unpack body
+//   vertical_kernel    <- _vertical_kernel (vertical_score);
+//                         split_body<kRows, false>
 //   lookup_kernel      <- _lookup_kernel, _lookup_blocks_kernel and
 //                         _lookup_multi_kernel (lookup_score,
-//                         lookup_score_blocks, lookup_score_multi)
+//                         lookup_score_blocks, lookup_score_multi);
+//                         split_body<kIndexed, false>
 //   lookup_comp_kernel <- _lookup_blocks_comp_kernel and
 //                         _lookup_multi_comp_kernel
 //                         (lookup_score_blocks_compressed,
-//                         lookup_score_multi_compressed)
+//                         lookup_score_multi_compressed);
+//                         split_body<kDecoded, false>
 //   chunk_lookup_kernel      <- _chunk_multi_kernel
-//                               (chunk_lookup_score_multi)
+//                               (chunk_lookup_score_multi);
+//                               split_body<kTile, true>
 //   chunk_lookup_comp_kernel <- _chunk_multi_comp_kernel
-//                               (chunk_lookup_score_multi_compressed)
-//   chunk_dedup_kernel       <- _chunk_dedup_kernel (chunk_dedup_score)
+//                               (chunk_lookup_score_multi_compressed);
+//                               split_body<kDecoded, true>
+//   chunk_dedup_kernel       <- _chunk_dedup_kernel (chunk_dedup_score);
+//                               split_body<kIndexed, true>
 //   gather_kernel      <- _gather_kernel (gather_rows)
 //   gather_comp_kernel <- the kernel of gather_rows_compressed
-//   dedup_kernel       <- _dedup_score_kernel (dedup_score)
+//   dedup_kernel       <- _dedup_score_kernel (dedup_score);
+//                         split_body<kUniq, false>
 //
 // What bounds them on an H100: bytes. A query reads L rows of W words and
 // writes W * 32 counts; the arithmetic is a few integer operations per
@@ -46,8 +53,8 @@
 // as zero rows). Their bound is the fused lookup's plus acc read once and
 // out written once. chunk_dedup_score(uniq, indir, mask, acc) computes
 // chunk_lookup_score_multi(uniq, indir, mask, acc), the unique-row matrix
-// taking the arena's place; chunk_dedup_kernel runs it on the split body
-// (accumulate mode), the two chunk lookups on the 16-plane body with kAcc.
+// taking the arena's place; all three chunk kernels run the split body in
+// its accumulate mode.
 //
 // The row-dedup pair of the single-host server: gather_kernel copies each
 // unique arena row (or ANDs each unique k-row set) of a batch once into a
@@ -63,48 +70,41 @@
 // Design. The TPU kernels carry counter planes across a sequential grid
 // axis over terms. CUDA blocks run in no order, so the term axis is cut
 // inside a block (or a cluster of blocks) instead, and nothing carries
-// between launches. Three bodies:
+// between launches. Two bodies:
 //
-// * The split body (split_body: vertical_kernel, lookup_kernel,
-//   lookup_comp_kernel, chunk_dedup_kernel, dedup_kernel). One block of 256
-//   threads per (cell, word tile), where a cell is one batch entry or one
-//   (query, block) pair and a word tile is Wt <= 32 consecutive words (W, or
-//   the running counts' Wp, cut into ceil(W / 32) near-equal tiles). Thread t
-//   works on word t % Wt of the tile and on term slice t / Wt of S = 256 / Wt;
-//   slice s takes terms s, s + S, s + 2S, ..., so a warp reads 32 / Wt whole
-//   row segments per load, coalesced. Each thread issues 8 independent row
-//   loads before it ripples any of them into its counter planes
-//   (num_planes(ceil(terms / S)), at most 16, a compile-time count picked per
-//   launch), so a step costs one memory latency, not one per term. Its source
-//   mode says where rows come from: the cell's own rows (vertical), or the
-//   rows of indices that the block stages in shared memory first (cp.async,
-//   double-buffered tiles of 1,024 terms), which takes the index load out of
-//   each term's chain; the decoded mode (lookup_comp) then replaces each
-//   staged index by its refs entry, all of a stage's refs loads in flight at
-//   once across the block. At the end the threads write their planes to shared
-//   memory and each thread sums one output's bit over the S slices and the
-//   planes, so the tile's Wt * 32 counts are stored as one coalesced range;
-//   the accumulate mode (chunk_dedup) adds each count's acc element, read once
-//   by the storing thread (before the term loop when there is no cluster). A
-//   slice that would pass 65,535 terms flushes its planes into those counts
-//   first, so any L runs in one launch. Where a launch has few (cell, tile)
-//   pairs, a cluster of 2-8 blocks splits the pair's terms; rank 0..cs-1 each
-//   sum a share of the tile's counts over the cluster's shared memory
-//   (distributed shared memory), so no global atomics or memsets are needed.
+// * The split body (split_body: every kernel but unpack_kernel and the
+//   gathers, each with its source mode and accumulate flag as listed above).
+//   One block of 256 threads per (cell, word tile), where a cell is one batch
+//   entry or one (query, block) pair and a word tile is Wt <= 32 consecutive
+//   words (W, or the running counts' Wp, cut into ceil(W / 32) near-equal
+//   tiles). Thread t works on word t % Wt of the tile and on term slice t / Wt
+//   of S = 256 / Wt; slice s takes terms s, s + S, s + 2S, ..., so a warp
+//   reads 32 / Wt whole row segments per load, coalesced. Each thread issues 8
+//   independent row loads before it ripples any of them into its counter
+//   planes (num_planes(ceil(terms / S)), at most 16, a compile-time count
+//   picked per launch), so a step costs one memory latency, not one per term.
+//   Its source mode says where rows come from: the cell's own rows (kRows), or
+//   the rows of indices that the block stages in shared memory first
+//   (cp.async, double-buffered tiles of 1,024 terms), which takes the index
+//   load out of each term's chain (kIndexed, kUniq, kTile); the decoded mode
+//   (kDecoded) then replaces each staged index by its refs entry, all of a
+//   stage's refs loads in flight at once across the block. At the end the
+//   threads write their planes to shared memory and each thread sums one
+//   output's bit over the S slices and the planes, so the tile's Wt * 32
+//   counts are stored as one coalesced range; the accumulate mode (the three
+//   chunk kernels) adds each count's acc element, read once by the storing
+//   thread (before the term loop when there is no cluster). A slice that would
+//   pass 65,535 terms flushes its planes into those counts first, so any L
+//   runs in one launch. Where a launch has few (cell, tile) pairs, a cluster
+//   of 2-8 blocks splits the pair's terms; rank 0..cs-1 each sum a share of
+//   the tile's counts over the cluster's shared memory (distributed shared
+//   memory), so no global atomics or memsets are needed.
 // * The unpack body (unpack_kernel), which keeps the TPU kernel's 32-way
 //   expansion: one block of 8 warps per (cell, word), lane b counting bit
 //   b of the word in an int32 (each row load a broadcast to the warp), the
 //   warps splitting the term loop into slices with 8 row loads in flight,
 //   summed in shared memory into one 128-byte line; no planes, so any L in
 //   one launch; a cluster splits a word's terms as in the split body.
-// * The 16-plane body (lookup_body: chunk_lookup_kernel,
-//   chunk_lookup_comp_kernel). One thread per (cell, word) walks all L
-//   terms in order with 16 counter planes in registers; its wrappers feed
-//   it slabs of at most 65,535 terms. Work items are flattened as g =
-//   cell * Wp + word; each thread reads only its own acc range,
-//   neighbouring threads read neighbouring words of one row, and a block's
-//   outputs are one contiguous range, which expand_store writes coalesced
-//   through shared memory.
 
 #include <climits>
 #include <cstdint>
@@ -116,14 +116,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxPlanes = 16;   // counts up to 65535 terms
-constexpr int kSlabTerms = (1 << kMaxPlanes) - 1;
-constexpr int kThreads = 128;    // threads per block of the 16-plane body
+// a split slice's counter planes, and the split body's flush threshold:
+// they count up to kFlushTerms terms, and a slice that would pass them
+// flushes its planes into the block's counts first
+constexpr int kMaxPlanes = 16;
+constexpr int kFlushTerms = (1 << kMaxPlanes) - 1;
 constexpr int kUnpackWarps = 8;  // warps (term slices) of an unpack block
 constexpr int kGatherThreads = 256;
-constexpr int kPad = 33;         // shared-memory row stride: no bank conflicts
-// the split body (vertical_kernel, lookup_kernel, lookup_comp_kernel,
-// chunk_dedup_kernel, dedup_kernel); kUnroll also in unpack_kernel
+// the split body (vertical_kernel, the lookup, chunk and dedup kernels);
+// kUnroll also in unpack_kernel
 constexpr int kSplitThreads = 256;
 constexpr int kWordTile = 32;     // most words of a block's tile
 constexpr int kStageTerms = 1024; // terms per shared-memory index stage
@@ -136,99 +137,9 @@ constexpr int kOwn = kWordTile * 32 / kSplitThreads;  // outputs a thread sums
 constexpr int kMinSliceTerms = 2;
 constexpr int kUnpackMinSliceTerms = 4 * kUnroll;
 
-// Ripple-carry one row word into the thread's counter planes (Harley-Seal
-// vertical counters): plane j holds bit j of each document's count.
-__device__ __forceinline__ void ripple_add(uint32_t (&p)[kMaxPlanes],
-                                           uint32_t carry, int n_planes) {
-#pragma unroll
-  for (int j = 0; j < kMaxPlanes; ++j) {
-    if (j < n_planes) {
-      const uint32_t next = p[j] & carry;
-      p[j] ^= carry;
-      carry = next;
-    }
-  }
-}
-
-// Expand each thread's planes to its word's 32 counts, stage them in
-// shared memory, and store the block's contiguous [n_items, 32] output
-// with consecutive threads on consecutive addresses. With kAcc the store
-// adds the running counts acc_block (the same range as out_block, read
-// once by the thread that writes that element).
-template <bool kAcc = false>
-__device__ __forceinline__ void expand_store(const uint32_t (&p)[kMaxPlanes],
-                                             int n_planes, bool active,
-                                             int32_t* __restrict__ out_block,
-                                             int n_items,
-                                             const int32_t* __restrict__
-                                                 acc_block = nullptr) {
-  __shared__ int32_t tile[kThreads * kPad];
-  const int t = threadIdx.x;
-  if (active) {
-    for (int bit = 0; bit < 32; ++bit) {
-      int32_t c = 0;
-#pragma unroll
-      for (int j = 0; j < kMaxPlanes; ++j) {
-        if (j < n_planes) c |= static_cast<int32_t>((p[j] >> bit) & 1u) << j;
-      }
-      tile[t * kPad + bit] = c;
-    }
-  }
-  __syncthreads();
-  for (int e = t; e < n_items * 32; e += blockDim.x) {
-    int32_t c = tile[(e >> 5) * kPad + (e & 31)];
-    if constexpr (kAcc) c += acc_block[e];
-    out_block[e] = c;
-  }
-}
-
-// The 16-plane body: the fused gather + vertical count over [cells, L]
-// indices, one thread per (cell, word), at most 65,535 terms a launch.
-// Each thread reads its cell's indices and mask itself (a warp-wide
-// broadcast, served from L1 after the first lane) - there is
-// no scalar prefetch on this card. A term with mask 0 is skipped, which
-// gives the TPU kernel's `row * mask`. With kDecode, row r is read as
-// rows[refs[r]] (a rowdict pair: rows is the dictionary), the index the
-// TPU kernels resolve in their BlockSpec index map; the refs entry is one
-// more broadcast load per term. Items run over Wp words a cell (Wp >= W,
-// the rows' width); a word >= W reads as a zero row. With kAcc the counts
-// are added to acc (same layout as out) as they are stored.
-template <bool kDecode, bool kAcc>
-__device__ __forceinline__ void lookup_body(
-    const uint32_t* __restrict__ rows, const int32_t* __restrict__ refs,
-    const int32_t* __restrict__ idx, const int32_t* __restrict__ mask,
-    const int32_t* __restrict__ acc, int32_t* __restrict__ out, int L,
-    int W, int Wp, long long total, int n_planes) {
-  const long long g0 = static_cast<long long>(blockIdx.x) * blockDim.x;
-  const long long g = g0 + threadIdx.x;
-  const bool active = g < total;
-  uint32_t p[kMaxPlanes];
-#pragma unroll
-  for (int j = 0; j < kMaxPlanes; ++j) p[j] = 0u;
-  if (active) {
-    const long long cell = g / Wp;
-    const int w = static_cast<int>(g % Wp);
-    const int32_t* ci = idx + cell * L;
-    const int32_t* cm = mask + cell * L;
-    if (w < W) {
-      for (int l = 0; l < L; ++l) {
-        if (cm[l] != 0) {
-          long long r = ci[l];
-          if constexpr (kDecode) r = refs[r];
-          ripple_add(p, rows[r * W + w], n_planes);
-        }
-      }
-    }
-  }
-  const long long left = total - g0;
-  expand_store<kAcc>(p, n_planes, active, out + g0 * 32,
-                     static_cast<int>(left < kThreads ? left : kThreads),
-                     kAcc ? acc + g0 * 32 : nullptr);
-}
-
 // ---------------------------------------------------------------------------
 // The split body of vertical_kernel, lookup_kernel, lookup_comp_kernel,
-// chunk_dedup_kernel and dedup_kernel
+// the three chunk kernels and dedup_kernel
 // ---------------------------------------------------------------------------
 
 // A word tile's geometry for W words: tiles of wt <= 32 words, S slices.
@@ -384,12 +295,14 @@ __device__ __forceinline__ void split_decode(
 // Where a split block reads its rows: the cell's contiguous [L, W] block
 // (vertical), the arena row of each staged index (lookup, and the chunk
 // dedup over uniq), or the dictionary row of each staged index's refs
-// entry (the fused-decode lookup over a rowdict pair). kUniq (dedup over
-// uniq) loads as kIndexed does; it is a mode of its own so that
-// dedup_kernel is an instantiation of its own: sharing lookup_kernel's
-// (and with it the body's function-scope shared arrays) changed
-// lookup_kernel's SASS and slowed it by up to 2% (PERF.md section 6).
-enum SplitSource { kRows, kIndexed, kDecoded, kUniq };
+// entry (the fused-decode lookup and chunk lookup over a rowdict pair).
+// kUniq (dedup over uniq) and kTile (the chunk lookup over a resident
+// tile) load as kIndexed does; each is a mode of its own so that its
+// kernel is an instantiation of its own: dedup_kernel sharing
+// lookup_kernel's (and with it the body's function-scope shared arrays)
+// changed lookup_kernel's SASS and slowed it by up to 2% (PERF.md
+// section 6).
+enum SplitSource { kRows, kIndexed, kDecoded, kUniq, kTile };
 
 // Block b of the grid: cluster rank b % cs, (cell, tile) pair b / cs. The
 // block counts terms [lo, hi) of its cell (a cluster's ranks split the
@@ -464,7 +377,7 @@ __device__ __forceinline__ void split_body(
   for (int st = lo; st < hi; st += kStageTerms, buf ^= 1) {
     const int n = hi - st < kStageTerms ? hi - st : kStageTerms;
     const int per_slice = (n + S - 1) / S;
-    if (since + per_slice > kSlabTerms) {
+    if (since + per_slice > kFlushTerms) {
       split_flush(p, own, s_planes, np, S, wt, wn);
       since = 0;
     }
@@ -590,30 +503,68 @@ lookup_comp_kernel(const uint32_t* __restrict__ dict,
                               cs, s_idx, s_mask);
 }
 
-// One term chunk of the pruned and bulk executors, fused-gathered from a
-// resident raw tile and added into the running counts.
-__global__ void __launch_bounds__(kThreads)
+// Replaces _chunk_multi_kernel (chunk_lookup_score_multi): one term chunk
+// of the pruned and bulk executors, fused-gathered from a resident raw tile
+// (arena [R, W], idx and mask [cells, L]) and added into the running
+// counts: out = acc + counts, both [cells, Wp, 32]. Bound: bytes (indices,
+// masks, each distinct arena row the live terms touch, acc read once, out
+// written once) and, in practice, latency: at the bulk sweep's chunk (L =
+// 32, W = Wp = 32, 256 cells) the rows come from an arena far larger than
+// L2, so a launch is one staging round trip, one round trip of row loads
+// from device memory and the cross-slice sum. The split body in its
+// accumulate mode, as chunk_dedup_kernel (a source mode of its own, kTile,
+// so that chunk_dedup_kernel keeps its SASS): indices staged with
+// cp.async, 8 row loads in flight a thread, acc loaded by the storing
+// thread before the term loop; any L in one launch. At that chunk (256
+// blocks, no cluster, 8 slices of 4 terms) on one H100 80GB HBM3 at 700 W:
+// 5.4-5.6 us against a byte bound of 0.90 us (chip_smoke.py, the sweep's
+// own chunks; tools/split_probe.py, random inputs of that shape: 5.4-5.5);
+// the serial body it replaced (one thread per (cell, word) walking every
+// term in order with 16 counter planes, 64 blocks of 128 threads) took
+// 22.0-22.3 us there.
+__global__ void __launch_bounds__(kSplitThreads)
 chunk_lookup_kernel(const uint32_t* __restrict__ arena,
                     const int32_t* __restrict__ idx,
                     const int32_t* __restrict__ mask,
                     const int32_t* __restrict__ acc,
                     int32_t* __restrict__ out, int L, int W, int Wp,
-                    long long total, int n_planes) {
-  lookup_body<false, true>(arena, nullptr, idx, mask, acc, out, L, W, Wp,
-                           total, n_planes);
+                    int cs) {
+  __shared__ int32_t s_idx[2][kStageTerms];
+  __shared__ int32_t s_mask[2][kStageTerms];
+  split_body<kTile, true>(arena, nullptr, idx, mask, acc, out, L, W, Wp, cs,
+                          s_idx, s_mask);
 }
 
-// The same over a resident rowdict pair (dict [D, W], refs [R]).
-__global__ void __launch_bounds__(kThreads)
+// Replaces _chunk_multi_comp_kernel (chunk_lookup_score_multi_compressed):
+// chunk_lookup_kernel over a resident rowdict pair (dict [D, W], refs [R]),
+// reading row r as dict[refs[r]]. Bound: bytes (indices, masks, each
+// distinct refs entry and dictionary row the live terms touch, acc read
+// once, out written once) and, in practice, the idx -> refs -> row chain.
+// The split body's decoded mode with accumulate: each stage's indices are
+// replaced by their refs entries while the stage lands (split_decode), as
+// in lookup_comp_kernel. Dictionary rows have stride W and the running
+// counts stride Wp; the word tile is cut from Wp, and a word in [W, Wp)
+// loads nothing and only carries its acc into out. At the rowdict store's
+// tallest shard (idx [128, 1, 32], W = 4, Wp = 8: 128 blocks, no cluster,
+// word tile 8, 32 slices of one term) on one H100 80GB HBM3 at 700 W:
+// 3.3-3.4 us against a byte bound of 0.095 us (chip_smoke.py, the sweep's
+// own chunks; tools/split_probe.py, random inputs of that shape: 3.2); the
+// serial body it replaced took 27.7-28.6 us there. A tile cut from W
+// instead (64 slices, half of them without a term at L = 32, the padding
+// words' acc carried by the same block) took 3.5-3.6 us in the probe, so
+// half of the block's threads keep holding padding words.
+__global__ void __launch_bounds__(kSplitThreads)
 chunk_lookup_comp_kernel(const uint32_t* __restrict__ dict,
                          const int32_t* __restrict__ refs,
                          const int32_t* __restrict__ idx,
                          const int32_t* __restrict__ mask,
                          const int32_t* __restrict__ acc,
                          int32_t* __restrict__ out, int L, int W, int Wp,
-                         long long total, int n_planes) {
-  lookup_body<true, true>(dict, refs, idx, mask, acc, out, L, W, Wp, total,
-                          n_planes);
+                         int cs) {
+  __shared__ int32_t s_idx[2][kStageTerms];
+  __shared__ int32_t s_mask[2][kStageTerms];
+  split_body<kDecoded, true>(dict, refs, idx, mask, acc, out, L, W, Wp, cs,
+                             s_idx, s_mask);
 }
 
 // Replaces _chunk_dedup_kernel (chunk_dedup_score): one term chunk read
@@ -632,7 +583,7 @@ chunk_lookup_comp_kernel(const uint32_t* __restrict__ dict,
 // geometry's 32 slices of one term each, 32 blocks, 2.80 us; 16 slices
 // 2.97 us and 8 slices 3.09 us (copies of this source with the slice count
 // capped), and 4.14-4.30 us at a cluster of 2 for each. So the kernel keeps
-// the geometry's 256 / Wt slices. The 16-plane body it replaced took
+// the geometry's 256 / Wt slices. The serial body it replaced took
 // 22.87 us there: 10.24 us at one term (5.56 us without acc, so about
 // 4.7 us of acc loads issued one after another after the barrier) and
 // 0.42 us a term; the split body takes 2.81 us at one term and 0.01 us a
@@ -663,7 +614,7 @@ chunk_dedup_kernel(const uint32_t* __restrict__ uniq,
 // re-reads its rows. At the dense read batch (indir [32, 2, 128], uniq
 // [2048, 32]; 128 blocks in clusters of 2) on one H100 80GB HBM3 at 700 W
 // (chip_smoke.py): 7.1-7.2 us against a byte bound of 0.17 us; the
-// 16-plane body it replaced (one thread per (cell, word) walking every
+// serial body it replaced (one thread per (cell, word) walking every
 // term in order) took 46.4-46.9 us there.
 __global__ void __launch_bounds__(kSplitThreads)
 dedup_kernel(const uint32_t* __restrict__ uniq,
@@ -910,13 +861,14 @@ extern "C" int cobs_lookup_comp(const void* dict, const void* refs,
                       static_cast<int32_t*>(out), L, W);
 }
 
-// What a split launch of `cells` cells of L terms over W words (the chunk
-// dedup's over its Wp running-count words) runs as: info[0..8] = blocks,
+// What a split launch of `cells` cells of L terms over W words (a chunk
+// kernel's over its Wp running-count words) runs as: info[0..8] = blocks,
 // threads per block, cluster size, word tile, slices, counter planes a
 // slice uses, static shared memory bytes, registers per thread, and the
 // cluster sizes the kernel may take (its max). `kernel` names the kernel:
-// "vertical", "lookup", "lookup_comp", "chunk_dedup", "dedup" or "unpack"
-// (one word a block, a slice a warp, no counter planes: 0).
+// "vertical", "lookup", "lookup_comp", "chunk_lookup", "chunk_lookup_comp",
+// "chunk_dedup", "dedup" or "unpack" (one word a block, a slice a warp, no
+// counter planes: 0).
 extern "C" int cobs_split_info(const char* kernel, int cells, int L, int W,
                                int Wp, int cluster, int device, void* info) {
   cudaError_t err = cudaSetDevice(device);
@@ -930,6 +882,12 @@ extern "C" int cobs_split_info(const char* kernel, int cells, int L, int W,
     err = cudaFuncGetAttributes(&fa, lookup_kernel);
   } else if (std::strcmp(kernel, "lookup_comp") == 0) {
     err = cudaFuncGetAttributes(&fa, lookup_comp_kernel);
+  } else if (std::strcmp(kernel, "chunk_lookup") == 0) {
+    err = cudaFuncGetAttributes(&fa, chunk_lookup_kernel);
+    Wo = Wp;
+  } else if (std::strcmp(kernel, "chunk_lookup_comp") == 0) {
+    err = cudaFuncGetAttributes(&fa, chunk_lookup_comp_kernel);
+    Wo = Wp;
   } else if (std::strcmp(kernel, "chunk_dedup") == 0) {
     err = cudaFuncGetAttributes(&fa, chunk_dedup_kernel);
     Wo = Wp;
@@ -963,40 +921,40 @@ extern "C" int cobs_split_info(const char* kernel, int cells, int L, int W,
   return 0;
 }
 
-// The chunk entry points: rows [R, W] (uniq for the dedup kernel), idx
-// (indir) and mask [cells, L], acc and out [cells, Wp, 32]; acc and out
-// must not overlap. cobs_chunk_dedup takes a cluster size as the split
-// kernels do, the other two a plane count (at most 65,535 terms).
+// The chunk entry points: rows [R, W] (uniq for the dedup kernel; the
+// dictionary, beside refs [R], for the fused decode), idx (indir) and mask
+// [cells, L], acc and out [cells, Wp, 32] with Wp >= W; acc and out must
+// not overlap. Each takes a cluster size as the split kernels do.
 extern "C" int cobs_chunk_lookup(const void* arena, const void* idx,
                                  const void* mask, const void* acc,
                                  void* out, int cells, int L, int W, int Wp,
-                                 int n_planes, int device, void* stream) {
+                                 int cluster, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(cells) * Wp;
-  chunk_lookup_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(arena), static_cast<const int32_t*>(idx),
-      static_cast<const int32_t*>(mask), static_cast<const int32_t*>(acc),
-      static_cast<int32_t*>(out), L, W, Wp, total, n_planes);
-  return static_cast<int>(cudaGetLastError());
+  if (Wp < W) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_split(chunk_lookup_kernel, cells, L, Wp, cluster, device,
+                      stream, static_cast<const uint32_t*>(arena),
+                      static_cast<const int32_t*>(idx),
+                      static_cast<const int32_t*>(mask),
+                      static_cast<const int32_t*>(acc),
+                      static_cast<int32_t*>(out), L, W, Wp);
 }
 
 extern "C" int cobs_chunk_lookup_comp(const void* dict, const void* refs,
                                       const void* idx, const void* mask,
                                       const void* acc, void* out, int cells,
-                                      int L, int W, int Wp, int n_planes,
+                                      int L, int W, int Wp, int cluster,
                                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(cells) * Wp;
-  chunk_lookup_comp_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(dict), static_cast<const int32_t*>(refs),
-      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(mask),
-      static_cast<const int32_t*>(acc), static_cast<int32_t*>(out), L, W, Wp,
-      total, n_planes);
-  return static_cast<int>(cudaGetLastError());
+  if (Wp < W) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_split(chunk_lookup_comp_kernel, cells, L, Wp, cluster,
+                      device, stream, static_cast<const uint32_t*>(dict),
+                      static_cast<const int32_t*>(refs),
+                      static_cast<const int32_t*>(idx),
+                      static_cast<const int32_t*>(mask),
+                      static_cast<const int32_t*>(acc),
+                      static_cast<int32_t*>(out), L, W, Wp);
 }
 
 extern "C" int cobs_chunk_dedup(const void* uniq, const void* indir,

@@ -86,6 +86,32 @@ def test_chunk_scores_equal_reference(Q, nb, L, W, R, kind):
     np.testing.assert_array_equal(got[0].numpy()[:, :, W:], acc[:, :, W:])
 
 
+# the two chunk lookups' word geometries on the card: the bulk sweep's dense
+# chunk (W = Wp = 32) and the rowdict store's tallest shard (W = 4, Wp = 8);
+# L = 1024 ends on a shared-memory index stage, 1025 crosses one
+@pytest.mark.parametrize("kind,W", [("multi", 32), ("comp", 4)])
+@pytest.mark.parametrize("L", [1, 7, 33, 1024, 1025])
+def test_chunk_lookups_at_the_card_geometries(kind, W, L):
+    Q, nb, R = 3, 1, 500
+    rng, rows, idx, mask, acc = _inputs(Q, nb, L, W, R, L * 10 + W)
+    assert acc.shape[2] == (32 if W == 32 else 8)
+    if kind == "multi":
+        want = jax_ops.bitslice_chunk_score_multi(
+            jnp.asarray(rows), jnp.asarray(idx), jnp.asarray(mask),
+            jnp.asarray(acc))
+        got = k.chunk_lookup_score_multi(_t(rows), _t(idx), _t(mask),
+                                         _t(acc))
+    else:
+        D = 60
+        refs = rng.integers(0, D, size=R).astype(np.int32)
+        want = jax_ops.bitslice_chunk_score_multi_comp(
+            jnp.asarray(rows[:D]), jnp.asarray(refs), jnp.asarray(idx),
+            jnp.asarray(mask), jnp.asarray(acc))
+        got = k.chunk_lookup_score_multi_compressed(
+            _t(rows[:D]), _t(refs), _t(idx), _t(mask), _t(acc))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want[0]))
+
+
 def test_chunks_telescope_into_the_full_lookup():
     """Chunk by chunk from a fresh buffer, the counts add up to the
     unchunked fused lookup's."""
@@ -203,11 +229,12 @@ def test_chunk_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
 
 def test_chunk_kernels_in_the_source():
     src = _build.SOURCE.read_text()
-    for kernel in ("chunk_lookup_kernel", "chunk_lookup_comp_kernel"):
-        assert f"\n{kernel}(" in src and f"{kernel}<<<" in src
-    # the chunk dedup kernel runs the split body, launched with a cluster
-    assert "\nchunk_dedup_kernel(" in src
-    assert "launch_split(chunk_dedup_kernel" in src
+    # the three chunk kernels run the split body, launched with a cluster
+    for kernel in ("chunk_lookup_kernel", "chunk_lookup_comp_kernel",
+                   "chunk_dedup_kernel"):
+        assert f"\n{kernel}(" in src
+        assert f"launch_split({kernel}" in src
+        assert f"{kernel}<<<" not in src
     for symbol in ("cobs_chunk_lookup", "cobs_chunk_lookup_comp",
                    "cobs_chunk_dedup"):
         assert symbol in _build._SIGNATURES

@@ -212,10 +212,9 @@ def test_comp_wrappers_check_their_inputs():
     with pytest.raises(IndexError):
         multi(d, refs, idx[None] - 1, idx[None])
     # more terms than 16 counter planes count: no cap, the plain counts
-    big = torch.zeros((1, k.SLAB_TERMS + 1), dtype=torch.int32)
+    big = torch.zeros((1, 1 << 16), dtype=torch.int32)
     assert torch.equal(blocks(d - 1, refs, big, big + 1),
-                       torch.full((1, 4, 32), k.SLAB_TERMS + 1,
-                                  dtype=torch.int32))
+                       torch.full((1, 4, 32), 1 << 16, dtype=torch.int32))
     with pytest.raises(ValueError, match="grid_order"):
         multi(d, refs, idx[None], idx[None], grid_order="ww")
     with pytest.raises(ValueError, match="different devices"):

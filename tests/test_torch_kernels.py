@@ -175,10 +175,9 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(IndexError):
         k.lookup_score_blocks(arena, idx - 1, idx)
     # more rows than 16 counter planes count: no cap, the plain counts
-    ones = torch.full((k.SLAB_TERMS + 1, 1), -1, dtype=torch.int32)
+    ones = torch.full((1 << 16, 1), -1, dtype=torch.int32)
     assert torch.equal(k.vertical_score(ones),
-                       torch.full((1, 32), k.SLAB_TERMS + 1,
-                                  dtype=torch.int32))
+                       torch.full((1, 32), 1 << 16, dtype=torch.int32))
     with pytest.raises(ValueError, match="no kernel for device"):
         k.vertical_score(torch.zeros((3, 4), dtype=torch.int32,
                                      device="meta"))

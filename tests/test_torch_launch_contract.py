@@ -3,11 +3,9 @@ library, on the CPU.
 
 With the CUDA check and the launcher stubbed, each wrapper is called on
 CPU tensors at L = 70,144 and its calls into the library are recorded:
-the fused-decode lookups, ``chunk_dedup_score``, ``dedup_score`` and
+the fused-decode lookups, the three chunk wrappers, ``dedup_score`` and
 ``unpack_score`` run kernels that take a cluster size, one launch for any
-L at the cluster size the entry point picks (``CLUSTER_AUTO``); the two
-chunk lookups keep 16 counter planes and launch one slab of at most
-``SLAB_TERMS`` terms each, with the planes that slab needs.
+L at the cluster size the entry point picks (``CLUSTER_AUTO``).
 ``_build.split_info`` must refuse a kernel that is not a split kernel
 before it touches the library, and the source must launch each split
 kernel through its cluster launcher. No kernel runs here: this checks the
@@ -25,10 +23,10 @@ L = 70_144
 W, WP, CELLS = 4, 8, 2
 SPLIT = {"lookup_score_blocks_compressed": "cobs_lookup_comp",
          "lookup_score_multi_compressed": "cobs_lookup_comp",
+         "chunk_lookup_score_multi": "cobs_chunk_lookup",
+         "chunk_lookup_score_multi_compressed": "cobs_chunk_lookup_comp",
          "chunk_dedup_score": "cobs_chunk_dedup",
          "dedup_score": "cobs_dedup_score", "unpack_score": "cobs_unpack"}
-SLABBED = {"chunk_lookup_score_multi": "cobs_chunk_lookup",
-           "chunk_lookup_score_multi_compressed": "cobs_chunk_lookup_comp"}
 
 
 def _call(name: str) -> None:
@@ -57,7 +55,7 @@ def _call(name: str) -> None:
         fn(rows, idx % 9, mask, acc)
 
 
-@pytest.mark.parametrize("name", sorted(SPLIT) + sorted(SLABBED))
+@pytest.mark.parametrize("name", sorted(SPLIT))
 def test_long_query_launches(monkeypatch, name):
     calls = []
     monkeypatch.setattr(k, "_on_cuda", lambda *tensors: True)
@@ -67,24 +65,17 @@ def test_long_query_launches(monkeypatch, name):
     before = dict(k.launches)
     _call(name)
     chunk = name.startswith("chunk_")
-    # each call ends (cells, L, W[, Wp], cluster or planes, device, stream)
+    # each call ends (cells, L, W[, Wp], cluster, device, stream)
     tail = 7 if chunk else 6
-    if name in SPLIT:
-        want = [(SPLIT[name], (CELLS, L, W) + ((WP,) if chunk else ())
-                 + (k.CLUSTER_AUTO, 0, 0))]
-    else:
-        slabs = (k.SLAB_TERMS, L - k.SLAB_TERMS)
-        want = [(SLABBED[name], (CELLS, n, W) + ((WP,) if chunk else ())
-                 + (k.num_planes(n), 0, 0)) for n in slabs]
-        assert [w[1][-3] for w in want] == [16, 13]
+    want = [(SPLIT[name], (CELLS, L, W) + ((WP,) if chunk else ())
+             + (k.CLUSTER_AUTO, 0, 0))]
     assert [(symbol, args[-tail:]) for symbol, args in calls] == want
     assert k.launches[name] - before[name] == len(want)
     for symbol, args in calls:
         assert len(args) == len(_build._SIGNATURES[symbol])
 
 
-@pytest.mark.parametrize("kernel", ["chunk_lookup_comp", "chunk_lookup",
-                                    "Lookup"])
+@pytest.mark.parametrize("kernel", ["gather_comp", "gather", "Lookup"])
 def test_split_info_refuses_other_kernels(monkeypatch, kernel):
     def refuse(*a, **kw):
         raise AssertionError("the kernel library was touched")
@@ -95,13 +86,16 @@ def test_split_info_refuses_other_kernels(monkeypatch, kernel):
     # the split kernels are the ones whose entry points take a cluster size
     assert set(_build.SPLIT_KERNELS.values()) == {
         "cobs_vertical", "cobs_lookup", "cobs_lookup_comp",
-        "cobs_chunk_dedup", "cobs_dedup_score", "cobs_unpack"}
+        "cobs_chunk_lookup", "cobs_chunk_lookup_comp", "cobs_chunk_dedup",
+        "cobs_dedup_score", "cobs_unpack"}
 
 
 # each split kernel and the launcher that launches it with a cluster size
 SPLIT_SOURCE = {"vertical_kernel": "launch_split",
                 "lookup_kernel": "launch_split",
                 "lookup_comp_kernel": "launch_split",
+                "chunk_lookup_kernel": "launch_split",
+                "chunk_lookup_comp_kernel": "launch_split",
                 "chunk_dedup_kernel": "launch_split",
                 "dedup_kernel": "launch_split",
                 "unpack_kernel": "launch_clustered"}

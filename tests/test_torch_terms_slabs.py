@@ -1,15 +1,11 @@
 """The fused-decode, dedup and chunk scoring wrappers on more than 65,535
 terms, against the JAX package, on the CPU.
 
-On the card the two chunk lookups score a long query in slabs of at most
-``SLAB_TERMS`` terms (their kernels keep 16 counter planes), and the
-fused-decode lookups, ``dedup_score`` and ``chunk_dedup_score`` take it in
-one launch (``test_torch_launch_contract.py`` checks which is which).
-Here each wrapper (its plain version) must equal the JAX
-``repro.kernels.ref`` oracle at L = 65,536, where one cell's count of
-document 0 reaches 65,536 and so needs a 17th counter plane; and the slab
-loops themselves (``_term_slabs``, ``_slab_chain``), run with the plain
-versions and small slabs, must give the unslabbed counts. Every
+On the card all six take a long query in one launch (their kernels split
+the term axis and flush full counter planes; ``test_torch_launch_contract.py``
+checks the launches). Here each wrapper (its plain version) must equal the
+JAX ``repro.kernels.ref`` oracle at L = 65,536, where one cell's count of
+document 0 reaches 65,536 and so needs a 17th counter plane. Every
 comparison is exact.
 """
 import numpy as np
@@ -89,36 +85,3 @@ def test_long_wrapper_equals_reference(name):
         want[:, :, :W] += _multi_ref(expanded, idx, mask)
     assert want.max() > 65_535                  # past 16 counter planes
     np.testing.assert_array_equal(got.numpy(), want)
-
-
-@pytest.mark.parametrize("L", [0, 1, 7, 8, 21, 50])
-def test_term_slabs_cover_the_terms_in_order(monkeypatch, L):
-    monkeypatch.setattr(k, "SLAB_TERMS", 7)
-    idx = torch.arange(2 * L, dtype=torch.int32).reshape(2, L)
-    slabs = k._term_slabs(idx, -idx)
-    if L <= 7:
-        assert len(slabs) == 1 and slabs[0][0] is idx
-    else:
-        assert len(slabs) == -(-L // 7)
-        assert all(i.is_contiguous() and m.is_contiguous()
-                   and i.shape[-1] <= 7 for i, m in slabs)
-    assert torch.equal(torch.cat([i for i, _ in slabs], dim=-1), idx)
-    assert torch.equal(torch.cat([m for _, m in slabs], dim=-1), -idx)
-
-
-@pytest.mark.parametrize("L", [1, 7, 8, 50])
-def test_slab_loops_give_the_unslabbed_counts(monkeypatch, L):
-    rows, refs, idx, mask = _inputs(L, 3, L)
-    rows_t, refs_t, idx_t, mask_t = map(_t, (rows, refs, idx, mask))
-    acc_np = np.random.default_rng(L).integers(0, 9, size=(1, 2, 8, 32)
-                                               ).astype(np.int32)
-    acc = _t(acc_np)
-    whole_chunk = k.chunk_plain(rows_t, refs_t[idx_t.long()].contiguous(),
-                                mask_t, acc)
-    monkeypatch.setattr(k, "SLAB_TERMS", 7)
-    got_chunk = k._slab_chain(refs_t[idx_t.long()].contiguous(), mask_t, acc,
-                              lambda i, m, a: k.chunk_plain(rows_t, i, m, a))
-    assert torch.equal(got_chunk, whole_chunk)
-    want = acc_np.copy()
-    want[:, :, :3] += _multi_ref(rows[refs], idx, mask)
-    np.testing.assert_array_equal(got_chunk.numpy(), want)

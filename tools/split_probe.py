@@ -13,25 +13,37 @@ Run from a checkout of the repository. It
    source whose slice count is capped at compile time, built by nvcc, and
    launched at cluster sizes 1 and 2;
 2. tiles the same inputs along the term axis to L = 1, 32 and 320 and
-   times the split ``chunk_dedup_kernel`` (``cobs_chunk_dedup``) and
-   ``dedup_kernel`` (``cobs_dedup_score``, the split body without running
-   counts) against the 16-plane body with running counts
-   (``cobs_chunk_lookup``): each body's cost a launch and a term;
-3. times ``unpack_kernel`` at rows [320, 64], [64, 64] and two shapes
+   times the three split chunk kernels (``cobs_chunk_dedup``,
+   ``cobs_chunk_lookup`` with uniq as the arena, ``cobs_chunk_lookup_comp``
+   with uniq as the dictionary and identity refs) beside ``dedup_kernel``
+   (``cobs_dedup_score``, the split body without running counts): each
+   kernel's cost a launch and a term;
+3. times ``chunk_lookup_comp_kernel`` at the rowdict store's tallest
+   shard (idx [128, 1, 32], acc [128, 1, 8, 32], dict [16384, 4], refs
+   [3,649,024]; random, seed 0) with the word tile cut from the running
+   counts' Wp = 8 words (this source: half of a block's threads hold
+   padding words and count nothing) and from the dictionary's W = 4 words
+   (a copy of the source whose accumulate-mode tiles are cut from W, with
+   64 slices, the last tile's threads also carrying the padding words'
+   acc into out), in the order this, copy, copy, this, three times over;
+4. times ``unpack_kernel`` at rows [320, 64], [64, 64] and two shapes
    where it picks a cluster, [1000, 8] and [4096, 1] (random rows, seed
    0), with 8 warps a word and with 4 and 16 (copies of the kernel
    source with ``kUnpackWarps`` changed, built by nvcc), at cluster sizes
    1, 2 and the entry point's choice, beside ``vertical_kernel`` at the
    same rows and, with ``--against``, the other checkout's
-   ``cobs_unpack`` (whose older form takes no cluster size);
-4. with ``--against DIR``, a checkout of another commit whose
-   ``cobs_vertical``, ``cobs_lookup``, ``cobs_lookup_comp`` and
-   ``cobs_chunk_dedup`` take the same arguments: builds that checkout's
-   kernel source beside this one, says whether the SASS of the four
-   kernels is the same in both (with each one's ptxas report), and times
-   both libraries' entry points at the main path's shapes (random rows
-   and indices, arenas of the main index's height) in the order this,
-   other, other, this, three times over.
+   ``cobs_unpack``;
+5. with ``--against DIR``, a checkout of another commit whose six older
+   split entry points (``cobs_vertical``, ``cobs_lookup``,
+   ``cobs_lookup_comp``, ``cobs_chunk_dedup``, ``cobs_dedup_score``,
+   ``cobs_unpack``) take the same arguments: builds that checkout's kernel
+   source beside this one, says whether the SASS of those six kernels is
+   the same in both (with each one's ptxas report), and times both
+   libraries' entry points at the main path's shapes (random rows and
+   indices, arenas of the main index's height) in the order this, other,
+   other, this, three times over: rows 1-5, 7 and 9-11 of PERF.md's
+   kernel table, and rows 12-13 (the two chunk lookups, whose entry points
+   took a counter-plane count where they now take a cluster size).
 
 Every launch is first checked equal to its plain PyTorch version. Times
 are the median of 5 replays of a CUDA graph of 64 launches, per launch.
@@ -58,6 +70,26 @@ SOURCE_REL = Path("src/repro_torch/kernels/csrc/bitslice_score.cu")
 SLICE_LINE = "  const int wt = g.wt, S = g.slices;\n"
 SLICES = (32, 16, 8)
 CHUNK_LENGTHS = (1, 32, 320)
+# the accumulate mode's word tile: cut from the running counts' Wp words
+# (this source) or, in a copy, from the rows' W words, the last tile of a
+# cell also carrying acc's padding words [W, Wp) into out
+WCUT_LINES = (
+    ("  const int Wo = kAcc ? Wp : W;\n"
+     "  const SplitGeometry g = split_geometry(Wo);\n",
+     "  const int Wo = kAcc ? Wp : W;\n"
+     "  const SplitGeometry g = split_geometry(W);\n"),
+    ("  const int wn = Wo - w0 < wt ? Wo - w0 : wt;   // the tile's words\n",
+     "  const int wn = W - w0 < wt ? W - w0 : wt;   // the tile's words\n"),
+    ("  const int wc = kAcc && W - w0 < wn ? W - w0 : wn;\n",
+     "  const int wc = wn;\n"
+     "  if (kAcc && w0 + wn == W) {\n"
+     "    for (int e = W * 32 + t; e < Wp * 32; e += kSplitThreads) {\n"
+     "      out[cell * Wp * 32 + e] = acc[cell * Wp * 32 + e];\n"
+     "    }\n"
+     "  }\n"),
+)
+# row 13 of PERF.md's kernel table: (cells shape, L, W, Wp, dict rows, refs)
+ROW13 = ((128, 1), 32, 4, 8, 16_384, 3_649_024)
 # the warps of an unpack block
 WARPS_LINE = ("constexpr int kUnpackWarps = 8;  // warps (term slices) of an "
               "unpack block\n")
@@ -78,13 +110,20 @@ MAIN_SHAPES = (
      88_064),
     ("row 11 chunk_dedup indir [32, 1, 32]", "chunk_dedup", (32, 1), 32, 8,
      1024),
+    ("row 1 unpack rows [320, 64]", "unpack", (1,), 320, 64, 0),
+    ("row 7 dedup indir [32, 2, 128]", "dedup_score", (32, 2), 128, 32, 2048),
+    ("row 12 chunk_lookup idx [128, 2, 32]", "chunk_lookup", (128, 2), 32,
+     32, 3_813_888),
+    ("row 13 chunk_lookup_comp idx [128, 1, 32]", "chunk_lookup_comp",
+     (128, 1), 32, 4, 3_649_024),
 )
-# the entry points both libraries must share for --against, and their
-# kernels
+# the entry points both libraries must share for --against, and the
+# kernels of the older six, whose SASS must not change
 SHARED = ("cobs_vertical", "cobs_lookup", "cobs_lookup_comp",
-          "cobs_chunk_dedup")
+          "cobs_chunk_dedup", "cobs_dedup_score", "cobs_unpack",
+          "cobs_chunk_lookup", "cobs_chunk_lookup_comp")
 SHARED_KERNELS = ("vertical_kernel", "lookup_kernel", "lookup_comp_kernel",
-                  "chunk_dedup_kernel")
+                  "chunk_dedup_kernel", "dedup_kernel", "unpack_kernel")
 
 
 def log(*parts) -> None:
@@ -120,7 +159,9 @@ def ptxas_lines(report: str) -> dict[str, str]:
 
 def sass(lib: Path, tool: Path) -> dict[str, str] | None:
     """Each kernel's SASS in ``lib`` without its (file-hashed) name line,
-    or None when ``tool`` (cuobjdump) is not there."""
+    each run of blanks as one space (cuobjdump pads every line to the
+    widest instruction of the whole library), or None when ``tool``
+    (cuobjdump) is not there."""
     if not tool.exists():
         return None
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -130,7 +171,8 @@ def sass(lib: Path, tool: Path) -> dict[str, str] | None:
         name_line, _, body = part.partition("\n")
         m = re.search(r"\d+([A-Za-z_]+_kernel)E", name_line)
         if m:
-            out[m.group(1)] = body.split("\n\t\t......")[0]
+            out[m.group(1)] = re.sub(r"[ \t]+", " ",
+                                     body.split("\n\t\t......")[0])
     return out
 
 
@@ -216,15 +258,17 @@ def probe_geometry(torch, k, libs, inputs, dev_i, stream) -> dict:
 
 
 def probe_lengths(torch, k, lib, inputs, dev_i, stream) -> dict:
-    """The row-11 inputs tiled to each of CHUNK_LENGTHS through the split
-    body and the two 16-plane bodies."""
+    """The row-11 inputs tiled to each of CHUNK_LENGTHS through the three
+    split chunk kernels and the split body without running counts."""
     uniq, indir, mask, acc = inputs
     Q, nb, Lc = indir.shape
     W, Wp = uniq.shape[1], acc.shape[2]
-    ms = {"split (cobs_chunk_dedup)": {}, "16-plane with acc "
-          "(cobs_chunk_lookup)": {}, "split without acc (cobs_dedup_score)":
-          {}}
-    bodies = list(ms)
+    refs = torch.arange(uniq.shape[0], dtype=torch.int32,
+                        device=uniq.device)
+    ms = {"chunk_dedup (cobs_chunk_dedup)": {},
+          "chunk_lookup (cobs_chunk_lookup)": {},
+          "chunk_lookup_comp (cobs_chunk_lookup_comp)": {},
+          "split without acc (cobs_dedup_score)": {}}
     for L in CHUNK_LENGTHS:
         reps = -(-L // Lc)
         ind = indir.repeat(1, 1, reps)[..., :L].contiguous()
@@ -232,19 +276,23 @@ def probe_lengths(torch, k, lib, inputs, dev_i, stream) -> dict:
         out = torch.empty_like(acc)
         out2 = torch.empty((Q, nb, W, 32), dtype=torch.int32,
                            device=acc.device)
-        head = (uniq.data_ptr(), ind.data_ptr(), msk.data_ptr())
+        tail = (acc.data_ptr(), out.data_ptr(), Q * nb, L, W, Wp, 0, dev_i)
         want = k.chunk_plain(uniq, ind, msk, acc)
         calls = (
             (lambda: lib.cobs_chunk_dedup(
-                *head, acc.data_ptr(), out.data_ptr(), Q * nb, L, W, Wp, 0,
-                dev_i, stream()), out, want),
+                uniq.data_ptr(), ind.data_ptr(), msk.data_ptr(), *tail,
+                stream()), out, want),
             (lambda: lib.cobs_chunk_lookup(
-                *head, acc.data_ptr(), out.data_ptr(), Q * nb, L, W, Wp,
-                k.num_planes(L), dev_i, stream()), out, want),
+                uniq.data_ptr(), ind.data_ptr(), msk.data_ptr(), *tail,
+                stream()), out, want),
+            (lambda: lib.cobs_chunk_lookup_comp(
+                uniq.data_ptr(), refs.data_ptr(), ind.data_ptr(),
+                msk.data_ptr(), *tail, stream()), out, want),
             (lambda: lib.cobs_dedup_score(
-                *head, out2.data_ptr(), Q * nb, L, W, 0, dev_i, stream()),
+                uniq.data_ptr(), ind.data_ptr(), msk.data_ptr(),
+                out2.data_ptr(), Q * nb, L, W, 0, dev_i, stream()),
              out2, k.lookup_plain(uniq, ind, msk)))
-        for body, (call, o, w) in zip(bodies, calls):
+        for body, (call, o, w) in zip(ms, calls):
             checked(torch, f"{body} at L={L}", call, o, w)
             ms[body][L] = graph_ms(torch, call)
     lo, hi = CHUNK_LENGTHS[1], CHUNK_LENGTHS[2]
@@ -252,11 +300,45 @@ def probe_lengths(torch, k, lib, inputs, dev_i, stream) -> dict:
         body: (t[hi] - t[lo]) / (hi - lo) for body, t in ms.items()}}
 
 
+def probe_wcut(torch, k, libs, dev_i, stream, g) -> dict:
+    """Row 13's chunk_lookup_comp with the word tile cut from Wp (this
+    source) and from W (the copy), in the order this, copy, copy, this,
+    three times over."""
+    dev = torch.device("cuda", dev_i)
+    lead, L, W, Wp, D, R = ROW13
+    cells = lead[0] * lead[1]
+    dict_rows = torch.randint(-2 ** 31, 2 ** 31, (D, W), generator=g,
+                              dtype=torch.int64).to(torch.int32).to(dev)
+    refs = torch.randint(0, D, (R,), generator=g, dtype=torch.int32).to(dev)
+    idx = torch.randint(0, R, lead + (L,), generator=g,
+                        dtype=torch.int32).to(dev)
+    mask = (torch.rand(lead + (L,), generator=g) < 0.95).to(
+        torch.int32).to(dev)
+    acc = torch.randint(0, 50, lead + (Wp, 32), generator=g,
+                        dtype=torch.int32).to(dev)
+    want = k.chunk_plain(dict_rows, idx, mask, acc, refs)
+    out = torch.empty_like(acc)
+
+    def call(lib):
+        return lib.cobs_chunk_lookup_comp(
+            dict_rows.data_ptr(), refs.data_ptr(), idx.data_ptr(),
+            mask.data_ptr(), acc.data_ptr(), out.data_ptr(), cells, L, W, Wp,
+            0, dev_i, stream())
+    runs = {"this": [], "copy": []}
+    for side in runs:
+        checked(torch, f"row 13 ({side})", lambda: call(libs[side]), out,
+                want)
+    for _ in range(3):
+        for side in ("this", "copy", "copy", "this"):
+            runs[side].append(graph_ms(torch, lambda: call(libs[side])))
+    return runs
+
+
 def probe_unpack(torch, k, libs, dev_i, stream, g, other=None) -> dict:
     """unpack_kernel at UNPACK_SHAPES with each warp count of ``libs``, at
     clusters 1, 2 and the entry point's choice (0), vertical_kernel at the
-    same rows (the first library's), and ``other`` = (library, whether its
-    cobs_unpack takes a cluster size) when given."""
+    same rows (the first library's), and the ``other`` library's
+    cobs_unpack when given."""
     res = {}
     dev = torch.device("cuda", dev_i)
     for what, L, W in UNPACK_SHAPES:
@@ -281,23 +363,23 @@ def probe_unpack(torch, k, libs, dev_i, stream, g, other=None) -> dict:
         checked(torch, f"{what} vertical", vert, out, want)
         times["vertical, cluster auto"] = graph_ms(torch, vert)
         if other is not None:
-            lib_o, cluster_arg = other
-
             def unpack_o():
-                return lib_o.cobs_unpack(rows.data_ptr(), out.data_ptr(), 1,
-                                         L, W, *((0,) if cluster_arg else ()),
-                                         dev_i, stream())
+                return other.cobs_unpack(rows.data_ptr(), out.data_ptr(), 1,
+                                         L, W, 0, dev_i, stream())
             checked(torch, f"{what} other unpack", unpack_o, out, want)
             times["other unpack"] = graph_ms(torch, unpack_o)
         res[what] = times
     return res
 
 
-def probe_against(torch, k, libs, dev_i, stream, g) -> dict:
-    """Both libraries' split entry points at MAIN_SHAPES, in the order
-    this, other, other, this, three times over."""
+def probe_against(torch, k, libs, dev_i, stream, g, planes) -> dict:
+    """Both libraries' entry points at MAIN_SHAPES, in the order this,
+    other, other, this, three times over. ``planes``: the other library's
+    chunk lookups take a counter-plane count where this one's take a
+    cluster size."""
     res = {}
     dev = torch.device("cuda", dev_i)
+    dict_rows = {"lookup_comp": 4096, "chunk_lookup_comp": ROW13[4]}
 
     def ints(lo, hi, *shape):
         return torch.randint(lo, hi, shape, generator=g,
@@ -306,44 +388,49 @@ def probe_against(torch, k, libs, dev_i, stream, g) -> dict:
         cells = 1
         for n in lead:
             cells *= n
-        if kernel == "vertical":
+        chunk = kernel.startswith("chunk_")
+        if kernel in ("vertical", "unpack"):
             src = ints(-2 ** 31, 2 ** 31, *lead, L, W)
             want = k.vertical_score_plain(src)
             out = torch.empty_like(want)
             args = (src.data_ptr(), out.data_ptr(), lead[0], L, W)
         else:
-            table = ints(-2 ** 31, 2 ** 31,
-                         4096 if kernel == "lookup_comp" else rows, W)
+            table = ints(-2 ** 31, 2 ** 31, dict_rows.get(kernel, rows), W)
             idx = ints(0, rows, *lead, L)
             mask = (torch.rand(lead + (L,), generator=g) < 0.95).to(
                 torch.int32).to(dev)
-            if kernel == "lookup":
-                want = k.lookup_plain(table, idx, mask)
-                head = (table.data_ptr(),)
-            elif kernel == "lookup_comp":
-                refs = ints(0, 4096, rows)
+            head = (table.data_ptr(),)
+            refs = None
+            if kernel in dict_rows:
+                refs = ints(0, table.shape[0], rows)
+                head += (refs.data_ptr(),)
+            if chunk:
+                Wp = ROW13[3] if kernel == "chunk_lookup_comp" else W
+                acc = ints(0, 50, *lead, Wp, 32)
+                want = k.chunk_plain(table, idx, mask, acc, refs)
+            elif refs is not None:
                 want = k.lookup_comp_plain(table, refs, idx, mask)
-                head = (table.data_ptr(), refs.data_ptr())
             else:
-                acc = ints(0, 50, *lead, W, 32)
-                want = k.chunk_plain(table, idx, mask, acc)
-                head = (table.data_ptr(),)
+                want = k.lookup_plain(table, idx, mask)
             out = torch.empty_like(want)
             tail = (out.data_ptr(), cells, L, W)
-            if kernel == "chunk_dedup":
-                tail = (acc.data_ptr(),) + tail + (W,)
+            if chunk:
+                tail = (acc.data_ptr(),) + tail + (Wp,)
             args = head + (idx.data_ptr(), mask.data_ptr()) + tail
 
-        def call(lib, kernel=kernel, args=args):
-            return getattr(lib, f"cobs_{kernel}")(*args, 0, dev_i, stream())
+        def call(lib, side, kernel=kernel, args=args, L=L):
+            last = (k.num_planes(L) if side == "other" and planes
+                    and kernel.startswith("chunk_lookup") else 0)
+            return getattr(lib, f"cobs_{kernel}")(*args, last, dev_i,
+                                                  stream())
         runs = {"this": [], "other": []}
         for side in ("this", "other"):
-            checked(torch, f"{what} ({side})", lambda: call(libs[side]), out,
-                    want)
+            checked(torch, f"{what} ({side})",
+                    lambda: call(libs[side], side), out, want)
         for _ in range(3):
             for side in ("this", "other", "other", "this"):
-                runs[side].append(graph_ms(torch,
-                                           lambda: call(libs[side])))
+                runs[side].append(graph_ms(
+                    torch, lambda: call(libs[side], side)))
         res[what] = runs
         del want, out
         torch.cuda.empty_cache()
@@ -367,7 +454,9 @@ def main() -> int:
     from repro_torch.kernels import bitslice_score as k
     text = (ROOT / SOURCE_REL).read_text()
     for line, what in ((SLICE_LINE, "split_body's slice count"),
-                       (WARPS_LINE, "kUnpackWarps")):
+                       (WARPS_LINE, "kUnpackWarps"),
+                       *((old, "split_body's word tile")
+                         for old, _ in WCUT_LINES)):
         if text.count(line) != 1:
             print(f"split_probe: {what} line has changed; update "
                   f"split_probe.py", file=sys.stderr)
@@ -389,6 +478,12 @@ def main() -> int:
             "kUnpackWarps = 8;", f"kUnpackWarps = {n};")))
         paths[key] = PROBE_DIR / f"{key}.so"
         procs[key] = nvcc_build(_build, src, paths[key])
+    wcut = text
+    for old, new in WCUT_LINES:
+        wcut = wcut.replace(old, new)
+    (PROBE_DIR / "wcut.cu").write_text(wcut)
+    paths["wcut"] = PROBE_DIR / "wcut.so"
+    procs["wcut"] = nvcc_build(_build, PROBE_DIR / "wcut.cu", paths["wcut"])
     if args.against is not None:
         paths["other"] = PROBE_DIR / "other.so"
         procs["other"] = nvcc_build(_build, args.against / SOURCE_REL,
@@ -401,7 +496,8 @@ def main() -> int:
            "cuda": torch.version.cuda,
            "ptxas": {str(key): ptxas_lines(r) for key, r in reports.items()}}
     for key, lines in rec["ptxas"].items():
-        for kern in (*SHARED_KERNELS, "dedup_kernel", "unpack_kernel"):
+        for kern in (*SHARED_KERNELS, "chunk_lookup_kernel",
+                     "chunk_lookup_comp_kernel"):
             if kern in lines:
                 log(f"[ptxas] {key}: {kern}: {lines[kern]}")
     dev_i = torch.cuda.current_device()
@@ -422,15 +518,19 @@ def main() -> int:
                 f"L {L}: {t * 1e3:.2f} us" for L, t in times.items())
                 + f"; {rec['lengths']['per_term_ms'][body] * 1e3:.4f} us a "
                   f"term from L {CHUNK_LENGTHS[1]} to {CHUNK_LENGTHS[2]}")
+        rec["wcut_ms"] = probe_wcut(
+            torch, k, {"this": libs[SLICES[0]],
+                       "copy": load(paths["wcut"], _build._SIGNATURES)},
+            dev_i, stream, g)
+        log("[wcut] row 13 chunk_lookup_comp, word tile from Wp = 8 (this): "
+            + ", ".join(f"{t * 1e3:.2f}" for t in rec["wcut_ms"]["this"])
+            + " us; from W = 4 (copy): "
+            + ", ".join(f"{t * 1e3:.2f}" for t in rec["wcut_ms"]["copy"])
+            + " us")
         other = None
         if args.against is not None:
-            cluster_arg = re.search(
-                r"int cobs_unpack\([^)]*int cluster",
-                (args.against / SOURCE_REL).read_text()) is not None
-            other = (load(paths["other"], {"cobs_unpack": (
-                _build._SIGNATURES["cobs_unpack"] if cluster_arg else
-                (ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 4,
-                 ctypes.c_void_p))}), cluster_arg)
+            other = load(paths["other"], {
+                "cobs_unpack": _build._SIGNATURES["cobs_unpack"]})
         rec["unpack_ms"] = probe_unpack(torch, k, warp_libs, dev_i, stream,
                                         g, other)
         for what, times in rec["unpack_ms"].items():
@@ -446,9 +546,12 @@ def main() -> int:
             log(f"[against] {args.against}: same SASS {rec['same_sass']}")
             other_lib = load(paths["other"], {
                 name: _build._SIGNATURES[name] for name in SHARED})
+            planes = re.search(
+                r"int cobs_chunk_lookup\([^)]*int n_planes",
+                (args.against / SOURCE_REL).read_text()) is not None
             rec["against"] = probe_against(
                 torch, k, {"this": libs[SLICES[0]], "other": other_lib},
-                dev_i, stream, g)
+                dev_i, stream, g, planes)
             for what, runs in rec["against"].items():
                 log(f"[against] {what}: this " + ", ".join(
                     f"{t * 1e3:.2f}" for t in runs["this"]) + " us; other "
