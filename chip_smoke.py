@@ -57,7 +57,11 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    Every response must equal the QueryEngine's, every read find its
    source, the reads dispatch the row-dedup pair (``dedup``, ``dedup_c``)
    and the mix the fused lookup; each dedup-path kernel call equals its
-   plain version. The store directories are deleted after this phase;
+   plain version, and so do the gathers at ragged widths, row sets of 1-5
+   rows and sources whose data pointers are 4-, 8- and 16-byte aligned,
+   and the pair run as the server runs it (the dedup launch the gather's
+   programmatic dependent). The store directories are deleted after this
+   phase;
 9. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
    torch.profiler (device time, the top device and host operations; the
    chunked executors under cProfile too), and times each kernel at the
@@ -224,9 +228,11 @@ def phase_build_kernels(rt) -> dict:
     ptxas, kernel = {}, "?"
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            # the mangled name holds the kernel's: ...<len><name>E<args>
-            m = re.search(r"\d+([A-Za-z_]+_kernel)E", line)
-            kernel = m.group(1) if m else line.strip()
+            # the mangled name holds the kernel's: ...<len><name>E<args>,
+            # a template's ...<len><name>ILi<vec>EE... (gather_kernel<4>)
+            m = re.search(r"\d+([A-Za-z_]+_kernel)(?:ILi(\d+)EE)?E", line)
+            kernel = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                      if m else line.strip())
         elif "Used" in line or "spill" in line:
             ptxas.setdefault(kernel, []).append(
                 line.split(":", 1)[-1].strip())
@@ -1619,30 +1625,58 @@ def check_dedup_calls(k, chk, calls: dict, what: str) -> None:
 
 
 def check_dedup_ragged(torch, k, chk) -> None:
-    """The three dedup-path kernels at ragged shapes: W = 3, 33, 40, 130;
-    U = 8 and 1,024; row sets of k = 2 for the gathers."""
+    """The three dedup-path kernels at ragged and vector shapes: W = 3, 4,
+    32, 33, 40, 130 (the gathers' 4-, 8- and 16-byte vectors and the
+    ragged word edge); U = 8, 33, 1,024 and 5,000 (a warp's 32 row sets
+    part full, and blocks of several warps); row sets of k = 1, 2, 3 and 5
+    (more rows than a round keeps in flight) for the gathers, each over a
+    source that starts 0, 1 or 2 words into its storage (a contiguous view
+    whose data pointer is 16-, 4- or 8-byte aligned); and the pair as the
+    server runs it, dedup_score on the stream right after the gather that
+    writes its uniq rows."""
     g = torch.Generator().manual_seed(13)
 
     def ints(lo, hi, *shape):
         return torch.randint(lo, hi, shape, generator=g,
                              dtype=torch.int64).to(torch.int32).to(DEV)
 
-    for W in (3, 33, 40, 130):
-        for U in (8, 1024):
+    def at(off, rows, W):
+        """[rows, W] random words, ``off`` words into their storage."""
+        return ints(-2 ** 31, 2 ** 31, rows * W + off)[off:].view(rows, W)
+
+    for W in (3, 4, 32, 33, 40, 130):
+        for U in (8, 33, 1024, 5000):
             R, D = 3 * U + 5, U + 3
-            arena, dct = ints(-2 ** 31, 2 ** 31, R, W), ints(-2 ** 31,
-                                                            2 ** 31, D, W)
             refs = ints(0, D, R)
             calls = {"gather_rows": [], "gather_rows_compressed": [],
                      "dedup_score": []}
-            for idx in (ints(0, R, U), ints(0, R, U, 2)):
-                calls["gather_rows"].append((arena, idx))
-                calls["gather_rows_compressed"].append((dct, refs, idx))
+            for off in (0, 1, 2):
+                arena, dct = at(off, R, W), at(off, D, W)
+                for idx in (ints(0, R, U), ints(0, R, U, 2),
+                            ints(0, R, U, 3), ints(0, R, U, 5)):
+                    calls["gather_rows"].append((arena, idx))
+                    calls["gather_rows_compressed"].append((dct, refs, idx))
             uniq = ints(-2 ** 31, 2 ** 31, U, W)
             for Q, nb, L in ((3, 2, 17), (32, 1, 128)):
                 calls["dedup_score"].append(
                     (uniq, ints(0, U, Q, nb, L), ints(0, 2, Q, nb, L)))
             check_dedup_calls(k, chk, calls, f"ragged W={W} U={U}")
+            arena, idx = calls["gather_rows"][-1]
+            dct = calls["gather_rows_compressed"][-1][0]
+            _, indir, mask = calls["dedup_score"][-1]
+            for name, gathered, want in (
+                    ("gather_rows", lambda: k.gather_rows(
+                        arena, idx, range_checked=True),
+                     k.gather_plain(arena, idx)),
+                    ("gather_rows_compressed",
+                     lambda: k.gather_rows_compressed(
+                         dct, refs, idx, range_checked=True),
+                     k.gather_comp_plain(dct, refs, idx))):
+                got = k.dedup_score(gathered(), indir, mask,
+                                    range_checked=True)
+                chk.compare("dedup_score", got,
+                            k.dedup_plain(want, indir, mask),
+                            f"the pair after {name}, W={W} U={U}")
 
 
 def dedup_vs_fused(torch, k, lib, gather_args, dedup_args) -> dict:

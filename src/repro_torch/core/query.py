@@ -950,7 +950,8 @@ def gather_rows(arena: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor
     for i in range(1, rows.shape[-2]):
         anded = anded & g[..., i, :, :]
     anded = torch.where(valid[..., None, None], anded, 0)
-    return anded.reshape(*rows.shape[:-2], -1)
+    # the last size spelled out: an empty batch has no -1 to infer
+    return anded.reshape(*rows.shape[:-2], rows.shape[-1] * arena.shape[-1])
 
 
 def gather_rows_comp(dict_rows: torch.Tensor, refs: torch.Tensor,

@@ -26,8 +26,8 @@
 //                               split_body<kDecoded, true>
 //   chunk_dedup_kernel       <- _chunk_dedup_kernel (chunk_dedup_score);
 //                               split_body<kIndexed, true>
-//   gather_kernel      <- _gather_kernel (gather_rows)
-//   gather_comp_kernel <- the kernel of gather_rows_compressed
+//   gather_kernel      <- _gather_kernel (gather_rows); gather_body
+//   gather_comp_kernel <- the kernel of gather_rows_compressed; gather_body
 //   dedup_kernel       <- _dedup_score_kernel (dedup_score);
 //                         split_body<kUniq, false>
 //
@@ -61,11 +61,16 @@
 // compact matrix uniq [U, W]; dedup_kernel then scores every (query,
 // block) cell through the indirection indir [Q, nb, L] into uniq. The
 // gather is a copy: its bound is (U * k indices + U * k rows read + U rows
-// written) / 3.35 TB/s, and one thread a word keeps every load and store
-// coalesced along a row. gather_comp_kernel reads row r as dict[refs[r]],
-// one more 4-byte load a row. dedup_kernel is lookup_kernel over uniq
+// written) / 3.35 TB/s. gather_comp_kernel reads row r as dict[refs[r]],
+// one more 4-byte load a row. At the served shapes (a few thousand rows of
+// 16-128 bytes) both are latency: a chain of dependent loads (index, refs
+// entry, row) and a launch. dedup_kernel is lookup_kernel over uniq
 // instead of the arena (the split body); its bound is the fused lookup's
-// with rows counted once per distinct uniq row.
+// with rows counted once per distinct uniq row. The pair overlaps with
+// programmatic dependent launch: a gather block lets the dedup launch
+// begin once it has issued its row loads, and dedup_kernel stages its
+// first indirections while the gather runs, then waits for the gather's
+// rows (griddepcontrol) before it loads any.
 //
 // Design. The TPU kernels carry counter planes across a sequential grid
 // axis over terms. CUDA blocks run in no order, so the term axis is cut
@@ -105,6 +110,13 @@
 //   warps splitting the term loop into slices with 8 row loads in flight,
 //   summed in shared memory into one 128-byte line; no planes, so any L in
 //   one launch; a cluster splits a word's terms as in the split body.
+// * The gather body (gather_body: gather_kernel, gather_comp_kernel). A warp
+//   takes 32 row sets: lane j loads the indices of set j (and for the
+//   decode their refs entries), so each level of the index chain is one
+//   round trip for 32 rows; the warp then moves the rows as 16-, 8- or
+//   4-byte vectors (the widest that W and both pointers allow, one
+//   instantiation each), each row's source offsets broadcast by shuffle,
+//   every row of a set loaded before the first AND.
 
 #include <climits>
 #include <cstdint>
@@ -122,7 +134,16 @@ namespace {
 constexpr int kMaxPlanes = 16;
 constexpr int kFlushTerms = (1 << kMaxPlanes) - 1;
 constexpr int kUnpackWarps = 8;  // warps (term slices) of an unpack block
-constexpr int kGatherThreads = 256;
+// the gather body: row sets of a block, each of its warps resolving all
+// of them (one a lane); rows of a set in flight at once (a set of more rows
+// is ANDed in rounds of this many); vectors a lane keeps in flight; the
+// warp-steps a block's warp takes (a block gets as many warps, up to
+// kGatherMaxWarps, as its sets' rows need at that many steps a warp)
+constexpr int kGatherSets = 32;
+constexpr int kGatherRows = 4;
+constexpr int kGatherInFlight = 4;
+constexpr int kGatherSteps = 1;
+constexpr int kGatherMaxWarps = 8;
 // the split body (vertical_kernel, the lookup, chunk and dedup kernels);
 // kUnroll also in unpack_kernel
 constexpr int kSplitThreads = 256;
@@ -216,6 +237,20 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Programmatic dependent launch (sm_90): a primary grid's block lets the
+// grid launched after it with programmatic stream serialization begin
+// (once every block has triggered or exited); the dependent grid waits
+// until its primary has completed and its memory is visible. The memory
+// clobbers keep the loads before the trigger and every access after the
+// wait where they are written.
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // Sum every slice's counter planes into the outputs this thread owns
@@ -372,6 +407,12 @@ __device__ __forceinline__ void split_body(
                   hi - lo < kStageTerms ? hi - lo : kStageTerms);
     }
   }
+  // dedup_kernel is launched as the gather's programmatic dependent: it may
+  // start while the gather runs, so it stages its first indirections and
+  // masks (which the gather does not write), then waits until the gather
+  // grid has completed and its rows are visible, before any uniq row load
+  // and any store
+  if constexpr (kSrc == kUniq) grid_dependency_wait();
   int since = 0;  // the most terms a slice has added since the last flush
   int buf = 0;
   for (int st = lo; st < hi; st += kStageTerms, buf ^= 1) {
@@ -615,7 +656,15 @@ chunk_dedup_kernel(const uint32_t* __restrict__ uniq,
 // [2048, 32]; 128 blocks in clusters of 2) on one H100 80GB HBM3 at 700 W
 // (chip_smoke.py): 7.1-7.2 us against a byte bound of 0.17 us; the
 // serial body it replaced (one thread per (cell, word) walking every
-// term in order) took 46.4-46.9 us there.
+// term in order) took 46.4-46.9 us there. It is launched as the
+// programmatic dependent of the kernel before it (the pair's gather,
+// which releases it once its row loads are issued): its blocks stage
+// their first indirections while the gather runs and wait for the gather
+// to complete before they read uniq (kUniq's grid_dependency_wait). On
+// that card (tools/split_probe.py, random inputs of the batch's shape) the
+// pair took 8.22-8.36 us against 8.30-8.33 launched plainly, and dedup
+// launches back to back (each the dependent of the one before, which
+// releases it only as it ends) 6.52-6.72 against 6.75-6.94.
 __global__ void __launch_bounds__(kSplitThreads)
 dedup_kernel(const uint32_t* __restrict__ uniq,
              const int32_t* __restrict__ indir,
@@ -700,50 +749,210 @@ unpack_kernel(const uint32_t* __restrict__ rows, int32_t* __restrict__ out,
   cluster.sync();  // no block leaves while rank 0 reads its counts
 }
 
-// Unique-row gather: thread g writes word g % W of out row u = g / W, the
-// AND of the k rows uniq_idx[u * k .. u * k + k - 1] (k = 1: a copy). With
-// kDecode row r is read as rows[refs[r]]. Neighbouring threads move
-// neighbouring words of one row, so loads and stores are coalesced and the
-// ragged word edge needs no padding.
-template <bool kDecode>
+// The gather body's vectors: kVec words (16, 8 or 4 bytes) a load and a
+// store, and their AND.
+template <int kVec> struct GatherVec;
+template <> struct GatherVec<4> {
+  using T = uint4;
+  static __device__ __forceinline__ T ones() {
+    return make_uint4(~0u, ~0u, ~0u, ~0u);
+  }
+  static __device__ __forceinline__ T band(T a, T b) {
+    return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+  }
+};
+template <> struct GatherVec<2> {
+  using T = uint2;
+  static __device__ __forceinline__ T ones() { return make_uint2(~0u, ~0u); }
+  static __device__ __forceinline__ T band(T a, T b) {
+    return make_uint2(a.x & b.x, a.y & b.y);
+  }
+};
+template <> struct GatherVec<1> {
+  using T = uint32_t;
+  static __device__ __forceinline__ T ones() { return ~0u; }
+  static __device__ __forceinline__ T band(T a, T b) { return a & b; }
+};
+
+// Unique-row gather: out row u is the AND of the k rows uniq_idx[u * k ..
+// u * k + k - 1] (k = 1: a copy); with kDecode row r is read as
+// rows[refs[r]]. Block b takes the row sets [32b, 32b + 32) and each of its
+// warps resolves all 32: lane j loads the indices of set 32b + j (and with
+// kDecode their refs entries, all in flight at once), one round trip a
+// level of the index chain for 32 rows. The block's warps then split the
+// sets' rows, moved as vectors of kVec words: lpr = min(W / kVec, 32) lanes
+// a row, 32 / lpr rows a warp-step (at W = 32 and kVec = 4, 8 lanes a row
+// and 4 rows an instruction; at W = 4 a lane a row), each row's source
+// rows broadcast from the lane that resolved them (__shfl_sync). A lane
+// issues the loads of up to kGatherInFlight vectors and of every one of
+// their up to kGatherRows rows before the first AND, then stores each
+// vector once. A set of more than kGatherRows rows is ANDed in rounds,
+// each later round reading back what the lane stored in the one before
+// (uniq_idx and out do not overlap). Once a warp has issued its first
+// loads, its threads release the dependent launch (dedup_kernel).
+template <bool kDecode, int kVec>
 __device__ __forceinline__ void gather_body(
     const uint32_t* __restrict__ rows, const int32_t* __restrict__ refs,
-    const int32_t* __restrict__ uniq_idx, uint32_t* __restrict__ out, int W,
-    int k, long long total) {
-  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (g >= total) return;
-  const long long u = g / W;
-  const int w = static_cast<int>(g % W);
-  const int32_t* set = uniq_idx + u * k;
-  uint32_t v = 0xFFFFFFFFu;
-  for (int j = 0; j < k; ++j) {
-    long long r = set[j];
-    if constexpr (kDecode) r = refs[r];
-    v &= rows[r * W + w];
+    const int32_t* __restrict__ uniq_idx, uint32_t* __restrict__ out, int U,
+    int k, int W) {
+  using Vec = GatherVec<kVec>;
+  using V = typename Vec::T;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long u0 = static_cast<long long>(blockIdx.x) * kGatherSets;
+  const int n = U - u0 < kGatherSets ? static_cast<int>(U - u0)
+                                     : kGatherSets;   // sets of the block
+  const int vpr = W / kVec;                 // vectors a row
+  const int lpr = vpr < 32 ? vpr : 32;      // lanes a row
+  const int rps = 32 / lpr;                 // rows a warp-step
+  const int lr = lane / lpr, lc = lane - lr * lpr;
+  const int cpl = (vpr + lpr - 1) / lpr;    // vectors a lane moves of a row
+  const int step = rps * static_cast<int>(blockDim.x >> 5);
+  const V* src = reinterpret_cast<const V*>(rows);
+  V* dst = reinterpret_cast<V*>(out) + u0 * vpr;
+  const int32_t* set = uniq_idx + (u0 + lane) * k;
+  bool triggered = false;
+  for (int h0 = 0; h0 < k; h0 += kGatherRows) {
+    const int kh = k - h0 < kGatherRows ? k - h0 : kGatherRows;
+    int r[kGatherRows];
+#pragma unroll
+    for (int i = 0; i < kGatherRows; ++i) {
+      r[i] = lane < n && i < kh ? set[h0 + i] : 0;
+    }
+    if constexpr (kDecode) {
+#pragma unroll
+      for (int i = 0; i < kGatherRows; ++i) {
+        if (lane < n && i < kh) r[i] = refs[r[i]];
+      }
+    }
+    // this lane's vectors: of rows s = rps * warp + step * m + lr (a lane
+    // past 32 / lpr rows moves none), vectors c = lc + lpr * j < vpr
+    int m = 0, j = 0;
+    while (rps * warp + step * m < n) {            // uniform in the warp
+      V x[kGatherInFlight][kGatherRows];
+      long long at[kGatherInFlight];
+      int q = 0;
+#pragma unroll
+      for (; q < kGatherInFlight; ++q) {
+        const int s = rps * warp + step * m + lr;
+        if (s - lr >= n) break;                    // uniform in the warp
+        const int c = lc + lpr * j;
+        const bool ok = lr < rps && s < n && c < vpr;
+        at[q] = ok ? static_cast<long long>(s) * vpr + c : -1;
+#pragma unroll
+        for (int i = 0; i < kGatherRows; ++i) {
+          x[q][i] = Vec::ones();
+          if (i < kh) {                            // uniform in the warp
+            const long long ri = __shfl_sync(0xffffffffu, r[i], s & 31);
+            if (ok) x[q][i] = src[ri * vpr + c];
+          }
+        }
+        if (++j == cpl) {
+          j = 0;
+          ++m;
+        }
+      }
+      if (!triggered) {
+        grid_dependents_launch();
+        triggered = true;
+      }
+#pragma unroll
+      for (int p = 0; p < kGatherInFlight; ++p) {
+        if (p < q && at[p] >= 0) {
+          V v = h0 > 0 ? dst[at[p]] : Vec::ones();
+#pragma unroll
+          for (int i = 0; i < kGatherRows; ++i) v = Vec::band(v, x[p][i]);
+          dst[at[p]] = v;
+        }
+      }
+    }
   }
-  out[g] = v;
 }
 
-__global__ void __launch_bounds__(kGatherThreads)
+// Replaces _gather_kernel (gather_rows): arena [R, W], uniq_idx [U, k]
+// (k = 1 for a flat [U] list) -> out [U, W]. Bound: bytes (U * k indices,
+// the rows read, U rows written) and, at the served shapes, the index ->
+// row chain and the launch; the gather body resolves a warp's 32 indices
+// in one round trip and moves the rows as kVec-word vectors. At the dense
+// read batch (uniq_idx [2048], arena [3,813,888, 32]: 64 blocks of 8
+// warps, 16-byte vectors, a row a warp-step of 4 rows per warp) on one
+// H100 80GB HBM3 at 700 W (tools/split_probe.py, random indices):
+// 1.60-1.62 us against a byte bound of 0.15 us; the thread-a-word body it
+// replaced took 1.57-1.61 us there. Warps taking 2, 4 and 8 warp-steps
+// each (4, 2, 1 warps a block) took 1.74-1.81, 2.12-2.16 and 3.03-3.11 us;
+// a first body with one warp per 32 sets and 8 vectors a lane 4.1 us.
+template <int kVec>
+__global__ void __launch_bounds__(kGatherMaxWarps * 32)
 gather_kernel(const uint32_t* __restrict__ arena,
               const int32_t* __restrict__ uniq_idx,
-              uint32_t* __restrict__ out, int W, int k, long long total) {
-  gather_body<false>(arena, nullptr, uniq_idx, out, W, k, total);
+              uint32_t* __restrict__ out, int U, int k, int W) {
+  gather_body<false, kVec>(arena, nullptr, uniq_idx, out, U, k, W);
 }
 
-// The same over a rowdict pair (dict [D, W], refs [R]).
-__global__ void __launch_bounds__(kGatherThreads)
+// Replaces the kernel of gather_rows_compressed: the same over a rowdict
+// pair (dict [D, W], refs [R]), reading row r as dict[refs[r]]. Bound:
+// bytes (indices, one refs entry and one dictionary row per listed row,
+// U rows written) and the idx -> refs -> row chain, whose two index levels
+// the body resolves for 32 rows at once. At the rowdict store's tallest
+// shard (uniq_idx [1024], dict [16384, 4], refs [3,649,024]: 32 blocks of
+// one warp, a lane a 16-byte row) on one H100 80GB HBM3 at 700 W
+// (tools/split_probe.py): 1.66-1.71 us against a byte bound of 0.009 us;
+// the thread-a-word body it replaced took 1.59-1.66 us there. Releasing
+// dedup_kernel as the gather starts instead of after its row loads made
+// the dense read batch's pair slower: 9.19-9.25 us against 8.26-8.31.
+template <int kVec>
+__global__ void __launch_bounds__(kGatherMaxWarps * 32)
 gather_comp_kernel(const uint32_t* __restrict__ dict,
                    const int32_t* __restrict__ refs,
                    const int32_t* __restrict__ uniq_idx,
-                   uint32_t* __restrict__ out, int W, int k,
-                   long long total) {
-  gather_body<true>(dict, refs, uniq_idx, out, W, k, total);
+                   uint32_t* __restrict__ out, int U, int k, int W) {
+  gather_body<true, kVec>(dict, refs, uniq_idx, out, U, k, W);
 }
 
-unsigned int blocks_for(long long items, int threads) {
-  return static_cast<unsigned int>((items + threads - 1) / threads);
+// Launch a gather over U row sets of k rows of W words: a block per 32
+// sets (the last holds the rest), as many warps as its rows need at
+// kGatherSteps warp-steps a warp, and the widest vector that W and both
+// row pointers allow (16 bytes, else 8, else 4).
+template <bool kDecode>
+int launch_gather(const uint32_t* rows, const int32_t* refs,
+                  const int32_t* uniq_idx, uint32_t* out, int U, int k,
+                  int W, void* stream) {
+  if (U < 1 || k < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(rows)
+                       | reinterpret_cast<uintptr_t>(out);
+  const int vec = W % 4 == 0 && at % 16 == 0 ? 4
+                  : W % 2 == 0 && at % 8 == 0 ? 2 : 1;
+  const int vpr = W / vec, lpr = vpr < 32 ? vpr : 32, rps = 32 / lpr;
+  const int sets = U < kGatherSets ? U : kGatherSets;
+  const int steps = (sets + rps - 1) / rps * ((vpr + lpr - 1) / lpr);
+  int warps = (steps + kGatherSteps - 1) / kGatherSteps;
+  warps = warps < kGatherMaxWarps ? warps : kGatherMaxWarps;
+  const dim3 grid(static_cast<unsigned int>(
+      (static_cast<long long>(U) + kGatherSets - 1) / kGatherSets));
+  const dim3 block(static_cast<unsigned int>(warps * 32));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    if constexpr (kDecode) {
+      gather_comp_kernel<4><<<grid, block, 0, st>>>(rows, refs, uniq_idx,
+                                                    out, U, k, W);
+    } else {
+      gather_kernel<4><<<grid, block, 0, st>>>(rows, uniq_idx, out, U, k, W);
+    }
+  } else if (vec == 2) {
+    if constexpr (kDecode) {
+      gather_comp_kernel<2><<<grid, block, 0, st>>>(rows, refs, uniq_idx,
+                                                    out, U, k, W);
+    } else {
+      gather_kernel<2><<<grid, block, 0, st>>>(rows, uniq_idx, out, U, k, W);
+    }
+  } else {
+    if constexpr (kDecode) {
+      gather_comp_kernel<1><<<grid, block, 0, st>>>(rows, refs, uniq_idx,
+                                                    out, U, k, W);
+    } else {
+      gather_kernel<1><<<grid, block, 0, st>>>(rows, uniq_idx, out, U, k, W);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The cluster size a split launch uses: `cluster` when it is 1-8, else
@@ -767,8 +976,12 @@ int split_cluster(long long pairs, int L, int slices, int min_terms,
 
 // Launch `kernel` as pairs * cs blocks of `threads`, in clusters of cs (the
 // cluster size split_cluster picks for `slices` term slices a block of at
-// least `min_terms` terms each).
-template <typename Kernel, typename... Args>
+// least `min_terms` terms each). With kProgrammatic the launch also allows
+// programmatic stream serialization: the kernel may begin once the kernel
+// before it on the stream has triggered its dependents, and must wait
+// (grid_dependency_wait) before it reads what that kernel writes. The
+// launch fails, and is not retried without it, if the driver refuses it.
+template <bool kProgrammatic = false, typename Kernel, typename... Args>
 int launch_clustered(Kernel kernel, long long pairs, int L, int slices,
                      int min_terms, int threads, int cluster, int device,
                      void* stream, Args... args) {
@@ -782,27 +995,37 @@ int launch_clustered(Kernel kernel, long long pairs, int L, int slices,
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[2];
+  unsigned int n = 0;
+  if (cs > 1) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = cs;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if constexpr (kProgrammatic) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
   cfg.attrs = attr;
-  cfg.numAttrs = cs > 1 ? 1 : 0;
+  cfg.numAttrs = n;
   // the kernel's last argument is the cluster size it was launched with
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args..., cs);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// A split-body kernel over `cells` cells of L terms and Wo output words.
-template <typename Kernel, typename... Args>
+// A split-body kernel over `cells` cells of L terms and Wo output words
+// (kProgrammatic as for launch_clustered: dedup_kernel's alone).
+template <bool kProgrammatic = false, typename Kernel, typename... Args>
 int launch_split(Kernel kernel, long long cells, int L, int Wo, int cluster,
                  int device, void* stream, Args... args) {
   const SplitGeometry g = split_geometry(Wo);
-  return launch_clustered(kernel, cells * g.tiles, L, g.slices,
-                          kMinSliceTerms, kSplitThreads, cluster, device,
-                          stream, args...);
+  return launch_clustered<kProgrammatic>(
+      kernel, cells * g.tiles, L, g.slices, kMinSliceTerms, kSplitThreads,
+      cluster, device, stream, args...);
 }
 
 }  // namespace
@@ -974,18 +1197,18 @@ extern "C" int cobs_chunk_dedup(const void* uniq, const void* indir,
 
 // The dedup pair: uniq_idx [U, k] (k = 1 for a flat [U] list), out
 // [U, W]; then uniq [U, W], indir and mask [cells, L], out [cells, W, 32].
+// cobs_dedup_score launches as the programmatic dependent of the kernel
+// before it on the stream (the gather of the pair), so its launch and
+// first staging overlap the gather; its kernel waits for that kernel's
+// completion before it reads uniq.
 extern "C" int cobs_gather_rows(const void* arena, const void* uniq_idx,
                                 void* out, int U, int k, int W, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(U) * W;
-  gather_kernel<<<blocks_for(total, kGatherThreads), kGatherThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(arena),
-      static_cast<const int32_t*>(uniq_idx), static_cast<uint32_t*>(out), W,
-      k, total);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gather<false>(static_cast<const uint32_t*>(arena), nullptr,
+                              static_cast<const int32_t*>(uniq_idx),
+                              static_cast<uint32_t*>(out), U, k, W, stream);
 }
 
 extern "C" int cobs_gather_rows_comp(const void* dict, const void* refs,
@@ -994,13 +1217,10 @@ extern "C" int cobs_gather_rows_comp(const void* dict, const void* refs,
                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(U) * W;
-  gather_comp_kernel<<<blocks_for(total, kGatherThreads), kGatherThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(dict), static_cast<const int32_t*>(refs),
-      static_cast<const int32_t*>(uniq_idx), static_cast<uint32_t*>(out), W,
-      k, total);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gather<true>(static_cast<const uint32_t*>(dict),
+                             static_cast<const int32_t*>(refs),
+                             static_cast<const int32_t*>(uniq_idx),
+                             static_cast<uint32_t*>(out), U, k, W, stream);
 }
 
 extern "C" int cobs_dedup_score(const void* uniq, const void* indir,
@@ -1009,11 +1229,11 @@ extern "C" int cobs_dedup_score(const void* uniq, const void* indir,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_split(dedup_kernel, cells, L, W, cluster, device, stream,
-                      static_cast<const uint32_t*>(uniq),
-                      static_cast<const int32_t*>(indir),
-                      static_cast<const int32_t*>(mask),
-                      static_cast<int32_t*>(out), L, W);
+  return launch_split<true>(dedup_kernel, cells, L, W, cluster, device,
+                            stream, static_cast<const uint32_t*>(uniq),
+                            static_cast<const int32_t*>(indir),
+                            static_cast<const int32_t*>(mask),
+                            static_cast<int32_t*>(out), L, W);
 }
 
 extern "C" const char* cobs_error_string(int err) {

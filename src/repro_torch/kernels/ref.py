@@ -21,7 +21,7 @@ def bitslice_score_ref(rows: torch.Tensor) -> torch.Tensor:
     counts in word-major, LSB-first order. A leading batch axis [B, L, W]
     gives [B, W * 32]."""
     counts = _bits(rows).sum(dim=-3, dtype=torch.int32)
-    return counts.reshape(*rows.shape[:-2], -1)
+    return counts.reshape(*rows.shape[:-2], rows.shape[-1] * 32)
 
 
 def _masked_counts(arena: torch.Tensor, rows_idx: torch.Tensor,

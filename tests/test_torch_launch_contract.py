@@ -1,15 +1,18 @@
-"""What the scoring wrappers that take long queries hand the kernel
-library, on the CPU.
+"""What the scoring wrappers that take long queries, and the two gathers,
+hand the kernel library, on the CPU.
 
 With the CUDA check and the launcher stubbed, each wrapper is called on
 CPU tensors at L = 70,144 and its calls into the library are recorded:
 the fused-decode lookups, the three chunk wrappers, ``dedup_score`` and
 ``unpack_score`` run kernels that take a cluster size, one launch for any
-L at the cluster size the entry point picks (``CLUSTER_AUTO``).
+L at the cluster size the entry point picks (``CLUSTER_AUTO``); the two
+gathers one launch each for a flat [U] list and for [U, k] row sets.
 ``_build.split_info`` must refuse a kernel that is not a split kernel
 before it touches the library, and the source must launch each split
-kernel through its cluster launcher. No kernel runs here: this checks the
-Python side of the launch contract only.
+kernel through its cluster launcher, ``dedup_kernel`` alone with
+programmatic stream serialization, and both gathers through the one
+gather body. No kernel runs here: this checks the Python side of the
+launch contract and the source's text only.
 """
 import re
 
@@ -27,6 +30,14 @@ SPLIT = {"lookup_score_blocks_compressed": "cobs_lookup_comp",
          "chunk_lookup_score_multi_compressed": "cobs_chunk_lookup_comp",
          "chunk_dedup_score": "cobs_chunk_dedup",
          "dedup_score": "cobs_dedup_score", "unpack_score": "cobs_unpack"}
+# the gathers: (wrapper, k of the row sets or None for a flat [U] list)
+GATHERS = {"gather_rows": ("gather_rows", None),
+           "gather_rows_k3": ("gather_rows", 3),
+           "gather_rows_compressed": ("gather_rows_compressed", None),
+           "gather_rows_compressed_k3": ("gather_rows_compressed", 3)}
+GATHER_SYMBOLS = {"gather_rows": "cobs_gather_rows",
+                  "gather_rows_compressed": "cobs_gather_rows_comp"}
+U = 37
 
 
 def _call(name: str) -> None:
@@ -39,6 +50,15 @@ def _call(name: str) -> None:
     idx = torch.randint(0, 30, (CELLS, 1, L), generator=g, dtype=torch.int32)
     mask = torch.ones((CELLS, 1, L), dtype=torch.int32)
     acc = torch.zeros((CELLS, 1, WP, 32), dtype=torch.int32)
+    if name in GATHERS:
+        wrapper, sets = GATHERS[name]
+        uniq_idx = torch.randint(0, 30, (U,) if sets is None else (U, sets),
+                                 generator=g, dtype=torch.int32)
+        if wrapper == "gather_rows":
+            k.gather_rows(rows, uniq_idx % 9)
+        else:
+            k.gather_rows_compressed(rows, refs, uniq_idx)
+        return
     fn = getattr(k, name)
     if name == "lookup_score_blocks_compressed":
         fn(rows, refs, idx[:, 0].contiguous(), mask[:, 0].contiguous())
@@ -55,7 +75,7 @@ def _call(name: str) -> None:
         fn(rows, idx % 9, mask, acc)
 
 
-@pytest.mark.parametrize("name", sorted(SPLIT))
+@pytest.mark.parametrize("name", sorted(SPLIT) + sorted(GATHERS))
 def test_long_query_launches(monkeypatch, name):
     calls = []
     monkeypatch.setattr(k, "_on_cuda", lambda *tensors: True)
@@ -64,13 +84,20 @@ def test_long_query_launches(monkeypatch, name):
                         lambda symbol, *args: calls.append((symbol, args)))
     before = dict(k.launches)
     _call(name)
-    chunk = name.startswith("chunk_")
-    # each call ends (cells, L, W[, Wp], cluster, device, stream)
-    tail = 7 if chunk else 6
-    want = [(SPLIT[name], (CELLS, L, W) + ((WP,) if chunk else ())
-             + (k.CLUSTER_AUTO, 0, 0))]
+    if name in GATHERS:
+        # one launch for any U and k: (U, k, W, device, stream)
+        wrapper, sets = GATHERS[name]
+        tail = 5
+        want = [(GATHER_SYMBOLS[wrapper], (U, sets or 1, W, 0, 0))]
+    else:
+        wrapper = name
+        chunk = name.startswith("chunk_")
+        # each call ends (cells, L, W[, Wp], cluster, device, stream)
+        tail = 7 if chunk else 6
+        want = [(SPLIT[name], (CELLS, L, W) + ((WP,) if chunk else ())
+                 + (k.CLUSTER_AUTO, 0, 0))]
     assert [(symbol, args[-tail:]) for symbol, args in calls] == want
-    assert k.launches[name] - before[name] == len(want)
+    assert k.launches[wrapper] - before[wrapper] == len(want)
     for symbol, args in calls:
         assert len(args) == len(_build._SIGNATURES[symbol])
 
@@ -91,22 +118,51 @@ def test_split_info_refuses_other_kernels(monkeypatch, kernel):
 
 
 # each split kernel and the launcher that launches it with a cluster size
+# (dedup_kernel's also with programmatic stream serialization), and each
+# gather kernel and the launcher that picks its vector width
 SPLIT_SOURCE = {"vertical_kernel": "launch_split",
                 "lookup_kernel": "launch_split",
                 "lookup_comp_kernel": "launch_split",
                 "chunk_lookup_kernel": "launch_split",
                 "chunk_lookup_comp_kernel": "launch_split",
                 "chunk_dedup_kernel": "launch_split",
-                "dedup_kernel": "launch_split",
-                "unpack_kernel": "launch_clustered"}
+                "dedup_kernel": "launch_split<true>",
+                "unpack_kernel": "launch_clustered",
+                "gather_kernel": "launch_gather<false>",
+                "gather_comp_kernel": "launch_gather<true>"}
 
 
 @pytest.mark.parametrize("kernel", sorted(SPLIT_SOURCE))
 def test_split_kernels_in_the_source(kernel):
     src = _build.SOURCE.read_text()
-    assert re.search(rf"{SPLIT_SOURCE[kernel]}\(\s*{kernel},", src)
+    launcher = SPLIT_SOURCE[kernel]
+    if kernel.startswith("gather"):
+        assert re.search(rf"return {launcher}\(", src)
+        # one instantiation a vector width (16, 8, 4 bytes), launched from
+        # the one launcher, and a single gather body under both kernels
+        for vec in (4, 2, 1):
+            assert len(re.findall(rf"\b{kernel}<{vec}><<<", src)) == 1
+        assert src.count("void gather_body(") == 1
+        assert "gather_body<false, kVec>" in src
+        assert "gather_body<true, kVec>" in src
+        body = src.split("void gather_body(", 1)[1].split("\n}\n", 1)[0]
+        for piece in ("__shfl_sync", "Vec::band", "grid_dependents_launch()",
+                      "x[kGatherInFlight][kGatherRows]"):
+            assert piece in body
+        return
+    assert re.search(rf"{re.escape(launcher)}\(\s*{kernel},", src)
     assert not re.search(rf"\b{kernel}<<<", src)   # never a plain launch
+    # programmatic stream serialization: dedup_kernel's launch alone, and
+    # only its split_body instantiation waits for the kernel before it
+    programmatic = bool(re.search(rf"<true>\(\s*{kernel},", src))
+    assert programmatic == (kernel == "dedup_kernel")
+    assert src.count("cudaLaunchAttributeProgrammaticStreamSerialization") \
+        == 1
+    assert src.count("grid_dependency_wait();") == 1
+    assert "if constexpr (kSrc == kUniq) grid_dependency_wait();" in src
     body = src.split(f"\n{kernel}(", 1)[1].split("\n}\n", 1)[0]
+    if kernel == "dedup_kernel":
+        assert "split_body<kUniq, false>" in body
     if kernel != "unpack_kernel":
         assert "split_body<" in body
     else:

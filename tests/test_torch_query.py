@@ -224,3 +224,43 @@ def test_engine_refuses_what_is_not_ported(jax_indexes):
         QueryEngine(index, method="fast", device=CPU)
     with pytest.raises(ValueError, match="lives on"):
         QueryEngine(index, device="meta")
+
+
+# --------------------------------------------------------------------------
+# an empty batch
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def hash_indexes(small_corpus, small_indexes):
+    """Classic and compact indexes with one hash and with three."""
+    params3 = JaxParams(n_hashes=3, fpr=0.3, kmer=15)
+    classic1, compact1 = small_indexes
+    return {
+        ("classic", 1): classic1,
+        ("compact", 1): compact1,
+        ("classic", 3): jax_build_classic(small_corpus.doc_terms, params3),
+        ("compact", 3): jax_build_compact(small_corpus.doc_terms, params3,
+                                          block_docs=32, row_align=64),
+    }
+
+
+@pytest.mark.parametrize("n_hashes", [1, 3])
+@pytest.mark.parametrize("kind", ["classic", "compact"])
+def test_empty_batch_equals_reference(hash_indexes, kind, n_hashes):
+    """``search_batch([])`` under ``method="ref"`` answers ``[]``, as the
+    JAX engine does."""
+    jax_index = hash_indexes[(kind, n_hashes)]
+    want = JaxEngine(jax_index, method="ref").search_batch([])
+    got = QueryEngine(carry(jax_index), method="ref",
+                      device=CPU).search_batch([])
+    assert want == [] and got == []
+
+
+def test_empty_batch_still_raises_where_reference_raises(hash_indexes):
+    """``method="vertical"`` refuses an empty batch on both sides."""
+    jax_index = hash_indexes[("compact", 1)]
+    with pytest.raises(Exception):
+        JaxEngine(jax_index, method="vertical").search_batch([])
+    with pytest.raises(RuntimeError):
+        QueryEngine(carry(jax_index), method="vertical",
+                    device=CPU).search_batch([])

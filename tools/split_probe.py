@@ -33,17 +33,28 @@ Run from a checkout of the repository. It
    1, 2 and the entry point's choice, beside ``vertical_kernel`` at the
    same rows and, with ``--against``, the other checkout's
    ``cobs_unpack``;
-5. with ``--against DIR``, a checkout of another commit whose six older
-   split entry points (``cobs_vertical``, ``cobs_lookup``,
-   ``cobs_lookup_comp``, ``cobs_chunk_dedup``, ``cobs_dedup_score``,
-   ``cobs_unpack``) take the same arguments: builds that checkout's kernel
-   source beside this one, says whether the SASS of those six kernels is
-   the same in both (with each one's ptxas report), and times both
-   libraries' entry points at the main path's shapes (random rows and
-   indices, arenas of the main index's height) in the order this, other,
-   other, this, three times over: rows 1-5, 7 and 9-11 of PERF.md's
-   kernel table, and rows 12-13 (the two chunk lookups, whose entry points
-   took a counter-plane count where they now take a cluster size).
+5. with ``--against DIR``, a checkout of another commit whose split and
+   gather entry points take the same arguments: builds that checkout's
+   kernel source beside this one, says whether the SASS of the six older
+   split kernels (``vertical_kernel``, ``lookup_kernel``,
+   ``lookup_comp_kernel``, ``chunk_lookup_kernel``,
+   ``chunk_lookup_comp_kernel``, ``chunk_dedup_kernel``) and of
+   ``unpack_kernel`` is the same in both (with each one's ptxas report),
+   and times both libraries' entry points at the main path's shapes
+   (random rows and indices, arenas of the main index's height) in the
+   order this, other, other, this, three times over: rows 1-5, 7 and 9-11
+   of PERF.md's kernel table, rows 12-13 (the two chunk lookups, whose
+   entry points took a counter-plane count where they now take a cluster
+   size), rows 6 and 8 (the two gathers) and the dense read batch's dedup
+   pair (``cobs_gather_rows`` then ``cobs_dedup_score``, one library's
+   pair at a time) beside this library's fused lookup of the same batch;
+6. times rows 6 and 8 and the dedup pair (random, seed 0) with a gather
+   block's warps taking 1, 2, 4 and 8 warp-steps each (copies of the
+   kernel source with ``kGatherSteps`` changed: fewer, busier warps a
+   block), in the order 1, 2, 4, 8, 8, 4, 2, 1, three times over;
+7. times the same with the gather releasing the dependent launch after
+   its first row loads (this source) and as it starts (a copy), in the
+   order this, copy, copy, this, three times over.
 
 Every launch is first checked equal to its plain PyTorch version. Times
 are the median of 5 replays of a CUDA graph of 64 launches, per launch.
@@ -117,13 +128,39 @@ MAIN_SHAPES = (
     ("row 13 chunk_lookup_comp idx [128, 1, 32]", "chunk_lookup_comp",
      (128, 1), 32, 4, 3_649_024),
 )
+# the warp-steps a gather block's warp takes (its warps: as many as its
+# rows need at that many steps each)
+GSTEPS_LINE = "constexpr int kGatherSteps = 1;\n"
+GATHER_STEPS = (1, 2, 4, 8)
+# where a gather warp releases the dependent launch: after its first row
+# loads (this source) or, in a copy, as the kernel starts
+TRIGGER_LINES = (
+    ("      if (!triggered) {\n"
+     "        grid_dependents_launch();\n"
+     "        triggered = true;\n"
+     "      }\n", ""),
+    ("  using V = typename Vec::T;\n",
+     "  using V = typename Vec::T;\n  grid_dependents_launch();\n"),
+)
+# rows 6 and 8 of PERF.md's kernel table: (what, U, W, source rows, refs
+# entries or 0), and the dense read batch's dedup pair: (indir shape, U,
+# W, arena rows)
+GATHER_SHAPES = (
+    ("row 6 gather_rows uniq_idx [2048]", 2048, 32, 3_813_888, 0),
+    ("row 8 gather_rows_compressed uniq_idx [1024]", 1024, 4, 16_384,
+     3_649_024),
+)
+PAIR_SHAPE = ((32, 2, 128), 2048, 32, 3_813_888)
 # the entry points both libraries must share for --against, and the
-# kernels of the older six, whose SASS must not change
+# kernels whose SASS must not change: the six older split kernels (not
+# dedup_kernel, whose body waits for the gather) and unpack_kernel
 SHARED = ("cobs_vertical", "cobs_lookup", "cobs_lookup_comp",
           "cobs_chunk_dedup", "cobs_dedup_score", "cobs_unpack",
-          "cobs_chunk_lookup", "cobs_chunk_lookup_comp")
+          "cobs_chunk_lookup", "cobs_chunk_lookup_comp", "cobs_gather_rows",
+          "cobs_gather_rows_comp")
 SHARED_KERNELS = ("vertical_kernel", "lookup_kernel", "lookup_comp_kernel",
-                  "chunk_dedup_kernel", "dedup_kernel", "unpack_kernel")
+                  "chunk_lookup_kernel", "chunk_lookup_comp_kernel",
+                  "chunk_dedup_kernel", "unpack_kernel")
 
 
 def log(*parts) -> None:
@@ -145,12 +182,21 @@ def finish(proc: subprocess.Popen, what: str) -> str:
     return report
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name in a mangled symbol: ...<len><name>E<args>, a
+    template's ...<len><name>I<args>EE... as name<args> (gather_kernel<4>).
+    """
+    m = re.search(r"\d+([A-Za-z_]+_kernel)(?:ILi(\d+)EE)?E", mangled)
+    if m is None:
+        return mangled.strip()
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
 def ptxas_lines(report: str) -> dict[str, str]:
     out, kernel = {}, "?"
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d+([A-Za-z_]+_kernel)E", line)
-            kernel = m.group(1) if m else line.strip()
+            kernel = kernel_name(line)
         elif "Used" in line or "spill" in line:
             out[kernel] = (out.get(kernel, "") + " "
                            + line.split(":", 1)[-1].strip()).strip()
@@ -169,10 +215,9 @@ def sass(lib: Path, tool: Path) -> dict[str, str] | None:
     out = {}
     for part in text.split("Function : ")[1:]:
         name_line, _, body = part.partition("\n")
-        m = re.search(r"\d+([A-Za-z_]+_kernel)E", name_line)
-        if m:
-            out[m.group(1)] = re.sub(r"[ \t]+", " ",
-                                     body.split("\n\t\t......")[0])
+        if re.search(r"\d+([A-Za-z_]+_kernel)", name_line):
+            out[kernel_name(name_line)] = re.sub(
+                r"[ \t]+", " ", body.split("\n\t\t......")[0])
     return out
 
 
@@ -437,6 +482,88 @@ def probe_against(torch, k, libs, dev_i, stream, g, planes) -> dict:
     return res
 
 
+def probe_gathers(torch, k, libs, order, dev_i, stream, g,
+                  fused: bool) -> dict:
+    """The gathers of ``libs`` (name -> library) at GATHER_SHAPES and their
+    dedup pairs at PAIR_SHAPE, each checked, then timed in ``order`` three
+    times over; with ``fused``, beside the first library's fused lookup of
+    the pair's batch (the indices expanded)."""
+    res = {}
+    dev = torch.device("cuda", dev_i)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int64).to(torch.int32).to(dev)
+    for what, U, W, R, n_refs in GATHER_SHAPES:
+        table = ints(-2 ** 31, 2 ** 31, R, W)
+        out = torch.empty((U, W), dtype=torch.int32, device=dev)
+        if n_refs:
+            refs = ints(0, R, n_refs)
+            idx = ints(0, n_refs, U)
+            want = k.gather_comp_plain(table, refs, idx)
+
+            def call(lib, refs=refs, idx=idx, table=table, U=U, W=W,
+                     out=out):
+                return lib.cobs_gather_rows_comp(
+                    table.data_ptr(), refs.data_ptr(), idx.data_ptr(),
+                    out.data_ptr(), U, 1, W, dev_i, stream())
+        else:
+            idx = ints(0, R, U)
+            want = k.gather_plain(table, idx)
+
+            def call(lib, idx=idx, table=table, U=U, W=W, out=out):
+                return lib.cobs_gather_rows(table.data_ptr(), idx.data_ptr(),
+                                            out.data_ptr(), U, 1, W, dev_i,
+                                            stream())
+        res[what] = in_turns(torch, libs, order, what, call, out, want)
+    (Q, nb, L), U, W, R = PAIR_SHAPE
+    arena = ints(-2 ** 31, 2 ** 31, R, W)
+    uniq_idx = ints(0, R, U)
+    indir = ints(0, U, Q, nb, L)
+    mask = (torch.rand((Q, nb, L), generator=g) < 0.95).to(
+        torch.int32).to(dev)
+    uniq = torch.empty((U, W), dtype=torch.int32, device=dev)
+    out = torch.empty((Q, nb, W, 32), dtype=torch.int32, device=dev)
+    want = k.lookup_plain(arena, uniq_idx[indir.long()], mask)
+
+    def pair(lib):
+        err = lib.cobs_gather_rows(arena.data_ptr(), uniq_idx.data_ptr(),
+                                   uniq.data_ptr(), U, 1, W, dev_i, stream())
+        return err or lib.cobs_dedup_score(
+            uniq.data_ptr(), indir.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), Q * nb, L, W, 0, dev_i, stream())
+    what = f"dedup pair indir [{Q}, {nb}, {L}], uniq [{U}, {W}]"
+    res[what] = in_turns(torch, libs, order, what, pair, out, want)
+    if fused:
+        expanded = uniq_idx.long()[indir.long()].to(torch.int32).contiguous()
+        lib = libs[order[0]]
+        out2 = torch.empty_like(out)
+
+        def lookup():
+            return lib.cobs_lookup(arena.data_ptr(), expanded.data_ptr(),
+                                   mask.data_ptr(), out2.data_ptr(), Q * nb,
+                                   L, W, 0, dev_i, stream())
+        checked(torch, "fused lookup of the pair's batch", lookup, out2,
+                want)
+        res[what][f"fused ({order[0]})"] = [graph_ms(torch, lookup)
+                                            for _ in range(3)]
+    return res
+
+
+def in_turns(torch, libs, order, what, call, out, want) -> dict:
+    """``call(lib)`` checked for each library, then timed in ``order``
+    three times over."""
+    runs = {side: [] for side in libs}
+    for side in runs:
+        out.zero_()
+        checked(torch, f"{what} ({side})", lambda: call(libs[side]), out,
+                want)
+    for _ in range(3):
+        for side in order:
+            runs[side].append(graph_ms(torch, lambda: call(libs[side])))
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -455,6 +582,9 @@ def main() -> int:
     text = (ROOT / SOURCE_REL).read_text()
     for line, what in ((SLICE_LINE, "split_body's slice count"),
                        (WARPS_LINE, "kUnpackWarps"),
+                       (GSTEPS_LINE, "kGatherSteps"),
+                       *((old, "gather_body's trigger")
+                         for old, _ in TRIGGER_LINES),
                        *((old, "split_body's word tile")
                          for old, _ in WCUT_LINES)):
         if text.count(line) != 1:
@@ -478,6 +608,20 @@ def main() -> int:
             "kUnpackWarps = 8;", f"kUnpackWarps = {n};")))
         paths[key] = PROBE_DIR / f"{key}.so"
         procs[key] = nvcc_build(_build, src, paths[key])
+    for n in GATHER_STEPS[1:]:
+        key = f"gsteps{n}"
+        src = PROBE_DIR / f"{key}.cu"
+        src.write_text(text.replace(GSTEPS_LINE, GSTEPS_LINE.replace(
+            "= 1;", f"= {n};")))
+        paths[key] = PROBE_DIR / f"{key}.so"
+        procs[key] = nvcc_build(_build, src, paths[key])
+    entry = text
+    for old, new in TRIGGER_LINES:
+        entry = entry.replace(old, new)
+    (PROBE_DIR / "trigger.cu").write_text(entry)
+    paths["trigger"] = PROBE_DIR / "trigger.so"
+    procs["trigger"] = nvcc_build(_build, PROBE_DIR / "trigger.cu",
+                                  paths["trigger"])
     wcut = text
     for old, new in WCUT_LINES:
         wcut = wcut.replace(old, new)
@@ -492,12 +636,17 @@ def main() -> int:
     libs = {S: load(paths[S], _build._SIGNATURES) for S in SLICES}
     warp_libs = {WARPS[0]: libs[SLICES[0]], **{
         n: load(paths[f"warps{n}"], _build._SIGNATURES) for n in WARPS[1:]}}
+    gstep_libs = {GATHER_STEPS[0]: libs[SLICES[0]], **{
+        n: load(paths[f"gsteps{n}"], _build._SIGNATURES)
+        for n in GATHER_STEPS[1:]}}
     rec = {"card": card_line(), "torch": torch.__version__,
            "cuda": torch.version.cuda,
            "ptxas": {str(key): ptxas_lines(r) for key, r in reports.items()}}
     for key, lines in rec["ptxas"].items():
-        for kern in (*SHARED_KERNELS, "chunk_lookup_kernel",
-                     "chunk_lookup_comp_kernel"):
+        for kern in (*SHARED_KERNELS, "dedup_kernel",
+                     *(f"{name}<{v}>" for name in ("gather_kernel",
+                                                   "gather_comp_kernel")
+                       for v in (4, 2, 1))):
             if kern in lines:
                 log(f"[ptxas] {key}: {kern}: {lines[kern]}")
     dev_i = torch.cuda.current_device()
@@ -549,15 +698,38 @@ def main() -> int:
             planes = re.search(
                 r"int cobs_chunk_lookup\([^)]*int n_planes",
                 (args.against / SOURCE_REL).read_text()) is not None
-            rec["against"] = probe_against(
-                torch, k, {"this": libs[SLICES[0]], "other": other_lib},
-                dev_i, stream, g, planes)
+            both = {"this": libs[SLICES[0]], "other": other_lib}
+            rec["against"] = probe_against(torch, k, both, dev_i, stream, g,
+                                           planes)
+            rec["against"].update(probe_gathers(
+                torch, k, both, ("this", "other", "other", "this"), dev_i,
+                stream, g, fused=True))
             for what, runs in rec["against"].items():
                 log(f"[against] {what}: this " + ", ".join(
                     f"{t * 1e3:.2f}" for t in runs["this"]) + " us; other "
                     + ", ".join(f"{t * 1e3:.2f}" for t in runs["other"])
                     + f" us; medians {statistics.median(runs['this']) * 1e3:.2f}"
-                    f" / {statistics.median(runs['other']) * 1e3:.2f}")
+                    f" / {statistics.median(runs['other']) * 1e3:.2f}"
+                    + ("; fused (this) " + ", ".join(
+                        f"{t * 1e3:.2f}" for t in runs["fused (this)"])
+                       + " us" if "fused (this)" in runs else ""))
+        rec["gather_steps_ms"] = probe_gathers(
+            torch, k, {n: gstep_libs[n] for n in GATHER_STEPS},
+            GATHER_STEPS + GATHER_STEPS[::-1], dev_i, stream, g,
+            fused=False)
+        for what, runs in rec["gather_steps_ms"].items():
+            log(f"[gather steps] {what}: " + "; ".join(
+                f"{n} a warp " + ", ".join(f"{t * 1e3:.2f}" for t in ts)
+                + " us" for n, ts in runs.items()))
+        trig = {"after loads": libs[SLICES[0]],
+                "at entry": load(paths["trigger"], _build._SIGNATURES)}
+        rec["trigger_ms"] = probe_gathers(
+            torch, k, trig, ("after loads", "at entry", "at entry",
+                             "after loads"), dev_i, stream, g, fused=False)
+        for what, runs in rec["trigger_ms"].items():
+            log(f"[trigger] {what}: " + "; ".join(
+                f"{n} " + ", ".join(f"{t * 1e3:.2f}" for t in ts) + " us"
+                for n, ts in runs.items()))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "split_probe.json").write_text(json.dumps(rec, indent=1))
     print(rec["card"])
