@@ -60,9 +60,20 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    plain version, and so do the gathers at ragged widths, row sets of 1-5
    rows and sources whose data pointers are 4-, 8- and 16-byte aligned,
    and the pair run as the server runs it (the dedup launch the gather's
-   programmatic dependent). The store directories are deleted after this
-   phase;
-9. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
+   programmatic dependent);
+9. drives the kernel tuner ("[tune]"), its counters from 0 and kept out
+   of the kernel line's launches: the dense reads, the dense mix and the
+   rowdict reads served again with ``autotune=True`` into a tuning cache
+   file each (every response equal to the engine's; the tuned entries,
+   dispatch mix and queries/s printed beside the untuned [serve] run),
+   then each reopened read-only from its file, which must tune nothing
+   and hit; the raw store's ``lookup_p`` break-even at the read shape
+   (``tools/split_probe.py --tune`` asks how far fresh tunes spread and
+   what a fixture past the L2 changes). The tuner must have launched the
+   eight kernels its measurements run, and every served dedup-path call
+   must equal its plain version. The store directories are deleted after
+   this phase;
+10. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
    torch.profiler (device time, the top device and host operations; the
    chunked executors under cProfile too), and times each kernel at the
    main path's shapes (a CUDA graph of 64 launches, so no host gaps)
@@ -81,6 +92,7 @@ line. Without CUDA, or outside a checkout, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -125,6 +137,10 @@ KERNELS = {
     "gather_rows_compressed": (486, "kernel (inside gather_rows_compressed)",
                                "gather_comp_kernel"),
 }
+# the kernels the tuner's measurements launch
+TUNE_KERNELS = ("lookup_score_multi", "lookup_score_multi_compressed",
+                "gather_rows", "gather_rows_compressed", "dedup_score",
+                "unpack_score", "vertical_score", "chunk_dedup_score")
 CHUNK_KERNELS = ("chunk_dedup_score", "chunk_lookup_score_multi",
                  "chunk_lookup_score_multi_compressed")
 MAIN_KERNELS = ("unpack_score", "vertical_score", "lookup_score_blocks",
@@ -1559,30 +1575,38 @@ def serve_groups(server, groups):
     return out, time.perf_counter() - t0
 
 
-def run_server(rt, torch, index, config, groups, want, what, rec):
+def run_server(rt, torch, index, config, groups, want, what, rec,
+               tag="serve"):
     """Serve ``groups`` twice through one QueryServer: a warm pass, then,
     after ``reset_metrics(clear_caches=True)``, the measured pass with the
     dedup wrappers recorded by ``rec``. Every response must be OK and equal
     ``want`` (same order). Returns the server, the measured responses, the
-    record and the batch dedup plans of the measured pass."""
+    record and the batch dedup plans of the measured pass; its lines are
+    tagged ``[tag:what]``."""
     server = rt.QueryServer(index, config)
     for label in ("warm", "measured"):
         if label == "measured":
             server.reset_metrics(clear_caches=True)
+            n0 = server.profiler.count
             with rec, DedupPlans(rt.server_mod) as plans:
                 resp, secs = serve_groups(server, groups)
         else:
             resp, secs = serve_groups(server, groups)
         check(all(r.status == rt.Status.OK for r in resp),
-              f"[serve:{what}] {label}: a response is not OK")
+              f"[{tag}:{what}] {label}: a response is not OK")
         check(all(same_result(r.result, w) for r, w in zip(resp, want)),
-              f"[serve:{what}] {label}: a response differs from the "
+              f"[{tag}:{what}] {label}: a response differs from the "
               "QueryEngine's")
     torch.cuda.synchronize()
     e2e = [r.latency_s for r in resp]
     service = [r.service_s for r in resp]
     rates = [p[0] for p in plans.plans]
     tiles = server.tiles
+    # the measured pass's kernel spans (plan to scores on the host), the
+    # live costs a tuner is fed, by dispatched method
+    spans = {}
+    for r in server.profiler.records(server.profiler.count - n0):
+        spans.setdefault(r["method"], []).append(r["seconds"] * 1e6)
     m = {"requests": len(resp), "wall_s": secs,
          "queries_per_s": len(resp) / secs,
          "p50_e2e_ms": pct_ms(e2e, 50), "p99_e2e_ms": pct_ms(e2e, 99),
@@ -1592,17 +1616,20 @@ def run_server(rt, torch, index, config, groups, want, what, rec):
          "dedup_rates": rates,
          "unique_rows": sum(p[1] for p in plans.plans),
          "gathers": sum(p[2] for p in plans.plans),
+         "span_us": {m: statistics.median(v) for m, v in spans.items()},
          "tile_faults": tiles.faults,
          "raw_bytes_staged": tiles.raw_bytes_staged,
          "comp_bytes_staged": tiles.comp_bytes_staged}
-    log(f"[serve:{what}] {len(resp)} requests equal the QueryEngine's; "
+    log(f"[{tag}:{what}] {len(resp)} requests equal the QueryEngine's; "
         f"{m['queries_per_s']:.1f} queries/s; e2e p50 {m['p50_e2e_ms']:.3f} "
         f"ms, p99 {m['p99_e2e_ms']:.3f} ms; service p50 "
         f"{m['p50_service_ms']:.3f} ms, p99 {m['p99_service_ms']:.3f} ms; "
         f"dispatch {m['dispatch']}")
-    log(f"[serve:{what}] batch dedup rates "
+    log(f"[{tag}:{what}] batch dedup rates "
         f"{[round(r, 3) for r in rates]}; {m['unique_rows']} unique rows "
-        f"against {m['gathers']} gathers; {tiles.faults} tile faults, "
+        f"against {m['gathers']} gathers; kernel span medians (us) "
+        f"{ {k: round(v, 1) for k, v in m['span_us'].items()} }; "
+        f"{tiles.faults} tile faults, "
         f"{tiles.raw_bytes_staged} raw + {tiles.comp_bytes_staged} "
         "compressed bytes staged (both passes)")
     return server, resp, m, plans.plans
@@ -1792,7 +1819,8 @@ def phase_serve(rt, torch, corpus, index, stores, queries, origin, chk):
     dense index under the disjoint serving mix and overlapping reads, the
     raw store (tile cache bounded at half of it) and the rowdict store
     (compressed=True) under overlapping reads. Returns the record, this
-    path's launches and the dedup kernels' timing inputs."""
+    path's launches, the dedup kernels' timing inputs and the traffic
+    (what -> index, request groups, the engine's answers) for [tune]."""
     k = rt.kernels
     raw, comp = stores["raw"], stores["comp"]
     reads = overlapping_reads(corpus, SEED + 15)
@@ -1886,7 +1914,99 @@ def phase_serve(rt, torch, corpus, index, stores, queries, origin, chk):
               "dedup_score": same_shapes(dense_calls["dedup_score"]),
               "gather_rows_compressed": same_shapes(
                   [a for a in comp_calls if a[1].shape[0] == tallest])}
-    return out, launches, timing
+    traffic = {what: (idx, groups, want)
+               for what, idx, _, groups, want in cases}
+    return out, launches, timing, traffic
+
+
+# --------------------------------------------------------------------------
+# The kernel tuner
+# --------------------------------------------------------------------------
+
+def tuned_entries(tuner) -> list:
+    """(key, method, cost_us, dedup_threshold, live) of every entry in the
+    tuner's cache, in key order."""
+    return [(key, e.method, e.cost_us, e.dedup_threshold, e.observed)
+            for key, e in sorted(tuner.cache.entries.items())]
+
+
+def phase_tune(rt, torch, stores, traffic, untuned, chk):
+    """The kernel tuner on the card, its launch counters from 0: (a) the
+    dense reads, the dense mix and the rowdict reads served with
+    ``autotune=True`` into a cache file each, beside the untuned [serve]
+    run of the same traffic; (b) each reopened read-only from its file,
+    which must tune nothing and hit; (c) the raw store's ``lookup_p``
+    entry at the read shape. Every response must equal the engine's.
+    Returns the record and the phase's launches, which stay out of the
+    other phases' counts."""
+    k = rt.kernels
+    t_phase = time.perf_counter()
+    cfg = rt.ServerConfig()
+    read_shape = (-(-(READ_LEN - KMER + 1) // cfg.term_pad) * cfg.term_pad,
+                  cfg.max_batch)
+    out = {"read_shape": list(read_shape)}
+    recs = {}
+    k.reset_launches()                      # the tuner's path starts here
+    for what in ("dense reads", "dense mix", "comp"):
+        idx, groups, want = traffic[what]
+        path = STORE_DIR / f"tuning-torch-{what.replace(' ', '-')}.json"
+        extra = {"compressed": True} if what == "comp" else {}
+        row = {}
+        for label, config in (
+                ("autotuned", rt.ServerConfig(
+                    autotune=True, tuning_cache=str(path), **extra)),
+                ("reopened", rt.ServerConfig(tuning_cache=str(path),
+                                             **extra))):
+            recs[f"{what} {label}"] = rec = ChunkRecorder(k, DEDUP_KERNELS)
+            server, _, m, _ = run_server(rt, torch, idx, config, groups,
+                                         want, f"{what} {label}", rec,
+                                         tag="tune")
+            tuner = server.tuner
+            m.update(tunes=tuner.tunes, cache_hits=tuner.cache.hits,
+                     observations=tuner.observations,
+                     entries=tuned_entries(tuner))
+            row[label] = m
+        check(row["autotuned"]["tunes"] > 0 and path.exists(),
+              f"[tune:{what}] the autotuned server tuned nothing")
+        check(row["reopened"]["tunes"] == 0
+              and row["reopened"]["cache_hits"] > 0,
+              f"[tune:{what}] the reopened server tuned "
+              f"{row['reopened']['tunes']} shapes, hit "
+              f"{row['reopened']['cache_hits']} entries")
+        for key, method, cost, thr, live in row["reopened"]["entries"]:
+            log(f"[tune:{what}] {key}: {method} {cost:.1f} us, dedup "
+                f"threshold {thr}{', live' if live else ''}")
+        u = untuned[what]
+        log(f"[tune:{what}] tuned {row['autotuned']['tunes']} shapes, "
+            f"reopened tuned {row['reopened']['tunes']} and hit "
+            f"{row['reopened']['cache_hits']}; measured pass: autotuned "
+            f"dispatch {row['autotuned']['dispatch']}, "
+            f"{row['autotuned']['queries_per_s']:.1f} queries/s; reopened "
+            f"dispatch {row['reopened']['dispatch']}, "
+            f"{row['reopened']['queries_per_s']:.1f} queries/s; untuned "
+            f"[serve] dispatch {u['dispatch']}, {u['queries_per_s']:.1f} "
+            f"queries/s, e2e p50 {u['p50_e2e_ms']:.3f} / p99 "
+            f"{u['p99_e2e_ms']:.3f} ms, service p50 "
+            f"{u['p50_service_ms']:.3f} / p99 {u['p99_service_ms']:.3f} ms")
+        out[what] = row
+    # (c) the pruned executor's break-even on the raw store
+    t = rt.KernelTuner.for_index(stores["raw"], rt.TuningCache())
+    e = t.entry("lookup_p", *read_shape)
+    out["lookup_p"] = dataclasses.asdict(e)
+    log(f"[tune:lookup_p] raw store at L={read_shape[0]} Q={read_shape[1]}:"
+        f" chunk {e.term_block}, worst-case chunked cost {e.cost_us:.1f} "
+        f"us, prune break-even {e.dedup_threshold}")
+    torch.cuda.synchronize()
+    launches = dict(k.launches)             # the tuner's path ends here
+    out["launches"] = launches
+    for name in TUNE_KERNELS:
+        check(launches[name] > 0, f"the [tune] phase never launched {name}")
+    for what, rec in recs.items():
+        check_dedup_calls(k, chk, rec.calls, f"tune {what}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[tune] launches {launches}; every served dedup-path call equals "
+        f"its plain version; {out['seconds']:.1f} s")
+    return out, launches
 
 
 # --------------------------------------------------------------------------
@@ -2445,7 +2565,9 @@ class _Port:
         from repro_torch.data import make_corpus, make_queries
         from repro_torch.index import build_compact_streaming
         from repro_torch.kernels import _build, bitslice_score, ops
-        from repro_torch.serve import QueryServer, ServerConfig, Status
+        from repro_torch.kernels.autotune import KernelTuner, TuningCache
+        from repro_torch.serve import (QueryPlanner, QueryServer,
+                                       ServerConfig, Status)
         from repro_torch.serve import server as server_mod
         self.IndexParams, self.QueryEngine = IndexParams, QueryEngine
         self.QueryServer, self.ServerConfig = QueryServer, ServerConfig
@@ -2458,6 +2580,8 @@ class _Port:
         self.build_compact_streaming = build_compact_streaming
         self.make_corpus, self.make_queries = make_corpus, make_queries
         self.build, self.kernels, self.ops = _build, bitslice_score, ops
+        self.KernelTuner, self.TuningCache = KernelTuner, TuningCache
+        self.QueryPlanner = QueryPlanner
 
 
 def main() -> int:
@@ -2499,8 +2623,10 @@ def main() -> int:
             chunk["chunk_dedup_score"] = dedup_calls
             record["trace_chunked"] = phase_trace_chunked(
                 rt, torch, stores, index, queries)
-            record["serve"], serve_launches, serve = phase_serve(
+            record["serve"], serve_launches, serve, traffic = phase_serve(
                 rt, torch, corpus, index, stores, queries, origin, chk)
+            record["tune"], record["tune_launches"] = phase_tune(
+                rt, torch, stores, traffic, record["serve"], chk)
         finally:
             shutil.rmtree(STORE_DIR, ignore_errors=True)
         record["trace"] = phase_trace(

@@ -24,8 +24,9 @@ The writer streams: ``ShardStoreWriter.write_shard`` persists one finished
 block group and forgets it. The manifest (key order, ``indent=2``,
 rounding) and the ``pops-*.npy`` sidecars are written exactly as the JAX
 writer writes them, so a store built by either package is byte-equal.
-The JAX tuner's ``tuning.json`` beside a store belongs to that package
-and is not read or written here.
+The port's kernel tuner keeps its cache beside the manifest as
+``tuning-torch.json`` (``tuning_path``); the JAX tuner's ``tuning.json``
+holds costs measured on another device and is not read or written here.
 """
 from __future__ import annotations
 
@@ -43,6 +44,18 @@ from .arena import ArenaLayout, MappedArena
 from .index import BitSlicedIndex, IndexParams
 
 FORMAT_V2 = "cobs-jax-v2"
+# not the JAX package's "tuning.json": costs measured on a TPU must never
+# steer the card, so each package keeps its own file
+TUNING_CACHE_NAME = "tuning-torch.json"
+
+
+def tuning_path(path: str | Path) -> Path:
+    """The kernel-tuning cache persisted beside a v2 store's manifest:
+    tuned entries key on the arena geometry the store fixes, so the cache
+    travels with the shards it was measured for (a reopened store serves
+    with measured choices and never re-tunes; see
+    ``repro_torch.kernels.autotune.TuningCache``)."""
+    return Path(path) / TUNING_CACHE_NAME
 
 
 def _hash_array(a: np.ndarray) -> str:

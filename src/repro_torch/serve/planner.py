@@ -1,5 +1,5 @@
 """Query planner: pick the scoring kernel per micro-batch, the counterpart
-of ``repro.serve.planner`` without the autotuner.
+of ``repro.serve.planner``.
 
 The scoring paths (see ``repro_torch.kernels.bitslice_score``):
 
@@ -18,20 +18,25 @@ The scoring paths (see ``repro_torch.kernels.bitslice_score``):
 
 Compressed dispatch: with ``compressed=True`` and rowdict-coded shards,
 batches that plan ``lookup`` score dict-coded shards from their (dict,
-refs) device form through the fused-decode kernels when the store's dict
-ratio clears ``COMPRESSED_MIN_RATIO``.
+refs) device form through the fused-decode kernels (``lookup_c`` in the
+tuner's cost table) when the measured decode-in-the-loop cost wins, or,
+unmeasured, when the store's dict ratio clears ``COMPRESSED_MIN_RATIO``.
 
-The JAX planner can consult measured costs from a ``KernelTuner``; the
-port has no tuner yet (ROADMAP A12), so it takes ``tuner=None`` only and
-always plans by the shape heuristics below, which are the JAX planner's
-own fallback. Given the same (bucket, batch, threshold) it makes the JAX
-planner's untuned choice.
+Method choice consults measured costs when a ``KernelTuner`` is wired in
+(``repro_torch.kernels.autotune``): per (bucket, batch) it returns each
+method's cost, the tile knobs the JAX planner carries (``word_block``,
+``term_block``, ``grid_order``; the port's kernels ignore them) and the
+dedup-rate and prune-rate break-evens, all persisted in the on-disk
+tuning cache. Without a tuner, or on a miss of a read-only one, the shape
+heuristics below apply. Given the same tuning entries and the same
+(bucket, batch, threshold), the port makes the JAX planner's plan.
 
-A plan is a pure function of (bucket, batch size, threshold); score
-functions are built lazily per (method, tile config) and memoised. When
-the storage is sharded the plan is marked ``paged`` and carries the
-per-shard addressing (``plan_shards``): the server then dispatches once
-per shard tile in the device tile cache and concatenates slot scores.
+A plan is a pure function of (bucket, batch size, threshold) and the
+tuner's entries; score functions are built lazily per (method, tile
+config) and memoised. When the storage is sharded the plan is marked
+``paged`` and carries the per-shard addressing (``plan_shards``): the
+server then dispatches once per shard tile in the device tile cache and
+concatenates slot scores.
 """
 from __future__ import annotations
 
@@ -44,28 +49,29 @@ from ..core.query import (ShardPlan, make_batch_score_fn,
                           make_comp_batch_score_fn, make_comp_dedup_score_fn,
                           make_comp_score_fn, make_dedup_score_fn,
                           make_score_fn, plan_shards)
+from ..kernels.autotune import KernelTuner
 
 # Below this many (padded) terms the fixed costs dominate and the simple
 # unpack expansion is the pick; at or above it, Harley-Seal or the fused
 # lookup. Buckets are multiples of term_pad, so it bites at 64-term pads.
 SHORT_QUERY_TERMS = 96
 
-# The dedup path fires when at least this fraction of the batch's row
-# reads are duplicates.
+# Without measured costs, the dedup path fires when at least this fraction
+# of the batch's row reads are duplicates (a measured break-even from the
+# tuner overrides it).
 DEFAULT_DEDUP_MIN_RATE = 0.5
 
-# Compressed (fused-decode) dispatch needs at least this much dict
-# compression before the decode indirection is presumed worth the bytes
-# it saves.
+# Without measured costs, compressed (fused-decode) dispatch needs at
+# least this much dict compression before the decode indirection is
+# presumed worth the bytes it saves; a measured lookup-vs-lookup_c argmin
+# overrides it.
 COMPRESSED_MIN_RATIO = 1.25
 
-# Pruned dispatch needs at least this predicted block-prune rate before the
+# Without a measured break-even (the tuner's "lookup_p" entry), pruned
+# dispatch needs at least this predicted block-prune rate before the
 # chunked executor's extra dispatches are presumed worth the tile I/O and
 # kernel work they skip.
 DEFAULT_PRUNE_MIN_RATE = 0.5
-
-NO_TUNER = ("the port has no kernel autotuner yet (ROADMAP A12): "
-            "pass tuner=None")
 
 
 def predict_prune_rate(threshold: float, density: float) -> float:
@@ -94,7 +100,8 @@ class QueryPlan:
     fused: bool        # True = one multi-query launch for the whole batch
     paged: bool = False  # True = dispatch per shard tile, then combine
     n_shards: int = 1
-    # kernel tile knobs of the JAX planner (validated, no effect here)
+    # tuned kernel knobs of the JAX planner (None = kernel defaults;
+    # carried and validated, no effect on the port's kernels)
     word_block: Optional[int] = None
     term_block: Optional[int] = None
     grid_order: str = "wq"
@@ -119,7 +126,9 @@ def choose_method(n_hashes: int, bucket: int, batch_size: int,
     measured cost) switches it from shape heuristics to the measured
     argmin; methods that do not apply to the index (lookup and lookup_c
     with k>1) are ignored, ties break to the alphabetically first method.
-    The port's planner never passes costs (it has no tuner)."""
+    "lookup_c" (the fused-decode kernel) competes on equal footing: it
+    wins only when its measured cost, decode included, beats every raw
+    path."""
     if costs:
         ok = {m: c for m, c in costs.items()
               if m not in ("lookup", "lookup_c") or n_hashes == 1}
@@ -143,24 +152,27 @@ class QueryPlanner:
     the memoised score functions of the methods it dispatches and the
     per-shard addressing of sharded storage.
 
-    ``word_block`` is the ServerConfig override of the tile width (carried
-    in plans, no effect on the kernels); ``dedup_min_rate`` is the dedup
-    threshold (None disables the dedup path); ``compressed`` allows
-    fused-decode dispatch against dict-coded shards when the dict ratio
-    clears ``COMPRESSED_MIN_RATIO``. ``tuner`` must be None."""
+    ``tuner`` wires in measured method costs and break-evens (see the
+    module docstring); ``word_block`` is the ServerConfig override of the
+    tile width (carried in plans, no effect on the kernels);
+    ``dedup_min_rate`` is the dedup threshold when no measured break-even
+    exists (None disables the dedup path); ``compressed`` allows
+    fused-decode dispatch against dict-coded shards, taken when the index
+    has such shards and either the tuner's measured lookup_c cost wins the
+    argmin or, unmeasured, the dict ratio clears
+    ``COMPRESSED_MIN_RATIO``."""
 
     def __init__(self, index: BitSlicedIndex, *,
                  short_query_terms: int = SHORT_QUERY_TERMS,
-                 tuner=None,
+                 tuner: Optional[KernelTuner] = None,
                  word_block: Optional[int] = None,
                  dedup_min_rate: Optional[float] = DEFAULT_DEDUP_MIN_RATE,
                  compressed: bool = False,
                  pruned: bool = False, prune_chunk: int = 32,
                  prune_min_rate: Optional[float] = None):
-        if tuner is not None:
-            raise NotImplementedError(NO_TUNER)
         self.index = index
         self.short_query_terms = short_query_terms
+        self.tuner = tuner
         self.word_block = word_block
         self.dedup_min_rate = dedup_min_rate
         self.pruned_enabled = bool(pruned)
@@ -196,40 +208,86 @@ class QueryPlanner:
     # -- planning ----------------------------------------------------------
     def plan(self, bucket: int, batch_size: int,
              threshold: Optional[float] = None) -> QueryPlan:
-        """Dispatch decision; records nothing. ``threshold`` (the batch's
-        weakest coverage threshold) enables the pruned-dispatch decision
-        (``lookup_pruned``)."""
+        """Dispatch decision; records nothing. Consults the tuner's measured
+        costs when present, falling back to shape heuristics on misses
+        (a read-only tuner never measures in the serving path).
+        ``threshold`` (the batch's weakest coverage threshold) enables the
+        pruned-dispatch decision (``lookup_pruned``)."""
+        coverage = threshold
+        entries = (self.tuner.costs(bucket, batch_size)
+                   if self.tuner is not None else {})
+        if not self.compressed_enabled:
+            # never dispatch fused-decode when compressed serving is off,
+            # even if a tuned lookup_c cost exists in a shared cache
+            entries.pop("lookup_c", None)
+        costs = {m: e.cost_us for m, e in entries.items()}
         method = choose_method(self._k, bucket, batch_size,
-                               self.short_query_terms)
-        compressed = (self.compressed_enabled and method == "lookup"
-                      and self.dict_ratio >= COMPRESSED_MIN_RATIO)
+                               self.short_query_terms, costs=costs)
+        compressed = method == "lookup_c"
+        if compressed:
+            method = "lookup"     # lookup_c is the fused lookup, decoded
+            tuned = entries.get("lookup_c")
+        else:
+            tuned = entries.get(method)
+            # no measured comparison for this shape: the dict-ratio
+            # heuristic decides whether decoding pays
+            if (self.compressed_enabled and method == "lookup"
+                    and "lookup_c" not in entries
+                    and self.dict_ratio >= COMPRESSED_MIN_RATIO):
+                compressed = True
+        word_block = (self.word_block if self.word_block is not None
+                      else (tuned.word_block if tuned else None))
+        term_block = tuned.term_block if tuned else None
+        grid_order = tuned.grid_order if tuned else "wq"
         fused = batch_size > 1 and method == "lookup"
-        dedup = self.dedup_min_rate if fused else None
-        if dedup is not None and dedup >= 1.0:
-            # unreachable: disable outright, so the server never pays the
-            # per-batch host-side dedup planning
-            dedup = None
+        threshold = None
+        if fused:
+            threshold = (tuned.dedup_threshold
+                         if tuned is not None and
+                         tuned.dedup_threshold is not None
+                         else self.dedup_min_rate)
+            if threshold is not None and threshold >= 1.0:
+                # unreachable (the tuner's 2.0 "measured, never wins"
+                # sentinel included): disable outright, so the server never
+                # pays the per-batch host-side dedup planning
+                threshold = None
         plan = QueryPlan(method, bucket, batch_size, fused=fused,
                          paged=self.n_shards > 1, n_shards=self.n_shards,
-                         word_block=self.word_block,
-                         dedup_threshold=dedup, compressed=compressed)
-        return self.lookup_pruned(plan, threshold) or plan
+                         word_block=word_block, term_block=term_block,
+                         grid_order=grid_order, dedup_threshold=threshold,
+                         compressed=compressed)
+        return self.lookup_pruned(plan, coverage) or plan
 
     def lookup_pruned(self, plan: QueryPlan,
                       coverage: Optional[float]) -> Optional[QueryPlan]:
         """Upgrade ``plan`` to pruned (chunked, early-exit) dispatch when
-        the predicted prune rate clears ``prune_min_rate``, else None.
+        the predicted prune rate clears the break-even, else None.
         ``coverage`` is the batch's weakest coverage threshold (None = a
         top-k-only batch: still pruneable, but with no basis for a
-        prediction it stays unpruned)."""
+        prediction it stays unpruned). The break-even is the tuner's
+        measured "lookup_p" entry's ``dedup_threshold`` (the minimum prune
+        rate at which the chunked executor wins; 2.0 = measured, never
+        wins) when one exists, else ``prune_min_rate``; that entry also
+        gives the chunk size and word_block."""
         if (not self.pruned_enabled or coverage is None
                 or plan.bucket <= self.prune_chunk):
             return None
         predicted = predict_prune_rate(float(coverage), self.density)
-        if self.prune_min_rate >= 1.0 or predicted < self.prune_min_rate:
+        break_even = self.prune_min_rate
+        chunk = min(self.prune_chunk, plan.bucket)
+        word_block = plan.word_block
+        if self.tuner is not None:
+            e = self.tuner.entry("lookup_p", plan.bucket, plan.batch_size)
+            if e is not None:
+                if e.dedup_threshold is not None:
+                    break_even = e.dedup_threshold
+                chunk = min(e.term_block or chunk, plan.bucket)
+                if self.word_block is None:
+                    word_block = e.word_block
+        if break_even >= 1.0 or predicted < break_even:
             return None
         return dataclasses.replace(
-            plan, pruned=True, chunk_terms=min(self.prune_chunk, plan.bucket),
+            plan, pruned=True, chunk_terms=chunk, word_block=word_block,
             predicted_prune=predicted)
 
     # -- score-function cache ---------------------------------------------

@@ -19,10 +19,13 @@ arrival timestamps), and tests run on a virtual clock. Every kernel span
 ends after the scores are on the host, so the profiler's kernel times
 are complete device times, not launch times.
 
-It differs from the JAX server in two deliberate ways: its tile cache does
-not pad tiles to a common height (PyTorch runs eagerly, so padding would
-only cost bytes), and it has no autotuner (ROADMAP A12), so
-``ServerConfig.autotune`` and ``tuning_cache`` raise.
+With ``ServerConfig.autotune`` or ``tuning_cache`` the planner plans from
+a ``KernelTuner``'s costs measured on the server's device and persisted to
+disk (a reopened server plans from the file without re-tuning), and the
+kernel profiler feeds live costs back into it, as in the JAX server. It
+differs from the JAX server in one deliberate way: its tile cache does not
+pad tiles to a common height (PyTorch runs eagerly, so padding would only
+cost bytes).
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from ..core.query import (PruneStats, SearchResult, _to_device,
                           run_paged_dedup, run_paged_pruned, select_hits,
                           select_top_k)
 from ..device import resolve_device
+from ..kernels.autotune import KernelTuner, TuningCache
 from ..obs import EventLog, KernelProfiler, Tracer
 from ..obs.profile import gather_bytes
 from .base import ServingBackend
@@ -69,28 +73,35 @@ class ServerConfig:
     # mmapped) index; None = unbounded, every touched shard stays resident.
     # Ignored for dense single-shard storage.
     tile_cache_bytes: Optional[int] = None
-    # The JAX kernels' tile width: carried in plans, validated by the
-    # dedup path, no effect on the port's kernels.
+    # The JAX kernels' tile width: None = the tuner's choice when tuning
+    # is wired in. Carried in plans, validated by the dedup path, no
+    # effect on the port's kernels.
     word_block: Optional[int] = None
     # Row-dedup path: minimum fraction of a batch's row reads that must be
     # duplicates before the dedup pair replaces the fused multi-query
-    # kernel. None disables dedup.
+    # kernel. None disables dedup; a tuner-measured break-even overrides
+    # this default.
     dedup_min_rate: Optional[float] = DEFAULT_DEDUP_MIN_RATE
     # Serve dict-coded shards from their compressed (dict, refs) device
-    # form through the fused-decode kernels (when the dict ratio clears
-    # the planner's threshold); raw shards are unaffected.
+    # form through the fused-decode kernels (the planner decides per batch
+    # shape: measured lookup-vs-lookup_c cost, else the dict ratio); raw
+    # shards are unaffected.
     compressed: bool = False
     # Threshold-driven pruned scoring through the chunked early-exit
     # executor, when the planner predicts enough block pruning; results
     # equal unpruned scoring either way.
     pruned: bool = False
     prune_chunk: int = 32
-    # Minimum predicted block-prune rate before pruned dispatch (None =
-    # planner.DEFAULT_PRUNE_MIN_RATE).
+    # Minimum predicted block-prune rate before pruned dispatch, when no
+    # measured break-even exists (None = planner.DEFAULT_PRUNE_MIN_RATE).
     prune_min_rate: Optional[float] = None
-    # The JAX server's kernel autotuner and its persisted cache: not
-    # ported yet (ROADMAP A12); True or a path raises NotImplementedError.
+    # Tune kernel dispatch on demand per batch shape (costs measured on the
+    # card drive the planner; entries persist in tuning_cache). False with
+    # a tuning_cache still consults existing entries and never measures.
     autotune: bool = False
+    # Path of the persisted tuning cache (JSON; by convention
+    # repro_torch.core.store.tuning_path(store_dir), beside the v2
+    # manifest). None keeps tuned entries in memory only.
     tuning_cache: Optional[str] = None
     # -- observability (repro_torch.obs) --
     # Request tracing: every admitted query gets a Trace; layers append
@@ -103,7 +114,8 @@ class ServerConfig:
     # JSONL slow-query log path; None keeps events in memory only.
     trace_log: Optional[str] = None
     # Per-dispatch kernel time and bytes-moved accounting, fed to the
-    # metrics registry.
+    # metrics registry and (when a tuner is wired) back into the tuning
+    # cache as live observed-cost entries.
     profile_kernels: bool = True
 
 
@@ -119,10 +131,6 @@ class QueryServer(ServingBackend):
                  config: ServerConfig = ServerConfig(), *,
                  clock: Callable[[], float] = time.monotonic,
                  device=None):
-        if config.autotune or config.tuning_cache:
-            raise NotImplementedError(
-                "ServerConfig.autotune and tuning_cache need the kernel "
-                "autotuner, which the port has not yet (ROADMAP A12)")
         self.device = resolve_device(device)
         if index.device.type != self.device.type or (
                 self.device.index is not None
@@ -132,7 +140,16 @@ class QueryServer(ServingBackend):
         self.index = index
         self.config = config
         self.clock = clock
-        self.planner = QueryPlanner(index, word_block=config.word_block,
+        # tuned dispatch: with a cache path, entries load from disk and
+        # serving never re-tunes what is measured; autotune=True also
+        # measures misses on demand, on the index's device
+        self.tuner: Optional[KernelTuner] = None
+        if config.autotune or config.tuning_cache:
+            self.tuner = KernelTuner.for_index(
+                index, TuningCache(config.tuning_cache),
+                enabled=config.autotune)
+        self.planner = QueryPlanner(index, tuner=self.tuner,
+                                    word_block=config.word_block,
                                     dedup_min_rate=config.dedup_min_rate,
                                     compressed=config.compressed,
                                     pruned=config.pruned,
@@ -171,7 +188,7 @@ class QueryServer(ServingBackend):
                              slow_ms=config.trace_slow_ms,
                              sink=self.events, clock=clock)
         self.metrics.tracer = self.tracer
-        self.profiler = KernelProfiler(self.metrics.registry, None,
+        self.profiler = KernelProfiler(self.metrics.registry, self.tuner,
                                        enabled=config.profile_kernels)
         # Tile-cache events flow through one observer: per-shard labeled
         # counters always; per-batch fault/prefetch capture so the kernel
@@ -381,7 +398,8 @@ class QueryServer(ServingBackend):
     def _kernel_mark(self, marks: Optional[list], method: str, plan,
                      t0: float, t1: float, *, rows: int) -> None:
         """Record one kernel dispatch: trace mark (with the shards the
-        tile cache had to stage mid-dispatch) and profiler histogram."""
+        tile cache had to stage mid-dispatch), profiler histogram, and the
+        live cost signal for the tuner."""
         moved = gather_bytes(rows, int(self.index.storage.shape[1]))
         if marks is not None:
             tags = {"method": method, "bucket": plan.bucket,

@@ -26,7 +26,8 @@ from repro_torch.core import (HostArena, IndexParams, QueryEngine,
                               build_classic, build_compact, index_from_numpy)
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitslice_score as k
-from repro_torch.serve import QueryServer
+from repro_torch.kernels.autotune import KernelTuner
+from repro_torch.serve import QueryServer, ServerConfig
 
 torch.set_num_threads(2)
 
@@ -103,6 +104,21 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
         QueryServer(index)
     with pytest.raises(RuntimeError, match="CUDA"):
         QueryServer(index, device=None)
+
+
+def test_tuner_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KernelTuner(4096, 4, 1, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KernelTuner(4096, 4, 1, 2, device=None)
+    # a tuner of a CPU index, or one asked for the CPU, stays there
+    docs = [np.arange(40, dtype=np.uint32).reshape(20, 2)]
+    index = build_compact(docs, IndexParams(1, 0.3, 15), device="cpu")
+    assert KernelTuner.for_index(index).device == torch.device("cpu")
+    assert KernelTuner(4096, 4, 1, 2, device="cpu").device.type == "cpu"
+    server = QueryServer(index, ServerConfig(autotune=True), device="cpu")
+    assert server.tuner.device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("method", ["ref", "unpack", "vertical", "lookup"])

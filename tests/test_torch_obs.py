@@ -4,9 +4,10 @@ metrics against the JAX package's originals, on the CPU.
 ``repro_torch.obs`` (registry, trace, events, profile, export) and
 ``repro_torch.serve.metrics`` are copies that import neither ``jax`` nor
 ``repro``. The same record calls on both sides must give the same values,
-snapshots, Prometheus text, JSONL events and traces. Every comparison is
-exact; unix timestamps, which both sides take from the wall clock, are
-dropped before comparing events.
+snapshots, Prometheus text, JSONL events and traces, and the same live
+cost entries in a tuner the profiler feeds. Every comparison is exact;
+unix timestamps, which both sides take from the wall clock, are dropped
+before comparing events.
 """
 import dataclasses
 import json
@@ -18,12 +19,14 @@ from repro import obs as jobs
 from repro.obs import events as jevents
 from repro.obs import export as jexport
 from repro.serve import metrics as jmetrics
+from repro.kernels import autotune as jautotune
 from repro.serve import request as jrequest
 
 from repro_torch import obs as tobs
 from repro_torch.obs import events as tevents
 from repro_torch.obs import export as texport
 from repro_torch.serve import metrics as tmetrics
+from repro_torch.kernels import autotune as tautotune
 from repro_torch.serve import request as trequest
 
 SIDES = [(jobs, jexport, jmetrics), (tobs, texport, tmetrics)]
@@ -157,6 +160,41 @@ def test_profiler_records_and_registry_equal():
     from repro.obs.profile import gather_bytes as jgather
     from repro_torch.obs.profile import gather_bytes as tgather
     assert tgather(17, 33) == jgather(17, 33)
+
+
+def test_profiler_feeds_tuner_observed_costs_equal(tmp_path):
+    """Live kernel timings promote to observed=True tuning entries that
+    the tuner then prefers; non-tunable methods never reach the cache.
+    Both packages' profilers feeding their tuners give the same entries
+    and the same cache file."""
+    outs = []
+    for (obs, _, _), at, side in ((SIDES[0], jautotune, "jax"),
+                                  (SIDES[1], tautotune, "port")):
+        kw = {} if side == "jax" else {"device": "cpu"}
+        path = tmp_path / side / "tuning.json"
+        tuner = at.KernelTuner(50_000, 4, 1, 3, at.TuningCache(path),
+                               enabled=False, **kw)
+        tuner.live_min_samples = 4
+        prof = obs.KernelProfiler(obs.MetricsRegistry(), tuner)
+        assert tuner.entry("lookup", 64, 4) is None         # cold, no tune
+        for _ in range(4):
+            prof.record(method="lookup", bucket=64, batch=4,
+                        seconds=0.002, word_block=8, grid_order="qw")
+        e = tuner.entry("lookup", 64, 4)
+        assert e is not None and e.observed
+        assert (e.word_block, e.grid_order) == (8, "qw")
+        assert e.cost_us == pytest.approx(2000.0)
+        key = at.LIVE_PREFIX + tuner.key("lookup", 64, 4)
+        assert key in at.TuningCache(path).entries
+        # the dedup pair and word_block 0 (an untuned plan) feed nothing
+        before = tuner.observations
+        prof.record(method="dedup", bucket=64, batch=4, seconds=5.0,
+                    word_block=8)
+        prof.record(method="vertical", bucket=64, batch=4, seconds=5.0)
+        assert tuner.observations == before
+        outs.append((dataclasses.asdict(e), tuner.observations,
+                     path.read_text()))
+    assert outs[1] == outs[0]
 
 
 def _drive_metrics(mod, seed):

@@ -12,7 +12,10 @@ metrics snapshot. The JAX server pads its tiles to a common height and the
 port's does not, so the JAX side gets an unpadded ``DeviceTileCache`` here,
 which makes the staged-byte counters comparable. The port's planner must
 also make the JAX planner's choice over a grid of (bucket, batch,
-threshold). Every comparison is exact.
+threshold), untuned and with both planners reading the same seeded tuning
+entries; and a server tuned on the CPU, reopened read-only from its cache
+file, must serve as the JAX server reading that file does. Every
+comparison is exact.
 """
 import dataclasses
 
@@ -27,11 +30,14 @@ from repro.core.store import load_index_v2 as jax_load_v2
 from repro.core.store import save_index_v2 as jax_save_v2
 from repro.data import make_corpus, make_queries
 from repro.index import build_compact_streaming as jax_streaming
+from repro.kernels import autotune as jat
 from repro.serve import QueryServer as JaxServer
 from repro.serve import ServerConfig as JaxConfig
 from repro.serve.planner import QueryPlanner as JaxPlanner
 
 from repro_torch.core import index_from_numpy, load_index_v2
+from repro_torch.core.store import tuning_path
+from repro_torch.kernels import autotune as tat
 from repro_torch.serve import QueryServer, ServerConfig, Status
 from repro_torch.serve.planner import QueryPlanner
 
@@ -50,8 +56,8 @@ def carry(jax_index):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """kind -> (JAX index, port index), the corpus and the replicated
-    collection's corpus."""
+    """kind -> (JAX index, port index), the corpus, the replicated
+    collection's corpus and the directory holding the stores."""
     root = tmp_path_factory.mktemp("serve")
     c = make_corpus(48, k=15, mean_length=400, sigma=1.0, seed=7)
     p1 = JaxParams(n_hashes=1, fpr=0.3, kmer=15)
@@ -74,7 +80,7 @@ def world(tmp_path_factory):
     st = out["comp"][1].storage
     assert all(st.shard_codec(s) == "rowdict" for s in range(st.n_shards))
     assert st.dict_ratio() >= 1.25
-    return c, rc, out
+    return c, rc, out, root
 
 
 class Clock:
@@ -129,8 +135,12 @@ def _profile(server):
             for rec in server.profiler.records()]
 
 
-def assert_same_serving(world, kind, cfg, script):
+def assert_same_serving(world, kind, cfg, script, prepare=None):
+    """Both servers over ``kind`` with ``cfg`` run ``script`` and must agree
+    on everything; ``prepare(js, ts)`` runs first, when given."""
     (js, jclk), (ts, tclk) = _servers(world, kind, cfg)
+    if prepare is not None:
+        prepare(js, ts)
     jids, jresp = _drive(js, jclk, script)
     tids, tresp = _drive(ts, tclk, script)
     assert tids == jids
@@ -325,12 +335,56 @@ PLANNER_CASES = {
 }
 
 
+# shapes of the grid that get entries; the others miss (heuristics apply)
+TUNED_SHAPES = ((64, 2), (96, 1), (128, 32), (128, 4), (192, 4), (320, 32),
+                (320, 1))
+
+
+def seeded_tuners(jidx, tidx, seed):
+    """Read-only JAX and port tuners over equal seeded caches: entries for
+    every tunable method and lookup_p at TUNED_SHAPES (some left out),
+    dedup thresholds 0.25, 2.0, None and 0.6, prune break-evens 0.0, 0.4,
+    2.0 and None, and one live entry."""
+    jt = jat.KernelTuner.for_index(jidx, jat.TuningCache(), enabled=False)
+    tt = tat.KernelTuner.for_index(tidx, tat.TuningCache(), enabled=False)
+    rng = np.random.default_rng(seed)
+    dedup = (0.25, 2.0, None, 0.6)
+    prune = (0.0, 0.4, 2.0, None)
+
+    def put(key, e):
+        tt.cache.put(key, e)
+        jt.cache.put(key, jat.TunedEntry(**dataclasses.asdict(e)))
+
+    for bucket, batch in TUNED_SHAPES:
+        for m in tat.TUNABLE_METHODS + ("lookup_p",):
+            if rng.random() < 0.15:
+                continue
+            key = tt.key(m, bucket, batch)
+            assert key == jt.key(m, bucket, batch)
+            thr = (dedup[rng.integers(4)] if m in ("lookup", "lookup_c")
+                   else prune[rng.integers(4)] if m == "lookup_p" else None)
+            put(key, tat.TunedEntry(
+                m, int(rng.choice([64, 128, 256])),
+                int(rng.choice([16, 32, 64] if m == "lookup_p" else [8, 16])),
+                str(rng.choice(["wq", "qw"])), float(rng.uniform(5, 100)),
+                dedup_threshold=thr))
+    live = tt.key("lookup", 128, 32)
+    put(tat.LIVE_PREFIX + live, tat.TunedEntry("lookup", 128, 8, "qw", 1.0,
+                                               observed=True))
+    return jt, tt
+
+
+@pytest.mark.parametrize("tuned", [False, True], ids=["untuned", "tuned"])
 @pytest.mark.parametrize("case", list(PLANNER_CASES))
 @pytest.mark.parametrize("kind", ["dense", "raw", "comp", "k=2"])
-def test_planner_equals_reference_over_a_grid(world, kind, case):
+def test_planner_equals_reference_over_a_grid(world, kind, case, tuned):
     jidx, tidx = world[2][kind]
     kw = PLANNER_CASES[case]
-    jp, tp = JaxPlanner(jidx, **kw), QueryPlanner(tidx, **kw)
+    jt = tt = None
+    if tuned:
+        jt, tt = seeded_tuners(jidx, tidx, seed=len(kind) * 7 + len(case))
+    jp = JaxPlanner(jidx, tuner=jt, **kw)
+    tp = QueryPlanner(tidx, tuner=tt, **kw)
     assert (tp.density, tp.dict_ratio, tp.compressed_enabled) == \
         (jp.density, jp.dict_ratio, jp.compressed_enabled)
     for bucket in (64, 96, 128, 192, 320):
@@ -340,21 +394,75 @@ def test_planner_equals_reference_over_a_grid(world, kind, case):
                 want = jp.plan(bucket, batch, threshold=thr)
                 assert dataclasses.asdict(got) == dataclasses.asdict(want), \
                     (bucket, batch, thr)
+    if tuned:
+        assert tt.tunes == jt.tunes == 0
+        assert (tt.cache.hits, tt.cache.misses) == (jt.cache.hits,
+                                                    jt.cache.misses)
+        assert tt.cache.hits > 0
 
 
-def test_tuner_and_autotune_raise(world):
-    tidx = world[2]["dense"][1]
-    with pytest.raises(NotImplementedError, match="A12"):
-        QueryPlanner(tidx, tuner=object())
-    for cfg in (ServerConfig(autotune=True),
-                ServerConfig(tuning_cache="tuning.json")):
-        with pytest.raises(NotImplementedError, match="A12"):
-            QueryServer(tidx, cfg, device=CPU)
+def test_server_config_fields_equal_reference(world):
     jf = [f.name for f in dataclasses.fields(JaxConfig)]
     tf = [f.name for f in dataclasses.fields(ServerConfig)]
     assert tf == jf
     assert dataclasses.asdict(ServerConfig()) == \
         dataclasses.asdict(JaxConfig())
+    tidx = world[2]["dense"][1]
+    assert QueryServer(tidx, device=CPU).tuner is None
+    for cfg, enabled in ((ServerConfig(autotune=True), True),
+                         (ServerConfig(tuning_cache="unused.json"), False)):
+        server = QueryServer(tidx, cfg, device=CPU)
+        assert server.tuner.enabled is enabled
+        assert server.planner.tuner is server.profiler.tuner is server.tuner
+        assert server.tuner.device == torch.device(CPU)
+
+
+@pytest.mark.parametrize("kind", ["dense", "comp"])
+def test_tuned_server_serves_measured_config(world, kind, tmp_path):
+    """Tune once on the CPU into a cache file, then reopen read-only: the
+    port's server and the JAX server, both reading that file, plan alike
+    and answer alike without tuning, and their results equal the untuned
+    server's. Live costs are kept from steering (prefer_observed off)."""
+    c, rc, root = world[0], world[1], world[3]
+    jidx, tidx = world[2][kind]
+    # the tuning server gets an index of its own: a store keeps the tiles
+    # it decodes, and the servers compared below must find them cold alike
+    own = (load_index_v2(root / "comp", device=CPU) if kind == "comp"
+           else carry(jidx))
+    if kind == "comp":
+        script = (submit_all([d[10:130] for d in rc.documents[:6]])
+                  + submit_all(_reads(rc.documents, 2, 6)))
+    else:
+        script = submit_all(_mix(c)) + submit_all(_reads(c.documents, 2, 8))
+    cfg = dict(NO_CACHE, compressed=kind == "comp")
+    path = tuning_path(tmp_path)
+    clock = Clock()
+    s1 = QueryServer(own, ServerConfig(**cfg, autotune=True,
+                                        tuning_cache=str(path)),
+                     clock=clock, device=CPU)
+    s1.tuner.repeats = 1
+    s1.tuner.max_tune_rows = 64
+    s1.tuner.max_tune_blocks = 1
+    s1.tuner.prefer_observed = False
+    _, tuned = _drive(s1, clock, script)
+    assert s1.tuner.tunes > 0 and path.exists()
+
+    def read_only(js, ts):
+        for t in (js.tuner, ts.tuner):
+            assert not t.enabled
+            t.prefer_observed = False
+
+    ts, reopened = assert_same_serving(
+        world, kind, dict(cfg, tuning_cache=str(path)), script,
+        prepare=read_only)
+    assert ts.tuner.tunes == 0 and ts.tuner.cache.hits > 0
+    untuned = QueryServer(tidx, ServerConfig(**cfg), clock=Clock(),
+                          device=CPU)
+    _, base = _drive(untuned, Clock(), script)
+    for got in (tuned, reopened):
+        assert {rid: r[4] for rid, r in got.items()} == \
+            {rid: r[4] for rid, r in base.items()}
+    assert all(r[0] == Status.OK.value for r in reopened.values())
 
 
 def test_server_refuses_an_index_on_another_device(world):

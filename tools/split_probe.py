@@ -3,8 +3,9 @@
 ask in every run, measured on one CUDA card.
 
     python3 tools/split_probe.py [--against DIR]
+    python3 tools/split_probe.py --tune
 
-Run from a checkout of the repository. It
+Run from a checkout of the repository. Without ``--tune`` it
 
 1. times ``chunk_dedup_kernel`` at the pruned path's chunk shape (indir
    [32, 1, 32], uniq [1024, 8], acc [32, 1, 8, 32]; random rows and
@@ -58,8 +59,19 @@ Run from a checkout of the repository. It
 
 Every launch is first checked equal to its plain PyTorch version. Times
 are the median of 5 replays of a CUDA graph of 64 launches, per launch.
+
+With ``--tune`` it asks only the kernel tuner's questions, at the
+geometry of ``chip_smoke.py``'s dense index (3,813,888 rows of W = 32
+words, one hash, two blocks) and its read batch shape (L 128, Q 32):
+three rounds of two fresh tunes at the default fixture cap (2,048 rows,
+256 KB) and one with 2^20 fixture rows (128 MB, past the card's 50 MB
+L2). Each tune prints its dedup threshold, every method's cost, the
+cheapest method, and the measurements the break-even fit was made from
+(each ``_measure_*`` call's time in us, a dedup call's padded unique
+rows beside it).
+
 Prints the card's name and power limit and writes the numbers to
-``chiprun_out/split_probe.json``.
+``chiprun_out/split_probe.json`` (``tune_probe.json`` with ``--tune``).
 """
 from __future__ import annotations
 
@@ -70,6 +82,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -161,6 +174,14 @@ SHARED = ("cobs_vertical", "cobs_lookup", "cobs_lookup_comp",
 SHARED_KERNELS = ("vertical_kernel", "lookup_kernel", "lookup_comp_kernel",
                   "chunk_lookup_kernel", "chunk_lookup_comp_kernel",
                   "chunk_dedup_kernel", "unpack_kernel")
+# --tune: chip_smoke.py's dense index (rows, W, hashes, blocks), its read
+# batch shape (bucket, batch), and the fixture rows past the 50 MB L2
+TUNE_GEOMETRY = (3_813_888, 32, 1, 2)
+TUNE_SHAPE = (128, 32)
+BIG_TUNE_ROWS = 1 << 20
+TUNE_ROUNDS = 3
+TUNE_MEASURES = ("_measure_fused", "_measure_dedup", "_measure_plan_host",
+                 "_measure_add")
 
 
 def log(*parts) -> None:
@@ -564,10 +585,71 @@ def in_turns(torch, libs, order, what, call, out, want) -> dict:
     return runs
 
 
+def record_measures(tuner) -> list:
+    """Wraps the tuner's measurements (looked up on the instance at call
+    time) so that each call's name, arguments and result are kept: the
+    components of its break-even fit. Changes nothing it measures."""
+    calls = []
+    for name in TUNE_MEASURES:
+        def rec(*args, _name=name, _fn=getattr(tuner, name), **kw):
+            out = _fn(*args, **kw)
+            calls.append((_name, args, out))
+            return out
+        setattr(tuner, name, rec)
+    return calls
+
+
+def measures_line(calls) -> str:
+    """The recorded measurements in us (a dedup call also gives its padded
+    unique rows)."""
+    parts = []
+    for name, args, out in calls:
+        what = name.removeprefix("_measure_")
+        if what == "add":
+            what = args[0]
+        if isinstance(out, tuple):
+            parts.append(f"{what}(U={out[1]}) {out[0] * 1e6:.1f}")
+        else:
+            parts.append(f"{what} {out * 1e6:.1f}")
+    return ", ".join(parts)
+
+
+def probe_tune(torch) -> dict:
+    """Fresh tunes of the dense read shape at the default fixture cap and
+    past the L2, TUNE_ROUNDS rounds."""
+    from repro_torch.kernels.autotune import KernelTuner, TuningCache
+    rows = []
+    for r in range(TUNE_ROUNDS):
+        for label, kw in (("fresh 1", {}), ("fresh 2", {}),
+                          ("past L2", {"max_tune_rows": BIG_TUNE_ROWS})):
+            t0 = time.perf_counter()
+            t = KernelTuner(*TUNE_GEOMETRY, TuningCache(), **kw)
+            calls = record_measures(t)
+            costs = {m: e.cost_us for m, e in t.costs(*TUNE_SHAPE).items()}
+            thr = t.entry("lookup", *TUNE_SHAPE).dedup_threshold
+            row = {"round": r + 1, "label": label,
+                   "tune_rows": int(t._tune_arena().shape[0]),
+                   "dedup_threshold": thr, "costs_us": costs,
+                   "cheapest": min(costs, key=costs.get),
+                   "measures": measures_line(calls),
+                   "seconds": time.perf_counter() - t0}
+            rows.append(row)
+            log(f"[tune] round {r + 1} {label}, {row['tune_rows']} fixture "
+                f"rows: dedup threshold {thr}; costs (us) "
+                + ", ".join(f"{m} {c:.1f}" for m, c in sorted(costs.items()))
+                + f"; cheapest {row['cheapest']}; {row['seconds']:.2f} s; "
+                  f"measured (us) {row['measures']}")
+    torch.cuda.synchronize()
+    return {"geometry": list(TUNE_GEOMETRY), "shape": list(TUNE_SHAPE),
+            "tunes": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, default=None,
                     help="a checkout of another commit to compare with")
+    ap.add_argument("--tune", action="store_true",
+                    help="ask only the kernel tuner's questions")
     args = ap.parse_args()
     if not (ROOT / SOURCE_REL).is_file():
         print("split_probe: run from a checkout of the repository",
@@ -577,6 +659,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("split_probe: CUDA is not available", file=sys.stderr)
         return 2
+    if args.tune:
+        rec = {"card": card_line(), "torch": torch.__version__,
+               "cuda": torch.version.cuda, **probe_tune(torch)}
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "tune_probe.json").write_text(json.dumps(rec, indent=1))
+        print(rec["card"])
+        return 0
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitslice_score as k
     text = (ROOT / SOURCE_REL).read_text()
