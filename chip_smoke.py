@@ -71,9 +71,25 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    (``tools/split_probe.py --tune`` asks how far fresh tunes spread and
    what a fixture past the L2 changes). The tuner must have launched the
    eight kernels its measurements run, and every served dedup-path call
-   must equal its plain version. The store directories are deleted after
-   this phase;
-10. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
+   must equal its plain version;
+10. drives the network front door ("[net]"), its counters from 0 and kept
+   out of the kernel line's launches: 8 NetClient threads pipeline the
+   dense mix and the dense reads (window by window) into
+   ``NetServer(ServingLoop(QueryServer))`` on localhost (wire queries/s,
+   client-side latency, the server's wait and service, dispatch mix and
+   mean batch size, beside the in-process [serve] run); STATS in both
+   formats and a traced query; BULK frames through a ``BulkLane`` on the
+   raw store (cache of half the store; alone, each shard staged once,
+   then beside 2 clients sending the raw reads, whose latency is printed
+   with and without the sweep), a pruned job through the lane, and BULK
+   on the rowdict store served compressed; then ``close(drain=True)`` with
+   requests queued. Every answer must be OK and equal to the engine's or
+   [bulk]'s, every bulk job DONE, no reply dropped; the six kernels of
+   the path must have launched, from the loop's worker and the lane's
+   thread, each wrapper's launches equal to its calls, and its first
+   calls equal to their plain versions. The store directories are deleted
+   after this phase;
+11. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
    torch.profiler (device time, the top device and host operations; the
    chunked executors under cProfile too), and times each kernel at the
    main path's shapes (a CUDA graph of 64 launches, so no host gaps)
@@ -96,9 +112,11 @@ import dataclasses
 import json
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1188,20 +1206,26 @@ def phase_store(rt, torch, corpus, queries, origin, chk: KernelCheck):
 class ChunkRecorder:
     """Inside ``with``, keeps the arguments of every call of the named
     wrappers (the chunk wrappers unless ``names`` says otherwise; the
-    executors and ops look them up at call time), so that the kernels can
-    be held against their plain versions and timed at the path's own
-    shapes afterwards. It launches nothing itself."""
+    executors and ops look them up at call time), or of each wrapper's
+    first ``keep`` calls (the arguments hold their tensors), and the name
+    of the thread that made each call, so that the kernels can be held
+    against their plain versions and timed at the path's own shapes
+    afterwards. It launches nothing itself."""
 
-    def __init__(self, kernels, names=CHUNK_KERNELS):
+    def __init__(self, kernels, names=CHUNK_KERNELS, keep=None):
         self.k = kernels
         self.names = names
+        self.keep = keep
         self.calls = {n: [] for n in names}
+        self.threads = {n: [] for n in names}
 
     def __enter__(self):
         self.saved = {n: getattr(self.k, n) for n in self.names}
         for n, fn in self.saved.items():
             def rec(*args, _n=n, _fn=fn, **kw):
-                self.calls[_n].append(args)
+                if self.keep is None or len(self.calls[_n]) < self.keep:
+                    self.calls[_n].append(args)
+                self.threads[_n].append(threading.current_thread().name)
                 return _fn(*args, **kw)
             setattr(self.k, n, rec)
         return self
@@ -2010,6 +2034,448 @@ def phase_tune(rt, torch, stores, traffic, untuned, chk):
 
 
 # --------------------------------------------------------------------------
+# The network front door: ServingLoop, NetServer / NetClient, BulkLane
+# --------------------------------------------------------------------------
+
+NET_CLIENTS = 8          # interactive wire clients of (a) and (e)
+NET_READERS = 2          # interactive clients beside the sweep of (c)
+NET_KERNELS = ("lookup_score_multi", "gather_rows", "dedup_score",
+               "chunk_lookup_score_multi", "chunk_dedup_score",
+               "chunk_lookup_score_multi_compressed")
+NET_TIMEOUT = 300.0
+
+
+class TimedLock:
+    """Stands in for a ServingLoop's lock (``loop._lock``) and records, by
+    the role of the thread (its name without trailing digits), how long
+    each acquire waited and how long the lock was then held."""
+
+    def __init__(self, lock):
+        self.lock = lock
+        self.local = threading.local()
+        self.waits, self.holds = {}, {}      # role -> [seconds]
+
+    def __enter__(self):
+        t0 = time.perf_counter()
+        self.lock.acquire()
+        t1 = time.perf_counter()
+        depth = getattr(self.local, "depth", 0)
+        if depth == 0:
+            self.local.t1 = t1
+            role = threading.current_thread().name.rstrip("0123456789")
+            self.waits.setdefault(role, []).append(t1 - t0)
+        self.local.depth = depth + 1
+        return self
+
+    def __exit__(self, *exc):
+        self.local.depth -= 1
+        if self.local.depth == 0:
+            role = threading.current_thread().name.rstrip("0123456789")
+            self.holds.setdefault(role, []).append(
+                time.perf_counter() - self.local.t1)
+        self.lock.release()
+
+    def reset(self) -> None:
+        self.waits, self.holds = {}, {}
+
+    def summary(self) -> dict:
+        """role -> acquires, wait p50 / p99 / total and hold p50 / total
+        (ms)."""
+        return {role: {"acquires": len(w), "wait_p50_ms": pct_ms(w, 50),
+                       "wait_p99_ms": pct_ms(w, 99),
+                       "wait_total_ms": sum(w) * 1e3,
+                       "hold_p50_ms": pct_ms(self.holds.get(role, [0]), 50),
+                       "hold_total_ms": sum(self.holds.get(role, [])) * 1e3}
+                for role, w in sorted(self.waits.items())}
+
+
+def lock_line(summary: dict) -> str:
+    return "; ".join(
+        f"{role} {x['acquires']} acquires waited p50 {x['wait_p50_ms']:.3f}"
+        f" / p99 {x['wait_p99_ms']:.3f} ms ({x['wait_total_ms']:.1f} ms in "
+        f"all), held p50 {x['hold_p50_ms']:.3f} ms ({x['hold_total_ms']:.1f}"
+        " ms in all)" for role, x in summary.items())
+
+
+def close_net(net) -> None:
+    """``net.close(drain=True)`` without its wait for the accept thread:
+    closing the listener does not wake an ``accept`` blocked on it, so
+    ``close`` waits out its 5 s join; shutting the listener down first
+    wakes it."""
+    net._listener.shutdown(socket.SHUT_RDWR)
+    net.close(drain=True)
+
+
+def wire_rounds(rt, address, rounds, n_clients: int):
+    """``rounds``: lists of (pattern, kwargs). ``n_clients`` NetClient
+    threads, one session each, send each round's requests round-robin and
+    pipelined, and wait for their answers before the next round. Returns
+    the NetResults in round order, each one's latency from submit to
+    answer on the client (s), and the wall seconds."""
+    starts = np.cumsum([0] + [len(r) for r in rounds])
+    results, lat, errors = [None] * starts[-1], [None] * starts[-1], []
+    barrier = threading.Barrier(n_clients)
+
+    def client(ci):
+        try:
+            with rt.NetClient(*address, timeout_s=NET_TIMEOUT) as cl:
+                for ri, rnd in enumerate(rounds):
+                    barrier.wait(NET_TIMEOUT)
+                    flight = []
+                    for j in range(ci, len(rnd), n_clients):
+                        i, (pattern, kw) = int(starts[ri]) + j, rnd[j]
+                        t0 = time.perf_counter()
+                        fut = cl.submit(pattern, **kw)
+                        fut.add_done_callback(
+                            lambda f, i=i, t0=t0: lat.__setitem__(
+                                i, time.perf_counter() - t0))
+                        flight.append((i, fut))
+                    for i, fut in flight:
+                        results[i] = fut.result(NET_TIMEOUT)
+        except Exception as e:          # reported below, fails the run
+            errors.append(f"client {ci}: {e!r}")
+            barrier.abort()
+
+    threads = [threading.Thread(target=client, args=(ci,),
+                                name=f"net-client{ci}")
+               for ci in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(NET_TIMEOUT)
+    secs = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"wire clients failed: {errors or 'a client hung'}")
+    return results, lat, secs
+
+
+def check_wire(rt, results, want, what: str, method: str | None = None):
+    bad = [r.status.value for r in results if r.status != rt.Status.OK]
+    check(not bad, f"[net:{what}] {len(bad)} responses not OK: "
+          f"{sorted(set(bad))}")
+    check(all(method is None or r.method == method for r in results),
+          f"[net:{what}] a response was not served by {method}")
+    check(same_results([r.result for r in results], want),
+          f"[net:{what}] a wire result differs from the engine's")
+
+
+def job_done(rt, job, what: str) -> None:
+    check(job.wait(NET_TIMEOUT), f"[net:{what}] bulk job {job.job_id} "
+          "never finished")
+    check(job.status is rt.BulkStatus.DONE,
+          f"[net:{what}] bulk job {job.job_id} ended {job.status.value}: "
+          f"{job.error}")
+
+
+def bulk_stats(job) -> dict:
+    return dict(vars(job.stats), prune=dict(vars(job.prune)),
+                wall_s=job.finished_at - job.submitted_at)
+
+
+def phase_net(rt, torch, stores, queries, traffic, untuned, chk):
+    """The network front door on the card, its launch counters from 0 and
+    kept out of the kernel line: (a) NET_CLIENTS clients pipeline the dense
+    mix and the dense reads into NetServer(ServingLoop(QueryServer)); (b)
+    STATS in both formats and a traced query; (c) BULK over the wire on the
+    raw store (cache of half the store) alone, then beside NET_READERS
+    clients sending the raw reads, and a pruned job through the lane; (d)
+    BULK on the rowdict store; (e) close(drain=True) with requests queued.
+    Every answer must be OK and equal the engine's or [bulk]'s, every bulk
+    job DONE. Returns the record and the phase's launches."""
+    k, q_mod = rt.kernels, rt.query
+    t_phase = time.perf_counter()
+    out = {}
+    rec = ChunkRecorder(k, tuple(KERNELS), keep=4)
+    # the traced query of (b) asks a threshold no other request uses
+    traced = (queries[0], 0.7, rt.QueryEngine(
+        traffic["dense mix"][0], method="lookup").search(queries[0], 0.7))
+    k.reset_launches()                      # the network path starts here
+    with rec:
+        out["interactive"] = net_interactive(rt, torch, traffic, untuned,
+                                             traced)
+        out["bulk"] = net_bulk(rt, torch, stores, queries, traffic)
+        out["drain"] = net_drain(rt, traffic)
+        torch.cuda.synchronize()
+    launches = dict(k.launches)             # the network path ends here
+    out["launches"] = launches
+    for name in NET_KERNELS:
+        check(launches[name] > 0, f"the [net] phase never launched {name}")
+    # every wrapper call of the phase ran on the card and launched once:
+    # the guarded counters add up to the calls, whichever thread made them
+    for name in KERNELS:
+        check(launches[name] == len(rec.threads[name]),
+              f"[net] {name}: {launches[name]} launches counted for "
+              f"{len(rec.threads[name])} calls")
+    by_thread = {}
+    for name, names in rec.threads.items():
+        for t in names:
+            by_thread.setdefault(t, {}).setdefault(name, 0)
+            by_thread[t][name] += 1
+    out["launches_by_thread"] = by_thread
+    check("bulk-lane" in by_thread and any(
+        t.startswith("serve-worker") for t in by_thread),
+        f"[net] kernels launched from {sorted(by_thread)}: not from both "
+        "the loop's worker and the bulk lane")
+    check_chunk_calls(k, chk, {n: rec.calls[n] for n in CHUNK_KERNELS},
+                      "net")
+    check_dedup_calls(k, chk, {n: rec.calls[n] for n in DEDUP_KERNELS},
+                      "net")
+    for args in rec.calls["lookup_score_multi"][:2]:
+        chk.compare("lookup_score_multi", k.lookup_score_multi(*args),
+                    k.lookup_plain(*args), f"net, idx {list(args[1].shape)}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[net] launches {launches}; by thread "
+        f"{ {t: sum(c.values()) for t, c in by_thread.items()} }; each "
+        f"equals its wrappers' calls; the first calls of the chunk, dedup "
+        f"and lookup kernels equal their plain versions; "
+        f"{out['seconds']:.1f} s")
+    return out, launches
+
+
+def net_interactive(rt, torch, traffic, untuned, traced) -> dict:
+    """(a) and (b): the dense mix and reads over the wire, then STATS and a
+    traced query."""
+    index, mix_groups, mix_want = traffic["dense mix"]
+    _, read_groups, reads_want = traffic["dense reads"]
+    server = rt.QueryServer(index, rt.ServerConfig())
+    loop = rt.ServingLoop(server)
+    loop._lock = lock = TimedLock(loop._lock)
+    net = rt.NetServer(loop).start()
+    out = {}
+    try:
+        for what, rounds, want in (
+                ("dense mix", [[r for g in mix_groups for r in g]],
+                 mix_want),
+                ("dense reads", read_groups, reads_want)):
+            for label in ("warm", "measured"):
+                if label == "measured":
+                    with loop._lock:        # no batch scores meanwhile
+                        server.reset_metrics(clear_caches=True)
+                        lock.reset()
+                res, lat, secs = wire_rounds(rt, net.address, rounds,
+                                             NET_CLIENTS)
+                check_wire(rt, res, want, f"{what} {label}")
+            snap = loop.metrics_snapshot()
+            m = {"requests": len(res), "wall_s": secs,
+                 "queries_per_s": len(res) / secs,
+                 "p50_e2e_ms": pct_ms(lat, 50), "p99_e2e_ms": pct_ms(lat, 99),
+                 "p50_wait_ms": pct_ms([r.wait_s for r in res], 50),
+                 "p50_service_ms": pct_ms([r.service_s for r in res], 50),
+                 "p99_service_ms": pct_ms([r.service_s for r in res], 99),
+                 "dispatch": dict(server.planner.dispatch_counts),
+                 "batches": snap.batches, "cache_hits": snap.cache_hits,
+                 "mean_batch": snap.coalesce_rate, "lock": lock.summary()}
+            out[what] = m
+            u = untuned[what]
+            log(f"[net:{what}] {len(res)} requests from {NET_CLIENTS} "
+                f"clients over the wire, each OK and equal to the engine's:"
+                f" {m['queries_per_s']:.1f} queries/s; client e2e p50 "
+                f"{m['p50_e2e_ms']:.3f} / p99 {m['p99_e2e_ms']:.3f} ms; "
+                f"server wait p50 {m['p50_wait_ms']:.3f} ms, service p50 "
+                f"{m['p50_service_ms']:.3f} / p99 {m['p99_service_ms']:.3f}"
+                f" ms; dispatch {m['dispatch']}; {m['batches']} batches, "
+                f"mean batch {m['mean_batch']:.2f}, {m['cache_hits']} cache "
+                f"hits. In process [serve]: {u['queries_per_s']:.1f} "
+                f"queries/s, e2e p50 {u['p50_e2e_ms']:.3f} / p99 "
+                f"{u['p99_e2e_ms']:.3f} ms, service p50 "
+                f"{u['p50_service_ms']:.3f} ms, dispatch {u['dispatch']}")
+            log(f"[net:{what}] the loop's lock: {lock_line(m['lock'])}")
+        check(out["dense mix"]["dispatch"].get("lookup", 0) > 0,
+              f"[net:dense mix] dispatch {out['dense mix']['dispatch']}: no"
+              " fused lookup batch")
+        check(out["dense reads"]["dispatch"].get("dedup", 0) > 0,
+              f"[net:dense reads] dispatch {out['dense reads']['dispatch']}"
+              ": no dedup batch")
+        out["stats"] = net_stats(rt, net, traced)
+    finally:
+        close_net(net)
+    return out
+
+
+def net_stats(rt, net, traced) -> dict:
+    """(b): STATS as JSON and as Prometheus text, and one traced query:
+    ``traced`` is (pattern, a threshold no earlier request used, so that
+    it is scored and not cached, the engine's answer)."""
+    fields = {f.name for f in dataclasses.fields(rt.MetricsSnapshot)}
+    with rt.NetClient(*net.address, timeout_s=NET_TIMEOUT) as cl:
+        snap = cl.stats()
+        text = cl.stats(prometheus=True)
+        r = cl.search(traced[0], threshold=traced[1])
+    check(set(snap) == fields, f"[net:stats] JSON keys {sorted(snap)} are "
+          "not the snapshot's fields")
+    series = [s for s in rt.parse_prometheus(text) if s.startswith("serve_")]
+    check(len(series) > 0, "[net:stats] no serve_ series in the text")
+    check(r.status == rt.Status.OK and same_result(r.result, traced[2]),
+          "[net:trace] the traced query is not OK or differs from the "
+          "engine's")
+    check(r.trace_id != 0 and bool(r.stages) and "kernel_score" in r.stages,
+          f"[net:trace] trace {r.trace_id}: stages {r.stages}")
+    log(f"[net:stats] STATS JSON has the snapshot's {len(fields)} fields "
+        f"(served {snap['served']}), the Prometheus text {len(series)} "
+        f"serve_ series; traced query {r.trace_id:#x} stages "
+        f"{ {s: round(v * 1e3, 3) for s, v in r.stages.items()} } ms")
+    return {"served": snap["served"], "series": len(series),
+            "stages_ms": {s: v * 1e3 for s, v in r.stages.items()}}
+
+
+def net_bulk(rt, torch, stores, queries, traffic) -> dict:
+    """(c) and (d): BULK frames and a pruned job through BulkLanes."""
+    raw, comp = stores["raw"], stores["comp"]
+    st = raw.storage
+    _, raw_reads, raw_reads_want = traffic["raw"]
+    raw_want, comp_want = stores["raw_want"][0], stores["comp_want"][0]
+    out = {}
+    # (c) the raw store through a cache of half its bytes; no result
+    # cache, so the reads are scored in both runs
+    server = rt.QueryServer(raw, rt.ServerConfig(
+        tile_cache_bytes=st.nbytes() // 2, result_cache=0))
+    loop = rt.ServingLoop(server)
+    loop._lock = lock = TimedLock(loop._lock)
+    lane = rt.BulkLane(server, loop).start()
+    net = rt.NetServer(loop).start()
+    try:
+        with rt.NetClient(*net.address, timeout_s=NET_TIMEOUT) as cl:
+            res = cl.bulk(queries, threshold=THRESHOLD,
+                          timeout_s=NET_TIMEOUT)
+        check_wire(rt, res, raw_want, "bulk raw", method="bulk")
+        job = lane.jobs()[-1]
+        job_done(rt, job, "bulk raw")
+        s = job.stats
+        check(s.tiles_staged == st.n_shards and s.bytes_staged
+              == st.nbytes(), f"[net:bulk raw] staged {s.tiles_staged} "
+              f"tiles of {s.bytes_staged} bytes, not {st.n_shards} of "
+              f"{st.nbytes()}")
+        out["raw alone"] = bulk_stats(job)
+        log(f"[net:bulk raw] {len(queries)} queries in one BULK frame, "
+            f"each OK and equal to [bulk]'s, in "
+            f"{out['raw alone']['wall_s'] * 1e3:.1f} ms; each of "
+            f"{st.n_shards} shards staged once, {s.bytes_staged} bytes")
+        lock.reset()
+        reads, lat, secs = wire_rounds(rt, net.address, raw_reads,
+                                       NET_READERS)
+        check_wire(rt, reads, raw_reads_want, "raw reads")
+        alone = {"p50_e2e_ms": pct_ms(lat, 50), "p99_e2e_ms": pct_ms(lat, 99),
+                 "queries_per_s": len(reads) / secs,
+                 "mean_batch": server.metrics.snapshot().coalesce_rate,
+                 "lock": lock.summary()}
+        log(f"[net:raw reads] alone, mean batch "
+            f"{alone['mean_batch']:.2f}; the loop's lock: "
+            f"{lock_line(alone['lock'])}")
+        yields0 = server.metrics.bulk_yields
+        box = {}
+
+        def sweep():
+            with rt.NetClient(*net.address, timeout_s=NET_TIMEOUT) as cl:
+                box["res"] = cl.bulk(queries, threshold=THRESHOLD,
+                                     timeout_s=NET_TIMEOUT)
+
+        sweeper = threading.Thread(target=sweep, name="net-bulk-client")
+        sweeper.start()
+        reads, lat, secs = wire_rounds(rt, net.address, raw_reads,
+                                       NET_READERS)
+        sweeper.join(NET_TIMEOUT)
+        check(not sweeper.is_alive() and "res" in box,
+              "[net:bulk raw + reads] the BULK client never finished")
+        check_wire(rt, reads, raw_reads_want, "raw reads beside the sweep")
+        check_wire(rt, box["res"], raw_want, "bulk raw beside the reads",
+                   method="bulk")
+        job = lane.jobs()[-1]
+        job_done(rt, job, "bulk raw beside the reads")
+        during = {"p50_e2e_ms": pct_ms(lat, 50),
+                  "p99_e2e_ms": pct_ms(lat, 99),
+                  "queries_per_s": len(reads) / secs,
+                  "bulk_yields": server.metrics.bulk_yields - yields0,
+                  "sweep": bulk_stats(job)}
+        out["raw reads"] = {"alone": alone, "beside the sweep": during}
+        log(f"[net:raw reads] {len(reads)} reads from {NET_READERS} clients"
+            f", each OK and equal to the engine's: alone p50 "
+            f"{alone['p50_e2e_ms']:.3f} / p99 {alone['p99_e2e_ms']:.3f} ms "
+            f"({alone['queries_per_s']:.1f} queries/s); beside the BULK "
+            f"sweep p50 {during['p50_e2e_ms']:.3f} / p99 "
+            f"{during['p99_e2e_ms']:.3f} ms ({during['queries_per_s']:.1f} "
+            f"queries/s); the lane yielded {during['bulk_yields']} times, "
+            f"the sweep (equal to [bulk]'s) took "
+            f"{during['sweep']['wall_s'] * 1e3:.1f} ms and staged "
+            f"{job.stats.tiles_staged} tiles, {job.stats.bytes_staged} bytes")
+        job = lane.submit(queries, threshold=THRESHOLD, pruned=True)
+        job_done(rt, job, "pruned job")
+        check(same_results(job.results, raw_want),
+              "[net:pruned job] a result differs from [bulk]'s")
+        out["raw pruned"] = bulk_stats(job)
+        log(f"[net:pruned job] {len(queries)} queries through the lane's "
+            f"pruned sweep, equal to [bulk]'s, in "
+            f"{out['raw pruned']['wall_s'] * 1e3:.1f} ms; blocks pruned "
+            f"{job.stats.prune_rate:.3f}, {job.prune.bytes_read} bytes read"
+            f", {job.stats.tiles_staged} tiles staged")
+    finally:
+        close_net(net)
+    # (d) the rowdict store, served compressed
+    server = rt.QueryServer(comp, rt.ServerConfig(compressed=True))
+    loop = rt.ServingLoop(server)
+    lane = rt.BulkLane(server, loop).start()
+    net = rt.NetServer(loop).start()
+    try:
+        with rt.NetClient(*net.address, timeout_s=NET_TIMEOUT) as cl:
+            res = cl.bulk(queries, threshold=THRESHOLD,
+                          timeout_s=NET_TIMEOUT)
+        check_wire(rt, res, comp_want, "bulk comp", method="bulk")
+        job = lane.jobs()[-1]
+        job_done(rt, job, "bulk comp")
+        out["comp"] = bulk_stats(job)
+        log(f"[net:bulk comp] {len(queries)} queries over the rowdict store"
+            f", each OK and equal to the raw twin's, in "
+            f"{out['comp']['wall_s'] * 1e3:.1f} ms; {job.stats.tiles_staged}"
+            f" tiles, {job.stats.bytes_staged} bytes staged")
+    finally:
+        close_net(net)
+    return out
+
+
+def net_drain(rt, traffic) -> dict:
+    """(e): the dense mix from NET_CLIENTS clients into a server whose
+    partial batches wait (max_wait_s 60), then close(drain=True) with them
+    queued: every request answered OK, no reply dropped."""
+    index, mix_groups, mix_want = traffic["dense mix"]
+    server = rt.QueryServer(index, rt.ServerConfig(max_wait_s=60.0))
+    loop = rt.ServingLoop(server)
+    accepted = []
+    submit = loop.submit
+
+    def counting_submit(*args, **kw):
+        rid = submit(*args, **kw)
+        accepted.append(rid)
+        return rid
+
+    loop.submit = counting_submit
+    net = rt.NetServer(loop).start()
+    rounds = [[r for g in mix_groups for r in g]]
+    n = len(rounds[0])
+    box = {}
+    clients = threading.Thread(
+        target=lambda: box.setdefault("run", wire_rounds(
+            rt, net.address, rounds, NET_CLIENTS)), name="net-drain")
+    clients.start()
+    deadline = time.perf_counter() + NET_TIMEOUT
+    while len(accepted) < n and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    pending = loop.pending()
+    close_net(net)
+    clients.join(NET_TIMEOUT)
+    check(len(accepted) == n and not clients.is_alive() and "run" in box,
+          f"[net:drain] {len(accepted)} of {n} requests accepted")
+    check(pending > 0, "[net:drain] nothing was queued at close")
+    res = box["run"][0]
+    check_wire(rt, res, mix_want, "drain")
+    dropped = server.metrics.dropped_replies
+    check(dropped == 0, f"[net:drain] {dropped} replies dropped")
+    log(f"[net:drain] close(drain=True) with {pending} of {n} accepted "
+        f"requests queued: all {n} answered OK and equal to the engine's, "
+        f"0 replies dropped")
+    return {"requests": n, "queued_at_close": pending, "dropped": dropped}
+
+
+# --------------------------------------------------------------------------
 # Timing
 # --------------------------------------------------------------------------
 
@@ -2566,8 +3032,11 @@ class _Port:
         from repro_torch.index import build_compact_streaming
         from repro_torch.kernels import _build, bitslice_score, ops
         from repro_torch.kernels.autotune import KernelTuner, TuningCache
-        from repro_torch.serve import (QueryPlanner, QueryServer,
-                                       ServerConfig, Status)
+        from repro_torch.obs.export import parse_prometheus
+        from repro_torch.serve import (BulkLane, BulkStatus, MetricsSnapshot,
+                                       NetClient, NetServer, QueryPlanner,
+                                       QueryServer, ServerConfig,
+                                       ServingLoop, Status)
         from repro_torch.serve import server as server_mod
         self.IndexParams, self.QueryEngine = IndexParams, QueryEngine
         self.QueryServer, self.ServerConfig = QueryServer, ServerConfig
@@ -2582,6 +3051,10 @@ class _Port:
         self.build, self.kernels, self.ops = _build, bitslice_score, ops
         self.KernelTuner, self.TuningCache = KernelTuner, TuningCache
         self.QueryPlanner = QueryPlanner
+        self.ServingLoop, self.NetServer = ServingLoop, NetServer
+        self.NetClient, self.MetricsSnapshot = NetClient, MetricsSnapshot
+        self.BulkLane, self.BulkStatus = BulkLane, BulkStatus
+        self.parse_prometheus = parse_prometheus
 
 
 def main() -> int:
@@ -2627,6 +3100,8 @@ def main() -> int:
                 rt, torch, corpus, index, stores, queries, origin, chk)
             record["tune"], record["tune_launches"] = phase_tune(
                 rt, torch, stores, traffic, record["serve"], chk)
+            record["net"], record["net_launches"] = phase_net(
+                rt, torch, stores, queries, traffic, record["serve"], chk)
         finally:
             shutil.rmtree(STORE_DIR, ignore_errors=True)
         record["trace"] = phase_trace(

@@ -775,11 +775,11 @@ def run_shard_major(tiles, shard_plans: list[ShardPlan], terms: np.ndarray,
     """Shard-major streaming scan: one tile staging amortized over Q.
 
     terms uint32 [Q, L, 2] (shared padding), n_valid int32 [Q];
-    ``required`` [Q] per-query score cutoffs (0 for top-k) and ``topk``
-    int32 [Q] per-query k (0 = threshold). Returns ``(out, next_shard,
-    required)``: int32 [Q, n_slots] slot scores (shard s at columns
-    [block_start, block_end) * W * 32), the first unswept shard, and the
-    tightened cutoffs. Pruned (query, block) cells hold partial sums below
+    ``required`` [Q] per-query score cutoffs (0 for top-k; taken as int64)
+    and ``topk`` int32 [Q] per-query k (0 = threshold). Returns ``(out,
+    next_shard, required)``: int32 [Q, n_slots] slot scores (shard s at
+    columns [block_start, block_end) * W * 32), the first unswept shard,
+    and the tightened cutoffs, int64 [Q] (a bulk job's checkpoint). Pruned (query, block) cells hold partial sums below
     the query's cutoff, as in ``run_paged_pruned``.
 
     ``tiles`` is one DeviceTileCache or a list parallel to

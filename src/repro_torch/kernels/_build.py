@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "bitslice_score.cu"
@@ -88,9 +89,19 @@ def build() -> tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
-@functools.cache
+# threads that launch first (a serving loop's worker, a bulk lane) wait
+# for one build instead of each running nvcc
+_library_lock = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
+    with _library_lock:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

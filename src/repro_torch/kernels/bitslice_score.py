@@ -35,6 +35,8 @@ counting in int32).
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import _build
@@ -56,9 +58,20 @@ launches: dict[str, int] = {"unpack_score": 0, "vertical_score": 0,
                             "gather_rows_compressed": 0, "dedup_score": 0}
 
 
+# kernels launch from more than one host thread (a serving loop's worker
+# and a bulk lane's), and ``+= 1`` on a dict entry is not atomic
+_launches_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def num_planes(n_terms: int) -> int:
@@ -146,7 +159,7 @@ def _rows_launch(name: str, symbol: str, rows: torch.Tensor
         _build.launch(symbol, r3.data_ptr(), out.data_ptr(), B, L, W,
                       CLUSTER_AUTO, rows.device.index or 0,
                       _stream(rows.device))
-        launches[name] += 1
+        _count(name)
     return out if rows.dim() == 3 else out[0]
 
 
@@ -236,7 +249,7 @@ def _lookup_launch(name: str, symbol: str, head: tuple[int, ...],
         _build.launch(symbol, *head, rows_idx.data_ptr(), mask.data_ptr(),
                       out.data_ptr(), rows_idx.shape[:-1].numel(), L, W,
                       CLUSTER_AUTO, dev.index or 0, _stream(dev))
-        launches[name] += 1
+        _count(name)
     return out
 
 
@@ -386,7 +399,7 @@ def _chunk(name: str, symbol: str, rows: torch.Tensor,
                       acc.data_ptr(), out.data_ptr(), Q * nb, L, W,
                       acc.shape[2], CLUSTER_AUTO, rows.device.index or 0,
                       _stream(rows.device))
-        launches[name] += 1
+        _count(name)
     return out
 
 
@@ -486,7 +499,7 @@ def _gather(name: str, symbol: str, rows: torch.Tensor,
                 else (rows.data_ptr(), refs.data_ptr()))
         _build.launch(symbol, *head, uniq_idx.data_ptr(), out.data_ptr(), U,
                       k, W, rows.device.index or 0, _stream(rows.device))
-        launches[name] += 1
+        _count(name)
     return out
 
 

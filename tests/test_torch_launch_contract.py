@@ -12,9 +12,15 @@ before it touches the library, and the source must launch each split
 kernel through its cluster launcher, ``dedup_kernel`` alone with
 programmatic stream serialization, and both gathers through the one
 gather body. No kernel runs here: this checks the Python side of the
-launch contract and the source's text only.
+launch contract and the source's text only. Two threads launching at once
+(a serving loop's worker and a bulk lane's) must lose no count, and must
+build the kernel library once.
 """
 import re
+import sys
+import threading
+import time
+import types
 
 import pytest
 import torch
@@ -171,3 +177,75 @@ def test_split_kernels_in_the_source(kernel):
         for piece in ("lane = threadIdx.x & 31", "v[kUnroll]",
                       "s_red[kUnpackWarps * 32]", "(v[u] >> lane) & 1u"):
             assert piece in body
+
+
+# --------------------------------------------------------------------------
+# Launches from more than one host thread (a serving loop's worker and a
+# bulk lane's): every launch counted, the library built once
+# --------------------------------------------------------------------------
+
+def test_launch_counts_add_up_across_threads(monkeypatch):
+    """More threads than cores call a wrapper through its launch path
+    (CUDA check and launcher stubbed) under a very short switch interval;
+    the count is exactly the number of launches."""
+    monkeypatch.setattr(k, "_on_cuda", lambda *tensors: True)
+    monkeypatch.setattr(k, "_stream", lambda dev: 0)
+    monkeypatch.setattr(_build, "launch", lambda symbol, *args: None)
+    rows = torch.zeros((9, W), dtype=torch.int32)
+    uniq = torch.zeros(4, dtype=torch.int32)
+    n, n_threads = 300, 16
+    before = dict(k.launches)
+
+    def work():
+        for _ in range(n):
+            k.gather_rows(rows, uniq, range_checked=True)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert k.launches["gather_rows"] - before["gather_rows"] == n_threads * n
+    assert all(k.launches[m] == before[m] for m in k.launches
+               if m != "gather_rows")
+
+
+def test_library_builds_once_across_threads(monkeypatch):
+    """Threads that ask for the kernel library at once wait for one build
+    (the build and the loader stubbed)."""
+    builds = []
+
+    def slow_build():
+        builds.append(1)
+        time.sleep(0.05)
+        return "libcobs_kernels-stub.so", ""
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    _build._load.cache_clear()
+    try:
+        got = []
+        threads = [threading.Thread(target=lambda: got.append(
+            _build.library())) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+        assert not any(t.is_alive() for t in threads)
+        assert len(builds) == 1 and len(got) == 4
+        assert all(lib is got[0] for lib in got)
+        assert got[0].cobs_gather_rows.restype is _build.ctypes.c_int
+    finally:
+        _build._load.cache_clear()
