@@ -87,9 +87,25 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    [bulk]'s, every bulk job DONE, no reply dropped; the six kernels of
    the path must have launched, from the loop's worker and the lane's
    thread, each wrapper's launches equal to its calls, and its first
-   calls equal to their plain versions. The store directories are deleted
+   calls equal to their plain versions;
+11. drives the multi-host data plane ("[multihost]"), its counters from 0
+   and kept out of the kernel line's launches: a ``Frontend`` over 3 fake
+   hosts (replication 2, unbounded tile caches) on the raw store serves
+   the dense mix, the raw reads window by window and single short
+   queries, with sequential and with concurrent scatter (queries/s,
+   client e2e p50/p99, per-worker dispatch p50, the card's busy share of
+   one scattered batch); a host fails while a batch is in flight and
+   recovers (failovers, no request lost); pruned workers on the raw store
+   and compressed workers (plain and pruned) on the rowdict store, each
+   fleet also swept by a ``BulkLane``; then an ``RpcFrontend`` over 3
+   ``WorkerServer``s on localhost, first with a straggler and hedging (the
+   hedged duplicates win, the losers are cancelled on the wire), then with
+   one server closed mid-load. Every answer must be OK and equal to the
+   engine's on the same store; the path's kernels must have launched,
+   each wrapper's launches equal to its calls, and every call must equal
+   its plain version on the card. The store directories are deleted
    after this phase;
-11. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
+12. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
    torch.profiler (device time, the top device and host operations; the
    chunked executors under cProfile too), and times each kernel at the
    main path's shapes (a CUDA graph of 64 launches, so no host gaps)
@@ -2476,6 +2492,454 @@ def net_drain(rt, traffic) -> dict:
 
 
 # --------------------------------------------------------------------------
+# The multi-host data plane
+# --------------------------------------------------------------------------
+
+MH_NODES = ("h0", "h1", "h2")       # fake hosts of one process
+MH_REPLICATION = 2
+# the kernels [multihost] must launch: single short queries (unpack), the
+# fused lookups of raw and compressed workers, and the chunk lookups of the
+# lane's sweeps over the fleets (chunk_dedup_score too wherever a pruned
+# worker gathers rows)
+MH_KERNELS = ("unpack_score", "lookup_score_multi",
+              "lookup_score_multi_compressed", "chunk_lookup_score_multi",
+              "chunk_lookup_score_multi_compressed")
+MH_STRAGGLE_S, MH_HEDGE_AFTER_S = 0.2, 0.05
+MH_SINGLES = 8
+MH_TIMEOUT = 120.0
+
+
+def mh_plain(k, name, args):
+    """The plain version of a [multihost] wrapper call, vectorised over the
+    terms: the plain unpack of the rows the kernel counts (a chunk's counts
+    added to its running counts)."""
+    if name == "unpack_score":
+        return unpack_rows_plain(k, args[0])
+    if name in ("lookup_score_multi_compressed",
+                "chunk_lookup_score_multi_compressed"):
+        d, r, *rest = args
+        args = (d[r.long()], *rest)            # the rows dict[refs[row]]
+    rows, idx, mask = args[:3]
+    counts = unpack_rows_plain(k, masked_rows(rows, idx, mask))
+    if name not in CHUNK_KERNELS:
+        return counts
+    out = args[3].clone()
+    out[..., :counts.shape[-2], :] += counts
+    return out
+
+
+def check_every_call(k, chk, calls: dict, what: str) -> dict:
+    """Every recorded call against its plain version on the card. Returns
+    name -> calls."""
+    for name, recs in calls.items():
+        for args in recs:
+            chk.compare(name, getattr(k, name)(*args),
+                        mh_plain(k, name, args),
+                        f"{what}, {[list(a.shape) for a in args]}")
+    return {name: len(recs) for name, recs in calls.items()}
+
+
+def mh_fleet(rt, store, *, worker_kw=None, **cfg):
+    """A Frontend over MH_NODES, replication MH_REPLICATION, unbounded
+    tile caches, FrontendConfig(**cfg)."""
+    place = rt.ShardPlacement.for_store(store, list(MH_NODES),
+                                        replication=MH_REPLICATION)
+    held = place.replica_assignment()
+    workers = {n: rt.ShardWorker(n, store, held[n], **(worker_kw or {}))
+               for n in MH_NODES if held[n]}
+    return rt.Frontend(workers, place, rt.FrontendConfig(**cfg))
+
+
+def mh_close(fe) -> None:
+    if fe._pool is not None:
+        fe._pool.shutdown(wait=True)
+
+
+def mh_serve(rt, fe, groups, want, what: str):
+    """Serve ``groups`` through ``fe`` (serve_groups); every response must
+    be OK and equal ``want``. Returns the responses and wall seconds."""
+    resp, secs = serve_groups(fe, groups)
+    check(len(resp) == len(want), f"[multihost:{what}] {len(resp)} "
+          f"responses for {len(want)} requests")
+    bad = [r.status.value for r in resp if r.status != rt.Status.OK]
+    check(not bad, f"[multihost:{what}] {len(bad)} responses not OK: "
+          f"{sorted(set(bad))}")
+    check(same_results([r.result for r in resp], want),
+          f"[multihost:{what}] a response differs from the engine's")
+    return resp, secs
+
+
+def mh_measure(rt, fe, groups, want, what: str) -> dict:
+    """A warm pass, then (fresh metrics) the measured pass."""
+    mh_serve(rt, fe, groups, want, f"{what} warm")
+    fe.reset_metrics()
+    resp, secs = mh_serve(rt, fe, groups, want, what)
+    snap = fe.metrics.snapshot()
+    lat = [r.latency_s for r in resp]
+    per_worker = {n: float(np.percentile(v, 50)) * 1e3
+                  for n, v in fe.metrics.worker_recent_s.items() if v.size}
+    return {"requests": len(resp), "wall_s": secs,
+            "queries_per_s": len(resp) / secs,
+            "p50_e2e_ms": pct_ms(lat, 50), "p99_e2e_ms": pct_ms(lat, 99),
+            "worker_dispatch_p50_ms": per_worker,
+            "dispatches": snap.dispatches, "batches": snap.batches,
+            "methods": dict(snap.methods),
+            "hedge_fire_rate": snap.hedge_fire_rate,
+            "hedges_fired": snap.hedges_fired, "failovers": snap.failovers}
+
+
+def mh_line(m: dict) -> str:
+    per_worker = {n: round(v, 3)
+                  for n, v in m["worker_dispatch_p50_ms"].items()}
+    return (f"{m['queries_per_s']:.1f} queries/s; e2e p50 "
+            f"{m['p50_e2e_ms']:.3f} / p99 {m['p99_e2e_ms']:.3f} ms; worker "
+            f"dispatch p50 (ms) {per_worker}"
+            f"; {m['batches']} batches, {m['dispatches']} shard dispatches, "
+            f"methods {m['methods']}; hedge rate {m['hedge_fire_rate']:.3f}"
+            f", failovers {m['failovers']}")
+
+
+def phase_multihost(rt, torch, stores, queries, traffic, untuned, chk):
+    """The multi-host data plane on the card, its launch counters from 0
+    and kept out of the kernel line: (a) a Frontend over MH_NODES on the
+    raw store serves the dense mix and the reads window by window, with
+    sequential and concurrent scatter; (b) a host fails while a batch is
+    in flight and recovers; (c) pruned workers on the raw store,
+    compressed workers on the rowdict store, and a BulkLane sweep over
+    each fleet; (d) an RpcFrontend over MH_NODES' WorkerServers on
+    localhost, first with a straggler and hedging, then with a server
+    closed mid-load. Every answer must be OK and equal to the engine's on
+    the same store, no request lost. Returns the record and the phase's
+    launches."""
+    k = rt.kernels
+    t_phase = time.perf_counter()
+    raw_store, comp_store = STORE_DIR / "raw", STORE_DIR / "rowdict"
+    _, mix_groups, _ = traffic["dense mix"]
+    _, read_groups, reads_want = traffic["raw"]
+    raw_want, comp_want = stores["raw_want"], stores["comp_want"]
+    n_top = len(mix_groups[-1])
+    mix_want = raw_want[0] + raw_want[2][:n_top]
+    comp_mix_want = comp_want[0] + comp_want[2][:n_top]
+    # a user sending one short query at a time (MH_SINGLES of at most 80
+    # bases, a bucket under the planner's short-query cut): batches of one
+    short = [i for i, q in enumerate(queries) if len(q) <= 80][:MH_SINGLES]
+    singles = ([[(queries[i], {})] for i in short],
+               [raw_want[0][i] for i in short])
+    out = {}
+    rec = ChunkRecorder(k, tuple(KERNELS))
+    k.reset_launches()                      # the multi-host path starts here
+    with rec:
+        out["fleet"] = mh_in_process(rt, torch, raw_store, mix_groups,
+                                     mix_want, read_groups, reads_want,
+                                     singles, untuned)
+        out["failover"] = mh_failover(rt, raw_store, mix_groups, mix_want)
+        out["pruned"] = mh_pruned_comp(rt, raw_store, comp_store, queries,
+                                       mix_groups, mix_want, comp_mix_want,
+                                       raw_want[0], comp_want[0])
+        out["rpc"] = mh_rpc(rt, raw_store, mix_groups, mix_want)
+        torch.cuda.synchronize()
+    launches = dict(k.launches)             # the multi-host path ends here
+    out["launches"] = launches
+    for name in MH_KERNELS:
+        check(launches[name] > 0,
+              f"the [multihost] phase never launched {name}")
+    for name in KERNELS:
+        check(launches[name] == len(rec.threads[name]),
+              f"[multihost] {name}: {launches[name]} launches counted for "
+              f"{len(rec.threads[name])} calls")
+    by_thread = {}
+    for name, names in rec.threads.items():
+        for t in names:
+            role = t.rstrip("0123456789_")
+            by_thread.setdefault(role, {}).setdefault(name, 0)
+            by_thread[role][name] += 1
+    out["launches_by_thread"] = by_thread
+    t0 = time.perf_counter()
+    out["plain_checks"] = check_every_call(
+        k, chk, {n: c for n, c in rec.calls.items() if c}, "multihost")
+    out["plain_check_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[multihost] launches { {n: c for n, c in launches.items() if c} };"
+        f" by thread { {t: sum(c.values()) for t, c in by_thread.items()} }"
+        f"; each equals its wrappers' calls; every call equals its plain "
+        f"version on the card ({out['plain_checks']} calls, "
+        f"{out['plain_check_s']:.1f} s); "
+        f"{out['seconds']:.1f} s")
+    return out, launches
+
+
+def mh_busy_share(torch, fe, group) -> dict:
+    """The card's busy share over one scattered batch, within one pass:
+    the device time torch.profiler records over one group through a warm
+    frontend, against the wall time of that same profiled pass. Device
+    time sums every CUDA event the profiler records (kernels, memory
+    copies and sets); the kernels' part is kept apart. The wall of an
+    un-profiled pass of the same group stands beside it, to show what the
+    profiler adds."""
+    from torch.profiler import ProfilerActivity, profile
+    serve_groups(fe, [group])                        # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_groups(fe, [group])
+    unprofiled_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_groups(fe, [group])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [ev for ev in prof.events()
+           if str(ev.device_type).endswith("CUDA")]
+    dev_us = sum(ev.time_range.elapsed_us() for ev in dev)
+    kernel_us = sum(ev.time_range.elapsed_us() for ev in dev
+                    if not ev.name.startswith(("Memcpy", "Memset")))
+    return {"requests": len(group), "wall_us": wall_us,
+            "unprofiled_wall_us": unprofiled_us, "device_us": dev_us,
+            "kernel_us": kernel_us, "device_busy_share": dev_us / wall_us,
+            "kernel_busy_share": kernel_us / wall_us}
+
+
+def mh_in_process(rt, torch, store, mix_groups, mix_want, read_groups,
+                  reads_want, singles, untuned) -> dict:
+    """(a): the dense mix, the reads and single short queries through an
+    in-process fleet, with sequential (1 thread) and concurrent (the
+    default 4) scatter."""
+    out = {}
+    for label, threads in (("sequential", 1), ("concurrent", 4)):
+        fe = mh_fleet(rt, store, scatter_threads=threads)
+        try:
+            for what, groups, want in (("dense mix", mix_groups, mix_want),
+                                       ("reads", read_groups, reads_want),
+                                       ("singles", *singles)):
+                m = mh_measure(rt, fe, groups, want, f"{label} {what}")
+                out[f"{label} {what}"] = m
+                log(f"[multihost:{label} {what}] {m['requests']} requests "
+                    f"over {len(MH_NODES)} hosts (replication "
+                    f"{MH_REPLICATION}), each OK and equal to the raw "
+                    f"store's engine: {mh_line(m)}")
+            if threads > 1:
+                out["busy"] = b = mh_busy_share(torch, fe, mix_groups[0])
+                log(f"[multihost:trace] one scattered group of "
+                    f"{b['requests']} requests, profiled: wall "
+                    f"{b['wall_us']:.0f} us (un-profiled "
+                    f"{b['unprofiled_wall_us']:.0f} us), device "
+                    f"{b['device_us']:.0f} us of which kernels "
+                    f"{b['kernel_us']:.0f} us (busy share "
+                    f"{b['device_busy_share']:.4f}, kernels "
+                    f"{b['kernel_busy_share']:.4f})")
+        finally:
+            mh_close(fe)
+    check(out["sequential singles"]["methods"].get("unpack", 0) > 0,
+          f"[multihost:singles] methods "
+          f"{out['sequential singles']['methods']}: no unpack")
+    for what in ("dense mix", "reads", "singles"):
+        s, c = out[f"sequential {what}"], out[f"concurrent {what}"]
+        log(f"[multihost:{what}] sequential {s['queries_per_s']:.1f} "
+            f"against concurrent {c['queries_per_s']:.1f} queries/s")
+    u = untuned["raw"]
+    log(f"[multihost:reads] in process on one QueryServer ([serve:raw], a "
+        f"cache of half the store): {u['queries_per_s']:.1f} queries/s, "
+        f"e2e p50 {u['p50_e2e_ms']:.3f} ms")
+    return out
+
+
+def mh_failover(rt, store, mix_groups, mix_want) -> dict:
+    """(b): fail_worker on the owner of shard 0 from inside another
+    worker's dispatch (a batch in flight), serve on, then recover it."""
+    fe = mh_fleet(rt, store)
+    try:
+        place = fe.placement
+        victim = place.owner(0)
+        # a host that owns a shard: it scores in every batch
+        other = next(place.owner(g) for g in range(place.n_shards)
+                     if place.owner(g) != victim)
+        w = fe.workers[other]
+        score, fired = w.score_candidates, []
+
+        def failing_score(*args, **kw):
+            if not fired and w.dispatches >= 2:
+                fired.append(fe.fail_worker(victim))
+            return score(*args, **kw)
+
+        w.score_candidates = failing_score
+        resp, _ = mh_serve(rt, fe, mix_groups, mix_want, "failover")
+        w.score_candidates = score
+        snap = fe.metrics.snapshot()
+        check(bool(fired) and snap.failovers > 0,
+              f"[multihost:failover] failovers {snap.failovers} after "
+              f"failing {victim}")
+        before = fe.workers[victim].dispatches
+        restored = fe.recover_worker(victim)
+        mh_serve(rt, fe, mix_groups[:1], mix_want[:len(mix_groups[0])],
+                 "recovered")
+        check(not fe.workers[victim].failed and victim in
+              fe.placement.live_nodes and fe.workers[victim].dispatches
+              > before, f"[multihost:failover] {victim} did not come back")
+        out = {"victim": victim, "moved": fired[0], "restored": restored,
+               "requests": len(resp), "failovers": snap.failovers,
+               "skipped_dead": snap.skipped_dead}
+        log(f"[multihost:failover] {victim} failed mid-batch (shards "
+            f"{fired[0]} moved): all {len(resp)} requests OK and equal, "
+            f"{snap.failovers} failovers; recovered (replica set "
+            f"{restored}), it serves again")
+    finally:
+        mh_close(fe)
+    return out
+
+
+def mh_sweep(rt, fe, queries, want, what: str) -> dict:
+    """A BulkLane over the fleet: each shard swept on its live primary's
+    tile cache."""
+    lane = rt.BulkLane(fe)
+    job = lane.submit(queries, threshold=THRESHOLD)
+    lane.drain()
+    check(job.status is rt.BulkStatus.DONE,
+          f"[multihost:{what}] bulk job ended {job.status.value}: "
+          f"{job.error}")
+    check(same_results(job.results, want),
+          f"[multihost:{what}] a bulk result differs from the engine's")
+    return bulk_stats(job)
+
+
+def mh_pruned_comp(rt, raw_store, comp_store, queries, mix_groups, mix_want,
+                   comp_mix_want, raw_threshold_want,
+                   comp_threshold_want) -> dict:
+    """(c): pruned workers on the raw store (FrontendConfig(pruned=True));
+    compressed workers on the rowdict store, plain and pruned; and a
+    BulkLane sweep of the 128 queries over the raw and rowdict fleets."""
+    out = {}
+    for what, store, wkw, cfg, want, bulk_want in (
+            ("pruned", raw_store, {}, {"pruned": True}, mix_want,
+             raw_threshold_want),
+            ("compressed", comp_store, {"compressed": True}, {},
+             comp_mix_want, comp_threshold_want),
+            ("pruned compressed", comp_store, {"compressed": True},
+             {"pruned": True}, comp_mix_want, None)):
+        fe = mh_fleet(rt, store, worker_kw=wkw, **cfg)
+        try:
+            m = mh_measure(rt, fe, mix_groups, want, what)
+            ws = fe.workers.values()
+            m["pruned_dispatches"] = sum(w.pruned_dispatches for w in ws)
+            m["compressed_dispatches"] = sum(w.compressed_dispatches
+                                             for w in ws)
+            m["tiles_promoted"] = sum(w.prune_stats.tiles_promoted
+                                      for w in ws)
+            m["prune_rate"] = fe.metrics.snapshot().prune_rate
+            if bulk_want is not None:
+                m["bulk"] = mh_sweep(rt, fe, queries, bulk_want,
+                                     f"{what} bulk")
+        finally:
+            mh_close(fe)
+        out[what] = m
+        if cfg.get("pruned"):
+            check(m["methods"].get("lookup_p", 0) > 0
+                  and m["pruned_dispatches"] > 0,
+                  f"[multihost:{what}] methods {m['methods']}: no lookup_p")
+        if wkw.get("compressed"):
+            check(m["compressed_dispatches"] > 0,
+                  f"[multihost:{what}] no compressed dispatch")
+        log(f"[multihost:{what}] {m['requests']} requests, each OK and "
+            f"equal to the engine's: {mh_line(m)}; {m['pruned_dispatches']}"
+            f" pruned and {m['compressed_dispatches']} compressed shard "
+            f"dispatches (both passes), {m['tiles_promoted']} tiles "
+            f"promoted, prune rate {m['prune_rate']:.3f}"
+            + (f"; the lane swept {len(queries)} queries over the fleet in "
+               f"{m['bulk']['wall_s'] * 1e3:.1f} ms, equal to the engine's"
+               if "bulk" in m else ""))
+    return out
+
+
+def mh_rpc_fleet(rt, store, straggle=None, **cfg):
+    """(RpcFrontend, servers): one WorkerServer a host of MH_NODES on an
+    ephemeral localhost port (threads of this process)."""
+    place = rt.ShardPlacement.for_store(store, list(MH_NODES),
+                                        replication=MH_REPLICATION)
+    held = place.replica_assignment()
+    servers = {n: rt.WorkerServer(rt.ShardWorker(n, store, held[n]),
+                                  straggle_s=(straggle or {}).get(n, 0.0))
+               .start() for n in MH_NODES if held[n]}
+    pool = rt.WorkerPool({n: s.address for n, s in servers.items()})
+    pool.wait_connected(timeout_s=MH_TIMEOUT)
+    return rt.RpcFrontend(pool, place, rt.FrontendConfig(**cfg)), servers
+
+
+def close_worker_server(server, **kw) -> None:
+    """``server.close`` without its 5 s wait for the accept thread (see
+    ``close_net``)."""
+    try:
+        server._listener.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    server.close(**kw)
+
+
+def mh_rpc(rt, store, mix_groups, mix_want) -> dict:
+    """(d): the RPC data plane. A straggler (MH_STRAGGLE_S before every
+    dispatch) behind hedge_after_s=MH_HEDGE_AFTER_S: real duplicate RPCs
+    win and the losers are cancelled; then the mix without a straggler,
+    measured, and again with one server closed (abort) mid-load."""
+    out = {}
+    place = rt.ShardPlacement.for_store(store, list(MH_NODES),
+                                        replication=MH_REPLICATION)
+    straggler = place.owner(0)
+    groups = mix_groups[:2]
+    want = mix_want[:sum(len(g) for g in groups)]
+    fe, servers = mh_rpc_fleet(rt, store, {straggler: MH_STRAGGLE_S},
+                               hedge_after_s=MH_HEDGE_AFTER_S)
+    try:
+        m = mh_measure(rt, fe, groups, want, "rpc straggler")
+        ex = fe.executor
+        stats = fe.pool.channel(straggler).stats()
+        m.update(hedges_won=ex.hedges_won,
+                 hedges_cancelled=ex.hedges_cancelled,
+                 cancelled_tiles=stats["cancelled_tiles"])
+        check(ex.hedges_fired > 0 and ex.hedges_won > 0
+              and ex.hedges_cancelled > 0 and stats["cancelled_tiles"] > 0,
+              f"[multihost:rpc straggler] hedges fired {ex.hedges_fired}, "
+              f"won {ex.hedges_won}, cancelled {ex.hedges_cancelled}; "
+              f"{straggler} cancelled {stats['cancelled_tiles']} tiles")
+        out["straggler"] = m
+        log(f"[multihost:rpc straggler] {straggler} sleeps "
+            f"{MH_STRAGGLE_S} s before each dispatch, hedges after "
+            f"{MH_HEDGE_AFTER_S} s: {m['requests']} requests OK and equal;"
+            f" {mh_line(m)}; hedges won {ex.hedges_won}, cancelled "
+            f"{ex.hedges_cancelled}; {straggler} cancelled "
+            f"{stats['cancelled_tiles']} tiles")
+        servers[straggler].straggle_s = 0.0
+        fe.executor.hedge_after = 30.0
+        m = mh_measure(rt, fe, mix_groups, mix_want, "rpc")
+        out["mix"] = m
+        log(f"[multihost:rpc dense mix] {m['requests']} requests over the "
+            f"wire to {len(servers)} WorkerServers, each OK and equal: "
+            f"{mh_line(m)}")
+        victim = place.owner(1)
+        killer = threading.Timer(0.05, close_worker_server,
+                                 args=(servers[victim],),
+                                 kwargs={"abort": True})
+        killer.start()
+        resp, secs = mh_serve(rt, fe, mix_groups + mix_groups,
+                              mix_want + mix_want, "rpc kill")
+        killer.join(MH_TIMEOUT)
+        snap = fe.metrics.snapshot()
+        check(not fe.pool.channel(victim).healthy,
+              f"[multihost:rpc kill] {victim}'s channel is still up")
+        out["kill"] = {"victim": victim, "requests": len(resp),
+                       "wall_s": secs, "failovers": snap.failovers,
+                       "rpcs_failed": snap.rpcs_failed,
+                       "channels_up": snap.channels_up}
+        log(f"[multihost:rpc kill] {victim} closed (abort) mid-load: all "
+            f"{len(resp)} requests OK and equal, 0 lost; failovers "
+            f"{snap.failovers}, rpcs failed {snap.rpcs_failed}, channels up"
+            f" {snap.channels_up}")
+    finally:
+        fe.close()
+        for s in servers.values():
+            close_worker_server(s)
+    return out
+
+
+# --------------------------------------------------------------------------
 # Timing
 # --------------------------------------------------------------------------
 
@@ -3029,14 +3493,17 @@ class _Port:
                                       build_compact, codec, dna, hashing,
                                       load_index_v2, query)
         from repro_torch.data import make_corpus, make_queries
-        from repro_torch.index import build_compact_streaming
+        from repro_torch.index import ShardPlacement, build_compact_streaming
         from repro_torch.kernels import _build, bitslice_score, ops
         from repro_torch.kernels.autotune import KernelTuner, TuningCache
         from repro_torch.obs.export import parse_prometheus
-        from repro_torch.serve import (BulkLane, BulkStatus, MetricsSnapshot,
+        from repro_torch.serve import (BulkLane, BulkStatus, Frontend,
+                                       FrontendConfig, MetricsSnapshot,
                                        NetClient, NetServer, QueryPlanner,
-                                       QueryServer, ServerConfig,
-                                       ServingLoop, Status)
+                                       QueryServer, RpcFrontend,
+                                       ServerConfig, ServingLoop,
+                                       ShardWorker, Status, WorkerPool,
+                                       WorkerServer)
         from repro_torch.serve import server as server_mod
         self.IndexParams, self.QueryEngine = IndexParams, QueryEngine
         self.QueryServer, self.ServerConfig = QueryServer, ServerConfig
@@ -3055,6 +3522,10 @@ class _Port:
         self.NetClient, self.MetricsSnapshot = NetClient, MetricsSnapshot
         self.BulkLane, self.BulkStatus = BulkLane, BulkStatus
         self.parse_prometheus = parse_prometheus
+        self.ShardPlacement, self.ShardWorker = ShardPlacement, ShardWorker
+        self.Frontend, self.FrontendConfig = Frontend, FrontendConfig
+        self.WorkerServer, self.WorkerPool = WorkerServer, WorkerPool
+        self.RpcFrontend = RpcFrontend
 
 
 def main() -> int:
@@ -3102,6 +3573,9 @@ def main() -> int:
                 rt, torch, stores, traffic, record["serve"], chk)
             record["net"], record["net_launches"] = phase_net(
                 rt, torch, stores, queries, traffic, record["serve"], chk)
+            record["multihost"], record["multihost_launches"] = \
+                phase_multihost(rt, torch, stores, queries, traffic,
+                                record["serve"], chk)
         finally:
             shutil.rmtree(STORE_DIR, ignore_errors=True)
         record["trace"] = phase_trace(

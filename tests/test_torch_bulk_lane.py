@@ -29,17 +29,23 @@ from repro.core import IndexParams as JaxParams
 from repro.core import QueryEngine as JaxEngine
 from repro.data import make_corpus
 from repro.index import build_compact_streaming as jax_streaming
+from repro.index import ShardPlacement as JaxPlacement
 from repro.serve import BulkJob as JaxJob
 from repro.serve import BulkLane as JaxLane
+from repro.serve import Frontend as JaxFrontend
+from repro.serve import FrontendConfig as JaxFrontendConfig
 from repro.serve import NetClient as JaxClient
 from repro.serve import QueryServer as JaxServer
 from repro.serve import ServerConfig as JaxConfig
+from repro.serve import ShardWorker as JaxWorker
 
 from repro_torch.core import load_index_v2
 from repro_torch.core import query as q
 from repro_torch.serve import (BulkJob, BulkLane, BulkStatus, NetClient,
                                NetServer, QueryServer, ServerConfig,
                                ServingLoop, Status)
+from repro_torch.index import ShardPlacement
+from repro_torch.serve import Frontend, FrontendConfig, ShardWorker
 from repro_torch.serve import bulk as tbulk
 
 torch.set_num_threads(2)
@@ -67,8 +73,8 @@ def _patterns(c, n_random=4, seed=0):
 
 @pytest.fixture(scope="module")
 def stores(tmp_path_factory):
-    """The corpus and kind -> (JAX index, port index over the same
-    files)."""
+    """The corpus, kind -> (JAX index, port index over the same files),
+    and the directory of the stores (one per kind)."""
     c, terms = _redundant_terms()
     root = tmp_path_factory.mktemp("bulk-lane")
     kw = {"raw": dict(block_docs=32, blocks_per_shard=1, codec="raw"),
@@ -80,7 +86,7 @@ def stores(tmp_path_factory):
         out[kind] = (jidx, load_index_v2(root / kind, device=CPU))
     assert out["raw"][1].storage.n_shards > 2
     assert out["dense"][1].storage.n_shards == 1
-    return c, out
+    return c, out, root
 
 
 class Clock:
@@ -189,6 +195,60 @@ def test_job_equals_jax_lane_and_engine(stores, oracle, kind, mode, pruned):
     snaps = [lane.backend.metrics.snapshot() for lane in (jlane, tlane)]
     for f in ("bulk_jobs", "bulk_queries", "bulk_shards_swept",
               "bulk_staged_bytes", "bulk_yields"):
+        assert getattr(snaps[1], f) == getattr(snaps[0], f), f
+
+
+def _frontends(stores, kind):
+    """(JAX frontend, torch frontend) over 3 hosts, replication 2, on the
+    store of ``kind`` (served compressed on the rowdict store), the
+    primary of shard 0 down."""
+    store = stores[2] / kind
+    kw = {"compressed": True} if kind == "comp" else {}
+    out = []
+    for P, W, F, C, dev in (
+            (JaxPlacement, JaxWorker, JaxFrontend, JaxFrontendConfig, {}),
+            (ShardPlacement, ShardWorker, Frontend, FrontendConfig,
+             {"device": CPU})):
+        place = P.for_store(store, ["h0", "h1", "h2"], replication=2)
+        held = place.replica_assignment()
+        fe = F({n: W(n, store, held[n], **kw, **dev)
+                for n in place.nodes if held[n]}, place,
+               C(max_wait_s=0.0, scatter_threads=1))
+        fe.fail_worker(place.owner(0))
+        out.append(fe)
+    return out
+
+
+FLEET_JOBS = [("raw", "0.5", False), ("raw", "top3", False),
+              ("raw", "0.9", True), ("comp", "0.5", False)]
+
+
+@pytest.mark.parametrize("kind,mode,pruned", FLEET_JOBS,
+                         ids=[f"{k}-{m}-{'pruned' if p else 'sweep'}"
+                              for k, m, p in FLEET_JOBS])
+def test_lane_over_frontend_equals_jax(stores, oracle, kind, mode, pruned):
+    """A lane over a torch Frontend sweeps each shard on a live replica's
+    tile cache, as the JAX lane over a JAX Frontend does: equal results,
+    sweep state, work counters and engine answers."""
+    c = stores[0]
+    jfe, tfe = _frontends(stores, kind)
+    jlane, tlane = (JaxLane(jfe, chunk_terms=16),
+                    BulkLane(tfe, chunk_terms=16))
+    pats = _patterns(c, seed=5)
+    jobs = [lane.submit(pats, pruned=pruned, **_mode_kw(mode))
+            for lane in (jlane, tlane)]
+    for lane in (jlane, tlane):
+        lane.drain()
+    assert_same_job(jobs[1], jobs[0])
+    assert_same_results(jobs[1].results, oracle(kind, pats, mode))
+    caches, plans = tlane._targets()
+    assert len(plans) == stores[1][kind][1].storage.n_shards
+    dead = tfe.placement.replicas(0)[0]
+    assert caches[0] is not tfe.workers[dead].tiles
+    assert tlane._params() == tfe.params
+    snaps = [fe.metrics.snapshot() for fe in (jfe, tfe)]
+    for f in ("bulk_jobs", "bulk_queries", "bulk_shards_swept",
+              "bulk_staged_bytes"):
         assert getattr(snaps[1], f) == getattr(snaps[0], f), f
 
 

@@ -106,6 +106,33 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
         QueryServer(index, device=None)
 
 
+def test_shard_worker_defaults_to_cuda_and_raises_without_it(monkeypatch,
+                                                             tmp_path):
+    """A ShardWorker resolves ``device=None`` to the card: without CUDA it
+    raises, so no fleet falls back to the CPU; only ``device="cpu"``
+    builds one there."""
+    from repro_torch.index import ShardPlacement, build_compact_streaming
+    from repro_torch.serve import Frontend, ShardWorker
+    docs = [np.arange(i, i + 60, dtype=np.uint32).reshape(30, 2)
+            for i in range(0, 600, 60)]
+    store = tmp_path / "v2"
+    build_compact_streaming(docs, store, IndexParams(1, 0.3, 15),
+                            block_docs=32, row_align=64, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardWorker("w", store, [0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardWorker("w", store, [0], device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardWorker("w", store, [0], device="cuda")
+    worker = ShardWorker("w", store, [0], device="cpu")
+    assert worker.device == torch.device("cpu")
+    assert worker.tiles.device == torch.device("cpu")
+    place = ShardPlacement.for_store(store, ["w"], replication=1)
+    fe = Frontend({"w": worker}, place)
+    assert fe.workers["w"] is worker
+
+
 def test_tuner_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

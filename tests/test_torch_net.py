@@ -36,22 +36,28 @@ from repro.core import IndexParams as JaxParams
 from repro.core import QueryEngine as JaxEngine
 from repro.core.query import SearchResult as JaxResult
 from repro.data import make_corpus, make_queries
+from repro.index import ShardPlacement as JaxPlacement
 from repro.index import build_compact_streaming as jax_streaming
+from repro.serve import Frontend as JaxFrontend
+from repro.serve import FrontendConfig as JaxFrontendConfig
 from repro.serve import NetClient as JaxClient
 from repro.serve import NetServer as JaxNetServer
 from repro.serve import QueryServer as JaxServer
 from repro.serve import ServerConfig as JaxConfig
 from repro.serve import ServingLoop as JaxLoop
+from repro.serve import ShardWorker as JaxWorker
 from repro.serve import net as jnet
 from repro.serve.request import QueryResponse as JaxResponse
 from repro.serve.request import Status as JaxStatus
 
 from repro_torch.core import IndexParams, load_index_v2
+from repro_torch.index import ShardPlacement
 from repro_torch.core.query import SearchResult, compile_pattern
 from repro_torch.obs.export import parse_prometheus
-from repro_torch.serve import (LoopClosed, MetricsSnapshot, NetClient,
-                               NetServer, QueryServer, ServerConfig,
-                               ServingLoop, Status)
+from repro_torch.serve import (Frontend, FrontendConfig, LoopClosed,
+                               MetricsSnapshot, NetClient, NetServer,
+                               QueryServer, ServerConfig, ServingLoop,
+                               ShardWorker, Status)
 from repro_torch.serve import net as tnet
 from repro_torch.serve.request import QueryResponse
 
@@ -371,6 +377,49 @@ def test_torch_client_against_jax_server(world):
             assert "serve_requests_total" in cl.stats(prometheus=True)
     finally:
         _close(net)
+
+
+def test_net_server_over_frontends_equal_jax_pair(world, tmp_path):
+    """A torch NetServer in front of a torch Frontend (3 hosts, replication
+    2, the primary of shard 0 down) answers a torch client as a JAX
+    NetServer in front of a JAX Frontend answers it: every result equal,
+    and equal to the JAX engine's."""
+    c, _, _, oracle = world
+    store = tmp_path / "v2"
+    jax_streaming(c.doc_terms, store, JPARAMS, block_docs=32, row_align=64)
+    nets = []
+    for P, W, F, C, L, N, kw in (
+            (JaxPlacement, JaxWorker, JaxFrontend, JaxFrontendConfig,
+             JaxLoop, JaxNetServer, {}),
+            (ShardPlacement, ShardWorker, Frontend, FrontendConfig,
+             ServingLoop, NetServer, {"device": CPU})):
+        place = P.for_store(store, ["h0", "h1", "h2"], replication=2)
+        held = place.replica_assignment()
+        fe = F({n: W(n, store, held[n], **kw) for n in place.nodes
+                if held[n]}, place, C(max_batch=4, max_wait_s=0.0))
+        fe.fail_worker(place.owner(0))
+        nets.append(N(L(fe)).start())
+    qs = _queries(c, 3, 2, 120, 8)
+    answers = []
+    try:
+        for net in nets:
+            with NetClient(*net.address, timeout_s=TIMEOUT) as cl:
+                futs = [cl.submit(q, threshold=0.7) for q in qs]
+                futs += [cl.submit(q, top_k=4) for q in qs]
+                answers.append([f.result(TIMEOUT) for f in futs])
+                assert cl.stats()["failovers"] > 0
+    finally:
+        for net in nets:
+            _close(net)
+    jax_res, torch_res = answers
+    for g, w in zip(torch_res, jax_res):
+        assert g.status == w.status == Status.OK
+        assert g.method == w.method
+        _assert_identical(g.result, w.result)
+    for q, r in zip(qs, torch_res[:len(qs)]):
+        _assert_identical(r.result, oracle.search(q, threshold=0.7))
+    for q, r in zip(qs, torch_res[len(qs):]):
+        _assert_identical(r.result, oracle.top_k(q, k=4))
 
 
 @pytest.mark.parametrize("client", ["torch", "jax"])
