@@ -28,7 +28,17 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    verified negatives) through ``search``, ``search_batch`` (batches of 32)
    and ``top_k`` for each method, then a classic index and a two-hash
    compact index. All methods must agree, no positive query may miss its
-   origin document, and each kernel must have been launched;
+   origin document, and each kernel must have been launched (the mix is
+   ``repro_torch.launch.serve.make_workload``'s, the CLI's own). Then,
+   each with its launch counters from 0: a ``MultiIndexEngine`` over the
+   main and classic indexes ("[multi]": every merged hit list equal to the
+   merge of the two datasets' plain engines, one vertical launch a search
+   and dataset), and a ``DistributedIndex`` of the main index on a
+   (pod 2, data 2, model 2) mesh of the card ("[dist]": 8 slices of about
+   61 MB; ``scores_for`` of 16 queries equal to the plain engine's
+   ``score_terms`` and ``search_batch`` (top 32) of the whole mix equal to
+   a plain merge, for the vertical and lookup paths; batch p50 and the
+   card's busy share; every kernel call equal to its plain version);
 5. drives the out-of-core path ("[store]"), its launch counters from 0:
    the corpus streamed into a raw cobs-jax-v2 store of 8 shards (blocks of
    256 documents), opened with its hashes verified and searched through a
@@ -103,8 +113,21 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    one server closed mid-load. Every answer must be OK and equal to the
    engine's on the same store; the path's kernels must have launched,
    each wrapper's launches equal to its calls, and every call must equal
-   its plain version on the card. The store directories are deleted
-   after this phase;
+   its plain version on the card;
+   then ("[cluster]") a ``WorkerCluster`` of 3 worker processes on the card
+   over the raw store (replication 2), behind an ``RpcFrontend`` in a
+   ``ServingLoop`` and a ``NetServer``: the dense mix and the raw reads
+   from 8 NetClient threads (queries/s, client e2e p50/p99, per-worker
+   dispatch p50, card memory of the fleet), then one worker SIGKILLed
+   mid-load and restarted on its port (every answer OK and equal, none
+   lost, failovers above 0, the channel back up; the children's kernels
+   are held through their answers); and ("[cli]") ``python -m
+   repro_torch.launch.serve`` on the card as a user runs it: closed load on
+   2048 documents, a v2 store served by 3 fake hosts with one failed, the
+   same store with a ``--bulk`` sweep of the mix, and ``--listen``
+   answered over the wire and drained by SIGINT (each run exits 0 with
+   every answer right). The store directories are deleted after these
+   phases;
 12. traces 32 lookup searches, 32 pruned searches and one bulk sweep with
    torch.profiler (device time, the top device and host operations; the
    chunked executors under cProfile too), and times each kernel at the
@@ -126,8 +149,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import queue
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -218,24 +244,6 @@ def check(cond: bool, what: str) -> None:
 
 def log(*parts) -> None:
     print(*parts, flush=True)
-
-
-def make_workload(make_queries, corpus, n_queries: int, seed: int = 100):
-    """The serving traffic mix of ``repro.launch.serve.make_workload``:
-    exactly n_queries of lengths 40/80/160/320 bp, half true positives and
-    half verified negatives, shuffled."""
-    queries, origin = [], []
-    lengths = (40, 80, 160, 320)
-    for i, length in enumerate(lengths):
-        count = n_queries // len(lengths) + (i < n_queries % len(lengths))
-        if count == 0:
-            continue
-        q, o = make_queries(corpus, n_pos=count - count // 2,
-                            n_neg=count // 2, length=length, seed=seed + i)
-        queries.extend(q)
-        origin.extend(o)
-    perm = np.random.default_rng(seed).permutation(len(queries))
-    return [queries[i] for i in perm], [int(origin[i]) for i in perm]
 
 
 def same_result(a, b) -> bool:
@@ -882,7 +890,10 @@ def phase_main_path(rt, torch, corpus, index):
     queries, their origin documents and the classic index."""
     k = rt.kernels
     t0 = time.perf_counter()
-    queries, origin = make_workload(rt.make_queries, corpus, N_QUERIES)
+    # the serving traffic mix of the CLI: exactly N_QUERIES of lengths
+    # 40/80/160/320 bp, half true positives and half verified negatives
+    queries, origin = rt.make_workload(corpus, N_QUERIES)
+    origin = [int(o) for o in origin]
     log(f"[workload] {len(queries)} queries "
         f"({sum(o >= 0 for o in origin)} positive) in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -957,6 +968,194 @@ def phase_main_path(rt, torch, corpus, index):
               f"the main path never launched {name}")
     log(f"[main path] launches {out['launches']}")
     return out, queries, origin, extra, base
+
+
+# --------------------------------------------------------------------------
+# Multi-index querying and the mesh-sharded index
+# --------------------------------------------------------------------------
+
+def merged_hits(rt, engines: dict, pattern, threshold: float) -> list:
+    """The merge MultiIndexEngine makes of its engines' results: hits
+    ranked by score over the query's term count, ties by (dataset,
+    doc_id)."""
+    hits = []
+    for name, engine in engines.items():
+        r = engine.search(pattern, threshold)
+        hits.extend(rt.MultiHit(name, int(d), int(s), r.n_terms)
+                    for d, s in zip(r.doc_ids, r.scores))
+    hits.sort(key=lambda h: (-h.score / max(h.n_terms, 1), h.dataset,
+                             h.doc_id))
+    return hits
+
+
+def phase_multi(rt, torch, index, classic, queries, origin) -> dict:
+    """MultiIndexEngine (vertical, on the card) over the main index and the
+    classic k=1 index, its launch counters from 0: every query's merged
+    hits must equal the merge of the two datasets' plain (``ref``)
+    engines, each positive find its origin in the main dataset, and each
+    search launch vertical_score once a dataset."""
+    k = rt.kernels
+    t0 = time.perf_counter()
+    datasets = {"main": index, "classic": classic}
+    multi = rt.MultiIndexEngine()
+    for name, idx in datasets.items():
+        multi.attach(name, idx)
+    plain = {name: rt.QueryEngine(idx, method="ref")
+             for name, idx in datasets.items()}
+    multi.search(queries[0], THRESHOLD)              # first-use costs
+    k.reset_launches()                     # the multi-index path starts here
+    lat, results = [], []
+    for q in queries:
+        t = time.perf_counter()
+        results.append(multi.search(q, THRESHOLD))
+        lat.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    launches = dict(k.launches)            # the multi-index path ends here
+    check(launches["vertical_score"] == len(datasets) * len(queries)
+          and sum(launches.values()) == launches["vertical_score"],
+          f"[multi] {len(queries)} searches over {len(datasets)} datasets "
+          f"launched {launches}")
+    for i, (q, hits) in enumerate(zip(queries, results)):
+        check(hits == merged_hits(rt, plain, q, THRESHOLD),
+              f"[multi] query {i}: hits differ from the plain engines' "
+              "merge")
+        if origin[i] >= 0:
+            check(("main", origin[i]) in {(h.dataset, h.doc_id)
+                                          for h in hits},
+                  f"[multi] query {i} missed its origin {origin[i]}")
+    sub = multi.search(queries[0], THRESHOLD, datasets=("classic",))
+    check(sub == merged_hits(rt, {"classic": plain["classic"]}, queries[0],
+                             THRESHOLD), "[multi] a subset search differs")
+    out = {"datasets": list(datasets), "queries": len(queries),
+           "hits": sum(map(len, results)),
+           "p50_search_ms": pct_ms(lat, 50),
+           "p99_search_ms": pct_ms(lat, 99),
+           "launches": {n: c for n, c in launches.items() if c},
+           "seconds": time.perf_counter() - t0}
+    log(f"[multi] {len(queries)} queries over {list(datasets)}: "
+        f"{out['hits']} merged hits, each list equal to the plain engines' "
+        f"merge, every positive found; search p50 "
+        f"{out['p50_search_ms']:.3f} / p99 {out['p99_search_ms']:.3f} ms; "
+        f"launches {out['launches']}; {out['seconds']:.1f} s")
+    return out
+
+
+DIST_SHAPE = (2, 2, 2)
+DIST_AXES = ("pod", "data", "model")
+DIST_METHODS = ("vertical", "lookup")
+DIST_KERNELS = ("vertical_score", "lookup_score_multi")
+DIST_TOPK, DIST_SCORE_QUERIES, DIST_REPS = 32, 16, 8
+
+
+def dist_plain_merge(dist, scores, topk: int):
+    """The distributed top-k on the host, ``jax.lax.top_k``'s order (the
+    lower index first among ties): scores [Q, n_docs] in document order
+    -> each doc shard's top-k, gathered in doc-rank order, cut again ->
+    (values [Q, t], padded slots [Q, t])."""
+    nb, spb, wl = dist.n_blocks, dist.slots_per_block, dist.words_local
+    slot_scores = np.zeros((scores.shape[0], nb * spb), dtype=np.int64)
+    slot_scores[:, dist._padded_doc_slot] = scores
+    vals, slots = [], []
+    for d in range(dist.n_doc_shards):
+        gslot = (np.arange(nb)[:, None] * spb + d * wl * 32
+                 + np.arange(wl * 32)[None, :]).reshape(-1)
+        local = slot_scores[:, gslot]
+        cut = np.argsort(-local, axis=1, kind="stable")[:, :topk]
+        vals.append(np.take_along_axis(local, cut, 1))
+        slots.append(gslot[cut])
+    vals, slots = np.concatenate(vals, 1), np.concatenate(slots, 1)
+    best = np.argsort(-vals, axis=1, kind="stable")[:, :topk]
+    return (np.take_along_axis(vals, best, 1),
+            np.take_along_axis(slots, best, 1))
+
+
+def phase_dist(rt, torch, index, queries, origin, chk) -> dict:
+    """DistributedIndex over the main index on a DIST_SHAPE mesh of the one
+    card (documents over pod x data, rows over model: 8 slices), its
+    launch counters from 0: ``scores_for`` of DIST_SCORE_QUERIES queries
+    equal to the plain engine's ``score_terms`` and ``search_batch``
+    (top DIST_TOPK) of the whole mix equal to a plain merge of the plain
+    engine's scores, every positive found, for each method; the batch's
+    p50 over DIST_REPS passes and the card's busy share of one profiled
+    pass. Every kernel call equals its plain version on the card."""
+    k = rt.kernels
+    t_phase = time.perf_counter()
+    ref = rt.QueryEngine(index, method="ref")
+    mesh = rt.make_mesh(DIST_SHAPE, DIST_AXES)
+    term_sets = [rt.query.compile_pattern(q, index.params) for q in queries]
+    buf, ells = rt.query.pad_term_batch(term_sets, 64)
+    plain_scores = ref.score_terms_batch(buf, ells)          # [Q, n_docs]
+    out = {"mesh": dict(zip(DIST_AXES, DIST_SHAPE)), "methods": {}}
+    rec = ChunkRecorder(k, DIST_KERNELS)
+    k.reset_launches()                  # the mesh-sharded path starts here
+    with rec:
+        for method in DIST_METHODS:
+            t0 = time.perf_counter()
+            dist = rt.DistributedIndex(index, mesh,
+                                       doc_axes=DIST_AXES[:2],
+                                       row_axis=DIST_AXES[2],
+                                       score_method=method)
+            torch.cuda.synchronize()
+            m = {"build_s": time.perf_counter() - t0,
+                 "slices": len(dist.slices),
+                 "slice_bytes": [int(a.numel()) * 4 for _, a, _, _
+                                 in dist.slices.values()]}
+            for i, terms in enumerate(term_sets[:DIST_SCORE_QUERIES]):
+                check(np.array_equal(dist.scores_for(terms),
+                                     plain_scores[i]),
+                      f"[dist:{method}] scores_for of query {i} differs "
+                      "from the plain engine's score_terms")
+            want_v, want_s = dist_plain_merge(dist, plain_scores, DIST_TOPK)
+            lat = []
+            for _ in range(DIST_REPS):
+                t0 = time.perf_counter()
+                res = dist.search_batch(queries, THRESHOLD, topk=DIST_TOPK)
+                lat.append(time.perf_counter() - t0)
+            for i, (ids, vals) in enumerate(res):
+                keep = ((want_v[i] >= max(1, int(np.ceil(THRESHOLD
+                                                         * ells[i]))))
+                        & (dist.slot_doc[want_s[i]] >= 0))
+                check(np.array_equal(ids, dist.slot_doc[want_s[i]][keep])
+                      and np.array_equal(vals, want_v[i][keep]),
+                      f"[dist:{method}] query {i}: hits differ from the "
+                      "plain merge")
+                check(origin[i] < 0 or origin[i] in set(ids.tolist()),
+                      f"[dist:{method}] query {i} missed its origin")
+            m.update(busy_share(torch, lambda: dist.search_batch(
+                queries, THRESHOLD, topk=DIST_TOPK)))
+            m.update(p50_batch_ms=pct_ms(lat, 50), p99_batch_ms=pct_ms(
+                lat, 99), hits=sum(len(ids) for ids, _ in res))
+            out["methods"][method] = m
+            del dist
+            log(f"[dist:{method}] {m['slices']} slices of "
+                f"{min(m['slice_bytes']):,}-{max(m['slice_bytes']):,} bytes "
+                f"on the card (built in {m['build_s']:.2f} s); scores_for "
+                f"of {DIST_SCORE_QUERIES} queries equal score_terms; "
+                f"search_batch of {len(queries)} (top {DIST_TOPK}) equal to "
+                f"the plain merge, {m['hits']} hits, every positive found; "
+                f"batch p50 {m['p50_batch_ms']:.3f} / p99 "
+                f"{m['p99_batch_ms']:.3f} ms; busy {m['device_busy_share']:.2%}"
+                f" of one profiled pass ({m['device_us']:.0f} of "
+                f"{m['wall_us']:.0f} us; kernels "
+                f"{m['kernel_busy_share']:.2%})")
+        torch.cuda.synchronize()
+    launches = dict(k.launches)         # the mesh-sharded path ends here
+    for name in DIST_KERNELS:
+        check(launches[name] > 0, f"the [dist] phase never launched {name}")
+    for name in KERNELS:
+        check(launches[name] == len(rec.threads.get(name, ())),
+              f"[dist] {name}: {launches[name]} launches counted for "
+              f"{len(rec.threads.get(name, ()))} calls")
+    out["launches"] = {n: c for n, c in launches.items() if c}
+    t0 = time.perf_counter()
+    out["plain_checks"] = check_every_call(k, chk, rec.calls, "dist")
+    out["plain_check_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[dist] launches {out['launches']}, each equal to its wrapper's "
+        f"calls; every call equals its plain version on the card "
+        f"({out['plain_checks']} calls, {out['plain_check_s']:.1f} s); "
+        f"{out['seconds']:.1f} s")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2510,10 +2709,10 @@ MH_TIMEOUT = 120.0
 
 
 def mh_plain(k, name, args):
-    """The plain version of a [multihost] wrapper call, vectorised over the
-    terms: the plain unpack of the rows the kernel counts (a chunk's counts
-    added to its running counts)."""
-    if name == "unpack_score":
+    """The plain version of a [multihost] or [dist] wrapper call,
+    vectorised over the terms: the plain unpack of the rows the kernel
+    counts (a chunk's counts added to its running counts)."""
+    if name in ("unpack_score", "vertical_score"):
         return unpack_rows_plain(k, args[0])
     if name in ("lookup_score_multi_compressed",
                 "chunk_lookup_score_multi_compressed"):
@@ -2668,25 +2867,25 @@ def phase_multihost(rt, torch, stores, queries, traffic, untuned, chk):
     return out, launches
 
 
-def mh_busy_share(torch, fe, group) -> dict:
-    """The card's busy share over one scattered batch, within one pass:
-    the device time torch.profiler records over one group through a warm
-    frontend, against the wall time of that same profiled pass. Device
-    time sums every CUDA event the profiler records (kernels, memory
-    copies and sets); the kernels' part is kept apart. The wall of an
-    un-profiled pass of the same group stands beside it, to show what the
-    profiler adds."""
+def busy_share(torch, run) -> dict:
+    """The card's busy share of one call of ``run``, within one pass: the
+    device time torch.profiler records over a warm call against the wall
+    time of that same profiled call. Device time sums every CUDA event the
+    profiler records (kernels, memory copies and sets); the kernels' part
+    is kept apart. The wall of an un-profiled call stands beside it, to
+    show what the profiler adds."""
     from torch.profiler import ProfilerActivity, profile
-    serve_groups(fe, [group])                        # warm
+    run()                                            # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    serve_groups(fe, [group])
+    run()
+    torch.cuda.synchronize()
     unprofiled_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serve_groups(fe, [group])
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [ev for ev in prof.events()
@@ -2694,10 +2893,17 @@ def mh_busy_share(torch, fe, group) -> dict:
     dev_us = sum(ev.time_range.elapsed_us() for ev in dev)
     kernel_us = sum(ev.time_range.elapsed_us() for ev in dev
                     if not ev.name.startswith(("Memcpy", "Memset")))
-    return {"requests": len(group), "wall_us": wall_us,
-            "unprofiled_wall_us": unprofiled_us, "device_us": dev_us,
-            "kernel_us": kernel_us, "device_busy_share": dev_us / wall_us,
+    return {"wall_us": wall_us, "unprofiled_wall_us": unprofiled_us,
+            "device_us": dev_us, "kernel_us": kernel_us,
+            "device_busy_share": dev_us / wall_us,
             "kernel_busy_share": kernel_us / wall_us}
+
+
+def mh_busy_share(torch, fe, group) -> dict:
+    """The card's busy share over one scattered batch (``busy_share`` of
+    one group through a warm frontend)."""
+    return {"requests": len(group),
+            **busy_share(torch, lambda: serve_groups(fe, [group]))}
 
 
 def mh_in_process(rt, torch, store, mix_groups, mix_want, read_groups,
@@ -2936,6 +3142,298 @@ def mh_rpc(rt, store, mix_groups, mix_want) -> dict:
         fe.close()
         for s in servers.values():
             close_worker_server(s)
+    return out
+
+
+# --------------------------------------------------------------------------
+# The process fleet and the serving CLI
+# --------------------------------------------------------------------------
+
+CL_NODES = ("c0", "c1", "c2")           # worker processes on the one card
+CL_CLIENTS = 8
+CL_KILL_AFTER_S = 0.2
+
+
+def cl_round(rt, fe, net, groups, want, what: str) -> dict:
+    """``groups`` from CL_CLIENTS NetClient threads (``wire_rounds``);
+    every answer OK and equal to ``want``. Returns the measurements."""
+    fe.reset_metrics()
+    results, lat, secs = wire_rounds(rt, net.address, groups, CL_CLIENTS)
+    bad = [r.status.value for r in results if r.status != rt.Status.OK]
+    check(not bad, f"[cluster:{what}] {len(bad)} answers not OK: "
+          f"{sorted(set(bad))}")
+    check(same_results([r.result for r in results], want),
+          f"[cluster:{what}] an answer differs from the engine's")
+    snap = fe.metrics.snapshot()
+    return {"requests": len(results), "wall_s": secs,
+            "queries_per_s": len(results) / secs,
+            "p50_e2e_ms": pct_ms(lat, 50), "p99_e2e_ms": pct_ms(lat, 99),
+            "worker_dispatch_p50_ms": {
+                n: float(np.percentile(v, 50)) * 1e3
+                for n, v in fe.metrics.worker_recent_s.items() if v.size},
+            "batches": snap.batches, "dispatches": snap.dispatches,
+            "methods": dict(snap.methods), "failovers": snap.failovers,
+            "rpcs_failed": snap.rpcs_failed,
+            "channels_up": snap.channels_up}
+
+
+def phase_cluster(rt, torch, traffic, stores, multihost) -> dict:
+    """A WorkerCluster of CL_NODES worker processes on the card over the
+    raw store (replication MH_REPLICATION), behind an RpcFrontend inside a
+    ServingLoop and a NetServer: the dense mix, then the raw reads window
+    by window, from CL_CLIENTS NetClient threads (a warm pass, then the
+    measured one); then one worker SIGKILLed mid-load and restarted on its
+    port. Every answer must be OK and equal to the engine's on the same
+    store, none lost, failovers above 0 and the channel back up. The
+    kernels launch in the children, which the parent's counters cannot
+    see: they are held through the answers (and each worker's STATS
+    dispatch count), and against their plain versions by [multihost],
+    which runs the same worker code in this process."""
+    t_phase = time.perf_counter()
+    store = STORE_DIR / "raw"
+    _, mix_groups, _ = traffic["dense mix"]
+    _, read_groups, reads_want = traffic["raw"]
+    raw_want = stores["raw_want"]
+    mix_want = raw_want[0] + raw_want[2][:len(mix_groups[-1])]
+    out = {}
+    (STORE_DIR / "cluster").mkdir(exist_ok=True)
+    free = [torch.cuda.mem_get_info()[0]]
+    t0 = time.perf_counter()
+    cl = rt.WorkerCluster(str(store), list(CL_NODES),
+                          replication=MH_REPLICATION,
+                          run_dir=str(STORE_DIR / "cluster"),
+                          spawn_timeout_s=MH_TIMEOUT)
+    fe = net = None
+    try:
+        cl.start()
+        out["spawn_s"] = time.perf_counter() - t0
+        free.append(torch.cuda.mem_get_info()[0])
+        place = rt.ShardPlacement.for_store(store, list(CL_NODES),
+                                            replication=MH_REPLICATION)
+        pool = rt.WorkerPool(cl.addresses)
+        pool.wait_connected(timeout_s=MH_TIMEOUT)
+        fe = rt.RpcFrontend(pool, place,
+                            rt.FrontendConfig(hedge_after_s=30.0))
+        net = rt.NetServer(rt.ServingLoop(fe)).start()
+        for what, groups, want in (("dense mix", mix_groups, mix_want),
+                                   ("raw reads", read_groups, reads_want)):
+            cl_round(rt, fe, net, groups, want, f"{what} warm")
+            m = cl_round(rt, fe, net, groups, want, what)
+            out[what] = m
+            log(f"[cluster:{what}] {m['requests']} requests from "
+                f"{CL_CLIENTS} clients to {len(CL_NODES)} worker processes,"
+                f" each OK and equal: {m['queries_per_s']:.1f} queries/s; "
+                f"e2e p50 {m['p50_e2e_ms']:.3f} / p99 {m['p99_e2e_ms']:.3f}"
+                f" ms; worker dispatch p50 (ms) "
+                f"{ {n: round(v, 3) for n, v in m['worker_dispatch_p50_ms'].items()} }"
+                f"; {m['batches']} batches, {m['dispatches']} shard "
+                f"dispatches, methods {m['methods']}")
+        # the card's free memory before the spawn, after it and after the
+        # traffic (nvidia-smi lists no process inside a container)
+        free.append(torch.cuda.mem_get_info()[0])
+        out["memory"] = {"card_bytes_at_spawn": free[0] - free[1],
+                         "card_bytes_after_traffic": free[0] - free[2]}
+        log(f"[cluster:memory] the {len(CL_NODES)} workers, up in "
+            f"{out['spawn_s']:.1f} s, took "
+            f"{(free[0] - free[1]) / 2**20:.0f} MiB of the card at spawn, "
+            f"{(free[0] - free[2]) / 2**20:.0f} MiB with their tiles "
+            "staged")
+        rpc = multihost["rpc"]["mix"]
+        log(f"[cluster] beside [multihost:rpc dense mix] (3 WorkerServers "
+            f"in this process, no loop or wire client): "
+            f"{rpc['queries_per_s']:.1f} queries/s, e2e p50 "
+            f"{rpc['p50_e2e_ms']:.3f} ms")
+
+        victim = place.owner(0)
+        killer = threading.Timer(CL_KILL_AFTER_S, cl.kill, args=(victim,))
+        killer.start()
+        m = cl_round(rt, fe, net, mix_groups * 3, mix_want * 3, "kill")
+        killer.join(MH_TIMEOUT)
+        free.append(torch.cuda.mem_get_info()[0])       # the victim gone
+        check(m["failovers"] > 0 and cl.procs[victim].poll() is not None,
+              f"[cluster:kill] {victim} killed after {CL_KILL_AFTER_S} s: "
+              f"failovers {m['failovers']}, exit {cl.procs[victim].poll()}")
+        t0 = time.perf_counter()
+        cl.restart(victim)
+        deadline = time.monotonic() + MH_TIMEOUT
+        while (not pool.channel(victim).healthy
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        check(pool.channel(victim).healthy
+              and pool.channel(victim).reconnects >= 1,
+              f"[cluster:kill] {victim}'s channel did not come back")
+        m["restart_s"] = time.perf_counter() - t0
+        m["reconnects"] = pool.channel(victim).reconnects
+        after = cl_round(rt, fe, net, mix_groups, mix_want, "restarted")
+        free.append(torch.cuda.mem_get_info()[0])
+        # one worker's context and tiles: what its restart took back
+        out["memory"]["one_worker_bytes"] = free[3] - free[4]
+        out["kill"] = m
+        stats = {n: pool.channel(n).stats() for n in CL_NODES}
+        check(all(st["dispatches"] > 0 for st in stats.values()),
+              f"[cluster] a worker dispatched nothing: {stats}")
+        out["worker_stats"] = stats
+        log(f"[cluster:kill] {victim} SIGKILLed {CL_KILL_AFTER_S} s into "
+            f"{m['requests']} requests: all OK and equal, 0 lost; failovers"
+            f" {m['failovers']}, rpcs failed {m['rpcs_failed']}; restarted "
+            f"in {m['restart_s']:.1f} s, its channel reconnected, "
+            f"{after['requests']} more requests OK and equal; the restarted "
+            f"worker took {(free[3] - free[4]) / 2**20:.0f} MiB of the card;"
+            f" STATS dispatches "
+            f"{ {n: st['dispatches'] for n, st in stats.items()} }")
+    finally:
+        if net is not None:
+            close_net(net)
+        if fe is not None:
+            fe.close()
+        cl.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[cluster] {out['seconds']:.1f} s")
+    return out
+
+
+CLI_TIMEOUT = 300
+CLI_CLOSED_DOCS, CLI_STORE_DOCS = 2048, 512
+
+
+def cli_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+    env["PYTHONUNBUFFERED"] = "1"
+    return env
+
+
+def cli_cmd(*args) -> list[str]:
+    return [sys.executable, "-m", "repro_torch.launch.serve", *args]
+
+
+def cli_run(what: str, queries: int, *args) -> dict:
+    """One CLI run on the card (no --device): it must exit 0 and report
+    every answer right; returns its report's p50 and dispatch mix."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli_cmd("--queries", str(queries), *args),
+                          cwd=ROOT, env=cli_env(), capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT)
+    secs = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    check(proc.returncode == 0,
+          f"[cli:{what}] exited {proc.returncode}:\n{text[-3000:]}")
+    check(f"accuracy vs ground truth: {queries}/{queries}" in proc.stdout,
+          f"[cli:{what}] not every answer right:\n{text[-3000:]}")
+    p50 = re.search(r" p50=([\d.]+)ms", proc.stdout)
+    disp = re.search(r"dispatch\[([^\]]*)\]", proc.stdout)
+    qps = re.search(r"-> (\d+) qps", proc.stdout)
+    check(p50 is not None and disp is not None and qps is not None,
+          f"[cli:{what}] no p50, qps or dispatch in its report:\n"
+          f"{proc.stdout[-3000:]}")
+    out = {"seconds": secs, "p50_ms": float(p50.group(1)),
+           "queries_per_s": int(qps.group(1)), "dispatch": disp.group(1),
+           "stdout": proc.stdout[-4000:]}
+    log(f"[cli:{what}] exit 0, accuracy {queries}/{queries}, "
+        f"{out['queries_per_s']} qps, p50 {out['p50_ms']} ms, dispatch["
+        f"{out['dispatch']}]; {secs:.1f} s")
+    return out
+
+
+CLI_LISTEN_DOCS, CLI_LISTEN_QUERIES = 256, 64
+
+
+def cli_listen(rt) -> dict:
+    """``--listen 0`` on the card: a NetClient's answers must equal a
+    QueryEngine's on the CLI's own corpus (built here the same way); then
+    SIGINT drains it and it exits 0 with its report."""
+    corpus = rt.make_corpus(CLI_LISTEN_DOCS, k=15, mean_length=2000,
+                            sigma=1.0, seed=0)
+    engine = rt.QueryEngine(rt.build_compact(
+        corpus.doc_terms, rt.IndexParams(1, 0.3, 15), block_docs=64),
+        method="lookup")
+    queries, _ = rt.make_workload(corpus, CLI_LISTEN_QUERIES)
+    want = [engine.search(q, THRESHOLD) for q in queries]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        cli_cmd("--n-docs", str(CLI_LISTEN_DOCS), "--listen", "0"),
+        cwd=ROOT, env=cli_env(), text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    lines: queue.Queue = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    seen, addr = [], None
+    try:
+        deadline = time.monotonic() + CLI_TIMEOUT
+        while addr is None:
+            line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            check(line is not None, "[cli:listen] exited before serving:\n"
+                  + "".join(seen)[-3000:])
+            seen.append(line)
+            m = re.match(r"serving on ([\d.]+):(\d+) ", line)
+            if m:
+                addr = (m.group(1), int(m.group(2)))
+        up_s = time.perf_counter() - t0
+        results, lat, secs = wire_rounds(
+            rt, addr, [[(q, {"threshold": THRESHOLD}) for q in queries]],
+            CL_CLIENTS)
+        check(all(r.status == rt.Status.OK for r in results)
+              and same_results([r.result for r in results], want),
+              "[cli:listen] a wire answer differs from the engine's")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=CLI_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    reader.join(timeout=30)
+    while (line := lines.get(timeout=5)) is not None:
+        seen.append(line)
+    text = "".join(seen)
+    served = re.search(r"served=(\d+) rejected=(\d+) dropped=(\d+)", text)
+    check(rc == 0 and "draining in-flight batches" in text
+          and served is not None
+          and served.groups() == (str(len(queries)), "0", "0"),
+          f"[cli:listen] exit {rc} after SIGINT:\n{text[-3000:]}")
+    out = {"seconds": time.perf_counter() - t0, "up_s": up_s,
+           "requests": len(results), "queries_per_s": len(results) / secs,
+           "p50_e2e_ms": pct_ms(lat, 50), "p99_e2e_ms": pct_ms(lat, 99)}
+    log(f"[cli:listen] serving after {up_s:.1f} s; {len(results)} wire "
+        f"answers from {CL_CLIENTS} clients equal the engine's "
+        f"({out['queries_per_s']:.1f} queries/s, e2e p50 "
+        f"{out['p50_e2e_ms']:.3f} ms); SIGINT drained it, exit 0, "
+        f"served={served.group(1)}; {out['seconds']:.1f} s")
+    return out
+
+
+def phase_cli(rt, queries) -> dict:
+    """``python -m repro_torch.launch.serve`` as a user runs it, on the card
+    (no --device): closed load on 2048 documents; a v2 store streamed and
+    served by 3 fake hosts with host1 failed; the same store with an
+    offline --bulk sweep of the mix's 128 patterns; and --listen, answered
+    over the wire and drained by SIGINT."""
+    t0 = time.perf_counter()
+    store = STORE_DIR / "cli"
+    bulk = STORE_DIR / "cli-bulk.txt"
+    bulk.write_text("".join(rt.dna.decode_dna(q) + "\n" for q in queries))
+    out = {"closed": cli_run("closed", 256, "--n-docs",
+                             str(CLI_CLOSED_DOCS))}
+    v2 = ("--n-docs", str(CLI_STORE_DOCS), "--store-format", "v2",
+          "--index-dir", str(store))
+    out["hosts"] = cli_run("hosts", 128, *v2, "--hosts", "3",
+                           "--fail-host", "host1")
+    check("down=['host1']" in out["hosts"]["stdout"],
+          "[cli:hosts] host1 is not down")
+    out["bulk"] = cli_run("bulk", 128, *v2, "--bulk", str(bulk))
+    check(re.search(rf"bulk\[cli-bulk.txt\] done: {len(queries)} queries",
+                    out["bulk"]["stdout"]) is not None
+          and "loaded index from" in out["bulk"]["stdout"],
+          "[cli:bulk] the sweep did not finish on the loaded store")
+    out["listen"] = cli_listen(rt)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[cli] {out['seconds']:.1f} s")
     return out
 
 
@@ -3489,13 +3987,18 @@ class _Port:
 
     def __init__(self):
         from repro_torch.core import (DeviceTileCache, IndexParams,
+                                      MultiHit, MultiIndexEngine,
                                       QueryEngine, build_classic,
                                       build_compact, codec, dna, hashing,
                                       load_index_v2, query)
         from repro_torch.data import make_corpus, make_queries
-        from repro_torch.index import ShardPlacement, build_compact_streaming
+        from repro_torch.index import (DistributedIndex, ShardPlacement,
+                                       build_compact_streaming)
         from repro_torch.kernels import _build, bitslice_score, ops
         from repro_torch.kernels.autotune import KernelTuner, TuningCache
+        from repro_torch.launch.cluster import WorkerCluster
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.serve import make_workload
         from repro_torch.obs.export import parse_prometheus
         from repro_torch.serve import (BulkLane, BulkStatus, Frontend,
                                        FrontendConfig, MetricsSnapshot,
@@ -3526,6 +4029,9 @@ class _Port:
         self.Frontend, self.FrontendConfig = Frontend, FrontendConfig
         self.WorkerServer, self.WorkerPool = WorkerServer, WorkerPool
         self.RpcFrontend = RpcFrontend
+        self.MultiHit, self.MultiIndexEngine = MultiHit, MultiIndexEngine
+        self.DistributedIndex, self.make_mesh = DistributedIndex, make_mesh
+        self.WorkerCluster, self.make_workload = WorkerCluster, make_workload
 
 
 def main() -> int:
@@ -3556,6 +4062,9 @@ def main() -> int:
         main_path, queries, origin, extra, base = phase_main_path(
             rt, torch, corpus, index)
         record["main_path"] = main_path
+        record["multi"] = phase_multi(rt, torch, index, extra["classic k=1"],
+                                      queries, origin)
+        record["dist"] = phase_dist(rt, torch, index, queries, origin, chk)
         try:
             record["store"], store_launches, comp, stores = phase_store(
                 rt, torch, corpus, queries, origin, chk)
@@ -3576,6 +4085,9 @@ def main() -> int:
             record["multihost"], record["multihost_launches"] = \
                 phase_multihost(rt, torch, stores, queries, traffic,
                                 record["serve"], chk)
+            record["cluster"] = phase_cluster(rt, torch, traffic, stores,
+                                              record["multihost"])
+            record["cli"] = phase_cli(rt, queries)
         finally:
             shutil.rmtree(STORE_DIR, ignore_errors=True)
         record["trace"] = phase_trace(

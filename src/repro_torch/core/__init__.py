@@ -6,6 +6,7 @@ from .codec import CODECS, CompressedTile, encode_tile
 from .index import (BitSlicedIndex, IndexParams, build_classic, build_compact,
                     index_from_numpy, load_index, merge_classic,
                     merge_compact, save_index)
+from .multi import MultiHit, MultiIndexEngine
 from .query import (QueryEngine, SearchResult, make_batch_score_fn,
                     make_score_fn)
 from .store import (SubStore, load_index_v2, merge_stores,
@@ -15,7 +16,8 @@ from .store import (SubStore, load_index_v2, merge_stores,
 __all__ = [
     "ArenaLayout", "ArenaStorage", "BitSlicedIndex", "CODECS",
     "CompressedTile", "DeviceArena", "DeviceTileCache", "HostArena",
-    "IndexParams", "MappedArena", "QueryEngine", "SearchResult", "SubStore",
+    "IndexParams", "MappedArena", "MultiHit", "MultiIndexEngine",
+    "QueryEngine", "SearchResult", "SubStore",
     "bloom", "build_classic", "build_compact", "codec", "dna",
     "encode_tile", "hashing", "index_from_numpy", "load_index",
     "load_index_v2", "make_batch_score_fn", "make_score_fn",

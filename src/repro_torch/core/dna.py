@@ -3,7 +3,8 @@
 Host-side numpy, a copy of ``repro.core.dna`` (the port never imports the
 JAX package). Each k-mer (k <= 31) is packed into two uint32 words
 (lo = first 16 bases, hi = the rest), which is what the hashing and index
-layers consume.
+layers consume. Byte q-grams of other corpora (English text) use the same
+packing through ``pack_qgrams_bytes``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,11 @@ def encode_dna(seq: str) -> np.ndarray:
     raw = np.frombuffer(seq.encode("ascii"), dtype=np.uint8)
     codes = _CODE[raw]
     return codes[codes != 255]
+
+
+def decode_dna(codes: np.ndarray) -> str:
+    """2-bit codes back to an ACGT string."""
+    return "".join(_BASES[c] for c in np.asarray(codes))
 
 
 def _pack_windows(win: np.ndarray) -> np.ndarray:
@@ -64,6 +70,28 @@ def pack_kmers(codes: np.ndarray, k: int, canonical: bool = False
     rev = _pack_windows(np.ascontiguousarray((3 - win)[:, ::-1]))
     take_rev = _as_u64(rev) < _as_u64(fwd)
     return np.where(take_rev[:, None], rev, fwd)
+
+
+def pack_qgrams_bytes(data: bytes, q: int) -> np.ndarray:
+    """q-grams over raw bytes (e.g. English text), q <= 8 so that 8 bits * 8
+    chars fit 64 bits; packed into the same uint32-pair representation."""
+    if not 1 <= q <= 8:
+        raise ValueError("byte q-grams support q in [1, 8]")
+    raw = np.frombuffer(data, dtype=np.uint8)
+    n = raw.shape[0] - q + 1
+    if n <= 0:
+        return np.zeros((0, 2), dtype=np.uint32)
+    win = np.lib.stride_tricks.sliding_window_view(raw, q)
+    out = np.zeros((n, 2), dtype=np.uint32)
+    lo_n = min(q, 4)
+    sh_lo = (8 * np.arange(lo_n, dtype=np.uint32))[None, :]
+    out[:, 0] = np.bitwise_or.reduce(win[:, :lo_n].astype(np.uint32) << sh_lo,
+                                     axis=1)
+    if q > 4:
+        sh_hi = (8 * np.arange(q - 4, dtype=np.uint32))[None, :]
+        out[:, 1] = np.bitwise_or.reduce(
+            win[:, 4:].astype(np.uint32) << sh_hi, axis=1)
+    return out
 
 
 def _as_u64(terms: np.ndarray) -> np.ndarray:

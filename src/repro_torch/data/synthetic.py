@@ -21,6 +21,18 @@ def random_genome(rng: np.random.Generator, length: int) -> np.ndarray:
     return rng.integers(0, 4, size=length, dtype=np.uint8)
 
 
+def mutate(rng: np.random.Generator, codes: np.ndarray, rate: float
+           ) -> np.ndarray:
+    """Point-mutate a fraction ``rate`` of bases (never to the same base)."""
+    out = codes.copy()
+    n_mut = int(len(codes) * rate)
+    if n_mut == 0:
+        return out
+    pos = rng.choice(len(codes), size=n_mut, replace=False)
+    out[pos] = (out[pos] + rng.integers(1, 4, size=n_mut, dtype=np.uint8)) % 4
+    return out
+
+
 @dataclass
 class SyntheticCorpus:
     documents: list[np.ndarray]          # 2-bit code arrays

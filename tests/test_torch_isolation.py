@@ -184,3 +184,44 @@ def test_chip_smoke_refuses_without_cuda_or_checkout(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_launchers_and_mesh_index_default_to_cuda(monkeypatch, tmp_path,
+                                                 capsys):
+    """The serving CLI, the worker cluster, the mesh, ``DistributedIndex``
+    and ``MultiIndexEngine`` resolve ``device=None`` to the card: without
+    CUDA each raises (the CLI exits with its usage error) before it builds
+    or starts anything."""
+    from repro_torch.core import MultiIndexEngine
+    from repro_torch.index import DistributedIndex
+    from repro_torch.launch import serve
+    from repro_torch.launch.cluster import WorkerCluster
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    docs = [np.arange(40, dtype=np.uint32).reshape(20, 2)]
+    index = build_compact(docs, IndexParams(1, 0.3, 15), device="cpu")
+    cpu_mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 2), ("data", "model"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DistributedIndex(index, cpu_mesh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DistributedIndex(index, cpu_mesh, device=None)
+    assert DistributedIndex(index, cpu_mesh,
+                            device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiIndexEngine()
+    assert MultiIndexEngine(device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WorkerCluster(str(tmp_path), ["w0"])
+    assert WorkerCluster(str(tmp_path), ["w0"], device="cpu",
+                         run_dir=str(tmp_path)).device.type == "cpu"
+    for argv in (["--n-docs", "8"], ["--n-docs", "8", "--device", "cuda"],
+                 ["--worker", "w0", "--store-format", "v2",
+                  "--index-dir", str(tmp_path)]):
+        with pytest.raises(SystemExit) as exc:
+            serve.main(argv)
+        assert exc.value.code == 2
+        assert "CUDA is not available" in capsys.readouterr().err
