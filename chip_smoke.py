@@ -138,7 +138,19 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    (a short singleton), each at cluster sizes 1, 2, 4 and 8 beside the
    size the entry point chooses, with their launch shape (blocks,
    threads, cluster, word tile, slices, planes, shared memory,
-   registers).
+   registers);
+13. serves the LM substrate ("[lm]", no kernel of its own and none in the
+   kernel line): every arch's ``smoke()`` config, drawn from a seeded CPU
+   generator, runs on the card and on the CPU (``forward_train``, a
+   prefill and three decode steps: logits and every cache leaf within
+   rtol = atol = 5e-2, each row compared only before a MoE router's near
+   tie); then qwen2.5-3b, recurrentgemma-2b and xlstm-125m at full width
+   and depth with random weights drawn on the card: 4 prompts of 64
+   tokens and 32 greedy tokens into a cache of 128 (the prefill against
+   ``forward_train``; each greedy token against the teacher-forced argmax
+   where forward's top-2 margin exceeds twice the tolerance; card memory
+   after init; prefill ms and decode ms a token, p50 of 31, beside
+   ``launch/analytic.py``'s ``bytes_model`` over 3.35 TB/s).
 
 It prints the card's name and power limit and a ``{"kernels": ...}`` line,
 writes its measurements to ``chiprun_out/chip_smoke.json``, and ends with
@@ -3438,6 +3450,391 @@ def phase_cli(rt, queries) -> dict:
 
 
 # --------------------------------------------------------------------------
+# The LM substrate's serving path ([lm:*]); no kernel of its own
+# --------------------------------------------------------------------------
+
+# bf16 logits and states: the bound the CPU tests hold the port to against
+# JAX (tests/test_torch_lm_models.py), here between the card and the CPU
+LM_TOL = 5e-2
+LM_TOL32 = 1e-2        # fp32 compute, decode against forward at full depth
+LM_TIE = 5e-3          # a router margin under this may flip a MoE expert
+LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_CACHE, LM_SMOKE_DECODES = 8, 12, 16, 3
+# [lm:full]: 4 prompts of 64 tokens, 32 new tokens into a cache of 128
+LM_FULL_ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "xlstm-125m")
+LM_PROMPTS, LM_PROMPT_LEN, LM_NEW, LM_CACHE = 4, 64, 32, 128
+
+
+def lm_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: lm_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from lm_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+class RouteMargins:
+    """Records each MoE router call's top-k margin per token while on: a
+    margin under ``LM_TIE`` may pick another expert on another device, so
+    that row is compared only before it."""
+
+    def __init__(self, rt):
+        self.rt, self.calls, self.at = rt, [], 0
+
+    def __enter__(self):
+        route = self.route = self.rt.lm_moe.route
+
+        def recorded(p, cfg, xt):
+            out = route(p, cfg, xt)
+            probs = out[1].sort(dim=-1, descending=True).values
+            k = cfg.moe.top_k
+            self.calls.append((self.at, (probs[:, k - 1] - probs[:, k])
+                               .float().cpu()))
+            return out
+
+        self.rt.lm_moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.rt.lm_moe.route = self.route
+
+    def cut(self, batch: int, length: int) -> list:
+        """Row b -> its first position with a near tie (length if none)."""
+        cut = [length] * batch
+        for offset, m in self.calls:
+            n = m.numel() // batch
+            for i in (m < LM_TIE).nonzero().flatten().tolist():
+                row, pos = divmod(i, n)
+                cut[row] = min(cut[row], offset + pos)
+        return cut
+
+
+def lm_max_err(torch, got, want, what: str, cut=None, row_axis=0) -> float:
+    """Largest |got - want|; fails beyond rtol = atol = LM_TOL. With
+    ``cut``, row b (along ``row_axis``) counts only its first cut[b]
+    positions (the next axis)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}, "
+          f"expected {tuple(want.shape)}")
+    if cut is not None:
+        pairs = [(got.select(row_axis, b).narrow(row_axis, 0, n),
+                  want.select(row_axis, b).narrow(row_axis, 0, n))
+                 for b, n in enumerate(cut) if n]
+        got = torch.cat([g.flatten() for g, _ in pairs] or [got[:0]])
+        want = torch.cat([w.flatten() for _, w in pairs] or [want[:0]])
+    if not got.numel():
+        return 0.0
+    diff = (got - want).abs()
+    check(bool((diff <= LM_TOL * (1 + want.abs())).all()),
+          f"{what}: beyond rtol = atol = {LM_TOL} (max {float(diff.max())})")
+    return float(diff.max())
+
+
+def lm_run(torch, rt, model, params, toks, enc, vis, margins=None):
+    """forward_train, prefill of all but the last LM_SMOKE_DECODES tokens
+    and LM_SMOKE_DECODES decode steps; caches copied after the last."""
+    S = toks.shape[1]
+    pre = S - LM_SMOKE_DECODES
+    full, aux = model.forward_train(params, toks, enc_feats=enc,
+                                    vis_embeds=vis)
+    logits, caches = rt.lm_prefill_step(model, LM_SMOKE_CACHE,
+                                        last_only=False)(
+        params, {"tokens": toks[:, :pre], "enc_feats": enc})
+    decode = rt.lm_decode_step(model)
+    steps = []
+    for t in range(pre, S):
+        if margins is not None:
+            margins.at = t
+        lg, caches = decode(params, caches, toks[:, t:t + 1], t)
+        steps.append(lg)
+    return {"forward": full, "aux": aux, "prefill": logits,
+            "decodes": steps,
+            "caches": dict(lm_leaves(lm_tree(lambda t: t.clone(), caches)))}
+
+
+def lm_smoke(rt, torch, arch: str) -> dict:
+    """One smoke() config on the card and on the CPU from the same draws:
+    forward_train, prefill and three decode steps within LM_TOL."""
+    cfg = rt.lm_configs.get(arch, smoke=True)
+    cpu = rt.lm_build(cfg, "cpu")
+    params_cpu, _ = cpu.init(torch.Generator().manual_seed(SEED))
+    params = lm_tree(lambda t: t.to(DEV), params_cpu)
+    rng = np.random.default_rng(SEED)
+    B, S = LM_SMOKE_B, LM_SMOKE_S
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    enc = (rng.normal(size=(B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+           if cfg.n_enc_layers else None)
+    vis = (rng.normal(size=(B, 4, cfg.d_model)).astype(np.float32)
+           if cfg.frontend == "vision" else None)
+    with RouteMargins(rt) as margins:
+        want = lm_run(torch, rt, cpu, params_cpu, torch.from_numpy(toks),
+                      enc, vis, margins)
+    cut = margins.cut(B, S)
+    if min(cut) == S:
+        cut = None                        # no near tie: every position
+    got = lm_run(torch, rt, rt.lm_build(cfg, DEV), params,
+                 torch.from_numpy(toks).to(DEV), enc, vis)
+    torch.cuda.synchronize()
+    pre, what = S - LM_SMOKE_DECODES, f"[lm:smoke {arch}]"
+    err = {"forward": lm_max_err(torch, got["forward"], want["forward"],
+                                 f"{what} forward", cut),
+           "prefill": lm_max_err(torch, got["prefill"], want["prefill"],
+                                 f"{what} prefill",
+                                 cut and [min(n, pre) for n in cut])}
+    for k in want["aux"]:
+        err[k] = lm_max_err(torch, got["aux"][k], want["aux"][k],
+                            f"{what} {k}")
+    for i, (g, w) in enumerate(zip(got["decodes"], want["decodes"])):
+        rows = [b for b in range(B) if cut is None or cut[b] > pre + i]
+        err[f"decode{i + 1}"] = lm_max_err(torch, g[rows], w[rows],
+                                           f"{what} decode {i + 1}")
+    check(set(got["caches"]) == set(want["caches"]),
+          f"{what} cache trees differ")
+    cache_err = 0.0
+    for path, w in want["caches"].items():
+        g = got["caches"][path]
+        check(g.dtype == w.dtype, f"{what} cache {path} dtype {g.dtype}")
+        if w.is_floating_point():
+            # a near tie moves the K/V of later positions (MoE archs hold
+            # only attention caches, positions on axis 2)
+            cache_err = max(cache_err, lm_max_err(
+                torch, g, w, f"{what} cache {path}", cut, row_axis=1))
+        else:
+            check(torch.equal(g.cpu(), w), f"{what} cache {path}")
+    err["caches"] = cache_err
+    for name in ("forward", "prefill"):
+        check(bool(torch.isfinite(got[name]).all()),
+              f"{what} {name} logits not finite")
+    rows_cut = 0 if cut is None else sum(n < S for n in cut)
+    log(f"[lm:smoke {arch}] max |card - cpu|: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in err.items())
+        + f"; rows cut at a router near-tie: {rows_cut} of {B}")
+    return {"max_abs_err": err, "rows_cut": rows_cut, "cut": cut}
+
+
+def lm_timed_generate(rt, torch, model, params, prompt):
+    """greedy_generate's loop with each step timed (synchronised): the
+    tokens, the prefill logits, each step's logits, prefill ms and each
+    decode's ms."""
+    S = prompt.shape[1]
+    prefill = rt.lm_prefill_step(model, LM_CACHE, last_only=False)
+    decode = rt.lm_decode_step(model)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        steps, decode_ms = [logits[:, -1]], []
+        tokens = [prompt, logits[:, -1:].argmax(-1).to(prompt.dtype)]
+        for i in range(LM_NEW - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = decode(params, caches, tokens[-1], S + i)
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(lg[:, -1])
+            tokens.append(lg[:, -1:].argmax(-1).to(prompt.dtype))
+    return torch.cat(tokens, dim=1), logits, steps, prefill_ms, decode_ms
+
+
+LM_KERNEL_GROUPS = (("products", ("gemm", "cutlass", "xmma", "nvjet")),
+                    ("copies and casts", ("copy",)),
+                    ("softmax", ("softmax",)))
+
+
+def lm_trace(rt, torch, model, params, prompt, steps: int = 3) -> dict:
+    """torch.profiler over ``steps`` decode steps after a prefill: the
+    card's busy share of their wall, device time by kernel group (GEMMs;
+    copies, which are the bf16 casts of the fp32 weights and the cache
+    writes; softmax; the rest) and kernels a step."""
+    from torch.profiler import ProfilerActivity, profile
+    S = prompt.shape[1]
+    decode = rt.lm_decode_step(model)
+    with torch.no_grad():
+        logits, caches = rt.lm_prefill_step(model, LM_CACHE)(
+            params, {"tokens": prompt})
+        token = logits.argmax(-1).to(prompt.dtype)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                _, caches = decode(params, caches, token, S + i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [ev for ev in prof.events() if str(ev.device_type).endswith("CUDA")]
+    by_group = {name: 0.0 for name, _ in LM_KERNEL_GROUPS}
+    by_group["other"] = 0.0
+    by_name: dict = {}
+    for ev in dev:
+        us = ev.time_range.elapsed_us()
+        low = ev.name.lower()
+        group = next((g for g, keys in LM_KERNEL_GROUPS
+                      if any(k in low for k in keys)), "other")
+        by_group[group] += us / steps
+        # a kernel's name and the functor it runs, without the templates
+        label = " ".join(dict.fromkeys(re.findall(
+            r"\w+_kernel\w*|\w+Functor\w*|nvjet\w*|cutlass_\w+", ev.name)))
+        label = label[:80] or ev.name[:80]
+        by_name[label] = by_name.get(label, 0.0) + us / steps
+    device_us = sum(by_group.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return {"wall_us_a_step": wall_us / steps,
+            "device_us_a_step": device_us,
+            "busy_share": device_us * steps / wall_us,
+            "kernels_a_step": len(dev) / steps,
+            "device_us_by_group": by_group, "top_kernels_us": dict(top)}
+
+
+def lm_teacher_forced(out, steps, full, P: int, margin: float):
+    """Greedy token i against the argmax of ``full`` (forward_train over
+    the generated prefix) at position P + i - 1, at the steps whose top-2
+    margin there exceeds ``margin`` -> (compared, skipped, differing, the
+    largest |step logits - forward's|)."""
+    compared = skipped = differing = 0
+    err = 0.0
+    for i, step in enumerate(steps):
+        ref = full[:, P + i - 1].float()
+        top2 = ref.topk(2, dim=-1).values
+        near = (top2[:, 0] - top2[:, 1]) <= margin
+        same = ref.argmax(-1) == out[:, P + i].long()
+        compared += int((~near).sum())
+        skipped += int(near.sum())
+        differing += int((~near & ~same).sum())
+        err = max(err, float((step.float() - ref).abs().max()))
+    return compared, skipped, differing, err
+
+
+def lm_full(rt, torch, arch: str) -> dict:
+    """A full() config at full width and depth with random weights from a
+    seeded generator on the card: 4 prompts of 64 tokens, 32 greedy tokens
+    into a cache of 128, served at the config's bf16 (times beside the
+    bound; the prefill against forward_train; the decode steps no farther
+    from the fp32 forward than bf16 forward_train is) and at fp32 compute
+    (every greedy token against the teacher-forced argmax)."""
+    cfg = rt.lm_configs.get(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()        # what earlier phases hold
+    t0 = time.perf_counter()
+    model = rt.lm_build(cfg)
+    params, _ = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mem = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    n_params = sum(t.numel() for _, t in lm_leaves(params))
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN)).astype(np.int32)).to(DEV)
+    # a first pass warms the allocator and the GEMM heuristics
+    lm_timed_generate(rt, torch, model, params, prompt[:, :8])
+    out, pre_logits, steps, prefill_ms, decode_ms = lm_timed_generate(
+        rt, torch, model, params, prompt)
+    P, what = LM_PROMPT_LEN, f"[lm:full {arch}]"
+    model32 = rt.lm_build(dataclasses.replace(cfg, compute_dtype="float32"))
+    with torch.no_grad():
+        again = rt.lm_greedy(model, params, prompt, LM_NEW, LM_CACHE)
+        check(torch.equal(again, out),
+              f"{what} greedy_generate differs from the timed loop")
+        fwd_prompt, _ = model.forward_train(params, prompt)
+        full, _ = model.forward_train(params, out[:, :-1])
+        ref32, _ = model32.forward_train(params, out[:, :-1])
+    torch.cuda.synchronize()
+    check(out.shape == (LM_PROMPTS, P + LM_NEW),
+          f"{what} output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(full).all()), f"{what} non-finite logits")
+    prefill_err = lm_max_err(torch, pre_logits, fwd_prompt,
+                             f"{what} prefill against forward")
+    # bf16: through the whole depth the decode path and forward_train each
+    # land up to a few tenths from the fp32 function; the decode path must
+    # be no farther from it than forward_train is. Its tokens against the
+    # bf16 forward's argmax are reported, not required.
+    c16, s16, d16, step_err = lm_teacher_forced(out, steps, full, P,
+                                                2 * LM_TOL)
+    step32_err = max(float((st.float() - ref32[:, P + i - 1]).abs().max())
+                     for i, st in enumerate(steps))
+    fwd32_err = float((full[:, P - 1:] - ref32[:, P - 1:]).abs().max())
+    check(step32_err <= 1.5 * fwd32_err + LM_TOL,
+          f"{what} decode {step32_err:.4g} from the fp32 forward, "
+          f"forward_train {fwd32_err:.4g}")
+    # fp32 compute, same weights: the teacher-forced check
+    out32, _, steps32, _, _ = lm_timed_generate(rt, torch, model32, params,
+                                                prompt)
+    with torch.no_grad():
+        full32, _ = model32.forward_train(params, out32[:, :-1])
+    compared, skipped, failed, err32 = lm_teacher_forced(
+        out32, steps32, full32, P, 2 * LM_TOL32)
+    check(err32 <= LM_TOL32, f"{what} fp32 decode {err32:.4g} from the fp32 "
+          "forward")
+    check(failed == 0, f"{what} {failed} fp32 greedy tokens differ from "
+          "the teacher-forced argmax")
+    check(compared > 0, f"{what} every step a near tie")
+    bound_ms = rt.lm_analytic.bytes_model(cfg, "decode", LM_CACHE,
+                                          LM_PROMPTS) / HBM_BYTES_PER_S * 1e3
+    trace = lm_trace(rt, torch, model, params, prompt)
+    res = {"params": n_params, "init_s": init_s, "mem_after_init_gib": mem,
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+           "prefill_ms": prefill_ms,
+           "decode_ms_p50": statistics.median(decode_ms),
+           "decode_ms_min": min(decode_ms), "decode_ms_max": max(decode_ms),
+           "decode_bound_ms": bound_ms, "prefill_max_abs_err": prefill_err,
+           "decode_vs_forward_max_abs_err": step_err,
+           "decode_vs_fp32_forward_max_abs_err": step32_err,
+           "forward_vs_fp32_forward_max_abs_err": fwd32_err,
+           "bf16_tokens": {"compared": c16, "skipped_near_ties": s16,
+                           "differing": d16},
+           "fp32_decode_vs_forward_max_abs_err": err32,
+           "teacher_forced_fp32": {"compared": compared, "skipped_near_ties":
+                                   skipped, "failed": failed},
+           "decode_trace": trace}
+    log(f"[lm:full {arch}] {n_params / 1e9:.3f} G params fp32, init "
+        f"{init_s:.1f} s, card memory after init {mem:.2f} GiB (peak "
+        f"{res['peak_gib']:.2f}); prefill {LM_PROMPTS}x{P} "
+        f"{prefill_ms:.1f} ms; decode p50 {res['decode_ms_p50']:.2f} ms a "
+        f"token (min {res['decode_ms_min']:.2f}, max "
+        f"{res['decode_ms_max']:.2f}) against a bound of {bound_ms:.3f} ms "
+        f"(bytes_model over {HBM_BYTES_PER_S / 1e12:.2f} TB/s); prefill vs "
+        f"forward {prefill_err:.4g}; decode vs forward {step_err:.4g}, vs the "
+        f"fp32 forward {step32_err:.4g} (forward {fwd32_err:.4g}); bf16 "
+        f"tokens equal to forward's argmax at {c16 - d16} of {c16} steps "
+        f"with a margin over {2 * LM_TOL} ({s16} closer); fp32 teacher-"
+        f"forced: decode vs forward {err32:.3g}, {compared} compared, "
+        f"{skipped} near ties skipped, {failed} failed")
+    log(f"[lm:trace {arch}] a profiled decode step: "
+        f"{trace['wall_us_a_step'] / 1e3:.2f} ms wall, "
+        f"{trace['device_us_a_step'] / 1e3:.2f} ms on the card (busy "
+        f"{100 * trace['busy_share']:.1f}%), "
+        f"{trace['kernels_a_step']:.0f} kernels; by group (ms): "
+        + ", ".join(f"{g} {us / 1e3:.2f}"
+                    for g, us in trace["device_us_by_group"].items())
+        + "; top: " + "; ".join(f"{n} {us / 1e3:.2f}"
+                                for n, us in trace["top_kernels_us"].items()))
+    del model, model32, params, steps, steps32, full, full32, ref32, \
+        fwd_prompt, pre_logits, out, out32, again
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_lm(rt, torch, card: str) -> dict:
+    """[lm:smoke] every arch's smoke() config on the card against the CPU;
+    [lm:full] three full() configs served greedily at full width."""
+    t0 = time.perf_counter()
+    log(f"[lm] {card}")
+    out = {"smoke": {a: lm_smoke(rt, torch, a)
+                     for a in rt.lm_configs.list_archs()}}
+    out["full"] = {a: lm_full(rt, torch, a) for a in LM_FULL_ARCHS}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[lm] {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
 # Timing
 # --------------------------------------------------------------------------
 
@@ -4008,6 +4405,12 @@ class _Port:
                                        ShardWorker, Status, WorkerPool,
                                        WorkerServer)
         from repro_torch.serve import server as server_mod
+        from repro_torch import configs as lm_configs
+        from repro_torch.launch import analytic as lm_analytic
+        from repro_torch.models import build_model as lm_build
+        from repro_torch.models import moe as lm_moe
+        from repro_torch.serve import (greedy_generate, make_decode_step,
+                                       make_prefill_step)
         self.IndexParams, self.QueryEngine = IndexParams, QueryEngine
         self.QueryServer, self.ServerConfig = QueryServer, ServerConfig
         self.Status, self.server_mod = Status, server_mod
@@ -4032,6 +4435,11 @@ class _Port:
         self.MultiHit, self.MultiIndexEngine = MultiHit, MultiIndexEngine
         self.DistributedIndex, self.make_mesh = DistributedIndex, make_mesh
         self.WorkerCluster, self.make_workload = WorkerCluster, make_workload
+        self.lm_configs, self.lm_analytic = lm_configs, lm_analytic
+        self.lm_build, self.lm_moe = lm_build, lm_moe
+        self.lm_prefill_step, self.lm_decode_step = make_prefill_step, \
+            make_decode_step
+        self.lm_greedy = greedy_generate
 
 
 def main() -> int:
@@ -4102,6 +4510,7 @@ def main() -> int:
                 rt, torch, index, extra["classic k=1"], queries, chk.err,
                 launches, comp, chunk, serve)
         torch.cuda.synchronize()
+        record["lm"] = phase_lm(rt, torch, record["card"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

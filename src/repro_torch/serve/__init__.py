@@ -12,7 +12,9 @@ the JAX package's) and the offline ``BulkLane`` (``bulk``); per-host
 the scatter/gather ``Frontend`` with hedged dispatch and replica failover
 (``frontend``), and the RPC shard data plane (``rpc``: ``WorkerServer``,
 ``WorkerChannel``, ``WorkerPool``, ``RpcFrontend``), whose wire frames
-are the JAX package's, so fleets may mix the two.
+are the JAX package's, so fleets may mix the two. LM inference steps
+(``step``) serve the model substrate: prefill, decode and the greedy
+generation loop.
 """
 from ..obs import (EventLog, KernelProfiler, MetricsRegistry, Span, Trace,
                    Tracer, render_prometheus)
@@ -28,6 +30,7 @@ from .request import QueryRequest, QueryResponse, Status
 from .rpc import (ChannelDown, RpcError, RpcFrontend, WorkerChannel,
                   WorkerPool, WorkerServer)
 from .server import QueryServer, ServerConfig
+from .step import make_prefill_step, make_decode_step, greedy_generate
 from .worker import DispatchCancelled, ShardWorker
 
 __all__ = [
@@ -42,4 +45,5 @@ __all__ = [
     "WorkerPool", "WorkerServer",
     "EventLog", "KernelProfiler", "MetricsRegistry", "Span", "Trace",
     "Tracer", "render_prometheus",
+    "make_prefill_step", "make_decode_step", "greedy_generate",
 ]

@@ -346,19 +346,25 @@ class WorkerChannel:
                 return True              # stop redialing
             self.params, self.n_docs = params, n_docs
             self._sock = sock
-            self.healthy = True
             reconnect = self._connected_once
             self._connected_once = True
             if reconnect:
                 self.reconnects += 1
+        # a redial is counted everywhere before the channel reads healthy
+        # (C8); healthy is set under the lock and before the reader
+        # starts, so a reader that fails at once leaves it False
+        if self.metrics is not None:
+            self.metrics.record_channel(self.node, up=True,
+                                        reconnect=reconnect)
+        with self._flock:
+            if self._closed:
+                return True              # close() took and shut the socket
+            self.healthy = True
         reader = threading.Thread(target=self._read_loop, args=(sock,),
                                   name=f"chan-read-{self.node}",
                                   daemon=True)
         reader.start()
         self._reader = reader            # published only once started
-        if self.metrics is not None:
-            self.metrics.record_channel(self.node, up=True,
-                                        reconnect=reconnect)
         return True
 
     def _reconnect_loop(self) -> None:

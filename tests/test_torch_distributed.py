@@ -12,6 +12,8 @@ the CPU.
   model of the ``lax.top_k`` merge (each shard's cut, candidates gathered
   in doc-rank order, the final cut; the lower index first among ties) on
   an index built so that ties fall across shards;
+* ``search_batch(..., topk=0)`` returns one empty hit list a query in the
+  port and raises in JAX (C7, a deliberate difference);
 * row sharding of a two-hash index raises in both packages.
 
 Every comparison is exact.
@@ -145,6 +147,27 @@ def test_search_batch_equals_jax_on_one_device(world, method):
     # true positives found, true negatives empty (distributed_check.py)
     for (ids, _), o in zip(td.search_batch(qs, 0.9, 16), world["origin"]):
         assert (o in set(ids.tolist())) if o >= 0 else len(ids) == 0
+
+
+@pytest.mark.parametrize("method", ["vertical", "lookup", "unpack"])
+def test_search_batch_topk_zero(world, method):
+    """``topk=0`` (C7): the port answers one empty hit list a query, as
+    both packages' ``QueryEngine.top_k(q, 0)`` do; JAX's
+    ``DistributedIndex`` raises while lowering an all_gather of zero
+    candidates."""
+    jidx, idx, _ = world["k1"]
+    kw = dict(doc_axes=("pod", "data"), row_axis="model",
+              score_method=method)
+    q = world["queries"][0]
+    td = DistributedIndex(idx, make_mesh((1, 1, 1), AXES, device=CPU),
+                          device=CPU, **kw)
+    got = td.search_batch([q], topk=0)
+    assert len(got) == 1
+    ids, vals = got[0]
+    assert ids.size == 0 and vals.size == 0
+    jd = JaxDistributed(jidx, jax_mesh((1, 1, 1), AXES), **kw)
+    with pytest.raises(Exception):
+        jd.search_batch([q], topk=0)
 
 
 def _model_topk(jidx, scores, n_doc_shards, topk):

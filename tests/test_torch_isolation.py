@@ -225,3 +225,34 @@ def test_launchers_and_mesh_index_default_to_cuda(monkeypatch, tmp_path,
             serve.main(argv)
         assert exc.value.code == 2
         assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    """``Model``, ``build_model``, ``params_from_numpy`` and
+    ``greedy_generate`` resolve ``device=None`` to the card: without CUDA
+    each raises; a model for the card is never run on the CPU."""
+    from repro_torch.configs import get
+    from repro_torch.models import Model, build_model, params_from_numpy
+    from repro_torch.serve import greedy_generate
+    cfg = get("xlstm-125m", smoke=True)
+    model = Model(cfg, "cpu")
+    params, _ = model.init(torch.Generator().manual_seed(0))
+    numpy_tree = _numpy_tree(params)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: Model(cfg), lambda: Model(cfg, None),
+                 lambda: build_model(cfg),
+                 lambda: params_from_numpy(numpy_tree, cfg=cfg),
+                 lambda: params_from_numpy(numpy_tree, "cuda", cfg=cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    prompt = np.zeros((1, 4), np.int32)
+    assert greedy_generate(model, params, prompt, 2, 8).shape == (1, 6)
+    model.device = torch.device("cuda")          # a model for the card
+    with pytest.raises(RuntimeError, match="CUDA"):
+        greedy_generate(model, params, prompt, 2, 8)
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.numpy()

@@ -9,7 +9,9 @@ oracle over raw, rowdict (served compressed) and pruned workers; a
 straggler's hedged duplicate wins and the loser is cancelled on the wire;
 a server killed mid-load loses no request; a torn frame fails the pending
 requests at once; a channel reconnects after its peer restarts on the
-same port; and a channel closed before its reader thread has started
+same port, and reads healthy only once the metrics count the redial (the
+JAX channel reads healthy first, ROADMAP C8); and a channel closed before
+its reader thread has started
 closes cleanly (the JAX channel joins the unstarted thread and raises,
 ROADMAP C5). Every socket wait has a timeout of its own.
 """
@@ -365,6 +367,72 @@ def test_channel_reconnects_after_restart():
         assert _submit_dummy(ch).result(TIMEOUT)[1] == "fake"
         assert ch.ping(timeout_s=TIMEOUT)
     finally:
+        ch.close()
+        fake.close()
+
+
+class _HeldMetrics:
+    """A metrics stub whose ``record_channel(..., reconnect=True)`` blocks
+    until released, counting the redials it was told of."""
+
+    def __init__(self):
+        self.entered, self.release = threading.Event(), threading.Event()
+        self.reconnects = 0
+
+    def record_channel(self, node, *, up, reconnect=False):
+        if reconnect:
+            self.entered.set()
+            assert self.release.wait(TIMEOUT)
+            self.reconnects += 1
+
+    def record_rpc(self, node, outcome, n=1):
+        pass
+
+
+def _restart(port):
+    deadline = time.monotonic() + TIMEOUT
+    while True:                           # the old port may linger a moment
+        try:
+            return _FakeWorker(script="ok", port=port)
+        except OSError:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+
+
+@pytest.mark.parametrize("pkg", ["torch", "jax"])
+def test_redial_counted_before_healthy(pkg):
+    """The redialer is held inside the metrics' count of a redial: the
+    port's channel still reads unhealthy then, and once released its
+    ``healthy``, ``reconnects`` and the metrics' count agree; the JAX
+    channel already reads healthy before the metrics count it (C8)."""
+    metrics = _HeldMetrics()
+    fake = _FakeWorker(script="ok")
+    host, port = fake.address
+    Channel = WorkerChannel if pkg == "torch" else JaxChannel
+    ch = Channel("c8", host, port, metrics=metrics)
+    try:
+        assert _wait_healthy(ch)
+        fake.close()
+        with pytest.raises(Exception):
+            _submit_dummy(ch).result(TIMEOUT)
+        assert _wait_healthy(ch, want=False)
+        fake = _restart(port)
+        assert metrics.entered.wait(TIMEOUT)
+        assert ch.reconnects == 1 and metrics.reconnects == 0
+        if pkg == "torch":
+            time.sleep(0.2)
+            assert not ch.healthy
+        else:
+            assert ch.healthy
+        metrics.release.set()
+        assert _wait_healthy(ch)
+        if pkg == "jax":                  # healthy came before the count
+            deadline = time.monotonic() + TIMEOUT
+            while metrics.reconnects < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+        assert ch.reconnects == metrics.reconnects == 1
+    finally:
+        metrics.release.set()
         ch.close()
         fake.close()
 
