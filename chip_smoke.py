@@ -150,7 +150,24 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    ``forward_train``; each greedy token against the teacher-forced argmax
    where forward's top-2 margin exceeds twice the tolerance; card memory
    after init; prefill ms and decode ms a token, p50 of 31, beside
-   ``launch/analytic.py``'s ``bytes_model`` over 3.35 TB/s).
+   ``launch/analytic.py``'s ``bytes_model`` over 3.35 TB/s);
+14. trains the LM substrate ("[train]", no kernel of its own): every
+   arch's ``smoke()`` config, 4 train steps on the card and on the CPU
+   from the same state (fp32 and bf16 compute; losses, grad norms and
+   parameters within stated bounds); qwen2.5-3b and xlstm-125m at full
+   width and depth (random weights drawn on the card, remat, the in-place
+   AdamW): 8 steps of batch 4 x 128 on a repeated ``synthetic_batch``,
+   step ms (p50 of steps 2-8) and tokens/s beside a bound
+   (``flops_model`` over 989 TFLOP/s plus 28 B a parameter over 3.35
+   TB/s), peak card memory, falling losses, and one profiled qwen2.5-3b
+   step ("[train:trace]": kernels, busy share, device time by group, no
+   autograd node selecting one layer of a stacked leaf); the
+   ``AsyncCheckpointer`` on xlstm-125m's state ("[train:ckpt]": host copy
+   and write apart, a restore to the card bit-equal); qwen3-4b smoke under
+   ``run_with_restarts`` with failures at steps 5 and 9 in a child process
+   with deterministic algorithms ("[train:restart]": bit-equal to the
+   clean run); and ``python -m repro_torch.launch.train`` twice on the
+   card ("[train:cli]": 6 steps, then resumed from step 5 to 9).
 
 It prints the card's name and power limit and a ``{"kernels": ...}`` line,
 writes its measurements to ``chiprun_out/chip_smoke.json``, and ends with
@@ -3835,6 +3852,452 @@ def phase_lm(rt, torch, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# [train]: the LM substrate's training path
+# --------------------------------------------------------------------------
+
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=50)  # [train:smoke]
+TRAIN_SMOKE_STEPS = 4
+TRAIN_SMOKE_B, TRAIN_SMOKE_S = 2, 12
+# card against CPU, each step: losses (and aux losses) within this at fp32
+# compute, LM_TOL at bf16; grad_norm within these relative bounds; every
+# parameter within 2.1 x the sum of the steps' learning rates (Adam's first
+# steps are sign-like: a grad near zero of either sign moves a parameter by
+# up to lr either way)
+TRAIN_LOSS_TOL32 = 1e-4
+TRAIN_GNORM_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# [train:full]: 8 steps of batch 4 x 128 on one repeated batch, the CLI's
+# schedule for --steps 8 (lr 3e-4, warmup 2)
+TRAIN_FULL_ARCHS = ("qwen2.5-3b", "xlstm-125m")
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 128, 8
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 (data sheet)
+ADAM_BYTES_PER_PARAM = 28     # read p, g, m, v; write p, m, v (fp32)
+TRAIN_DIR = OUT_DIR / "smoke_train"
+TRAIN_TIMEOUT = 300
+# the kernel groups of a profiled train step (the optimizer by its range)
+TRAIN_KERNEL_GROUPS = (("GEMMs", ("gemm", "cutlass", "xmma", "nvjet")),
+                       ("casts and copies", ("copy",)),
+                       ("zero fills", ("fill",)))
+
+
+def state_to(rt, state, device):
+    """A copy of a TrainState on ``device`` (``rng`` stays on the CPU)."""
+    move = lambda t: t.to(device, copy=True)
+    return state._replace(step=move(state.step),
+                          params=lm_tree(move, state.params),
+                          opt_state=lm_tree(move, state.opt_state),
+                          rng=state.rng.clone())
+
+
+def train_batch(cfg, rng):
+    B, S = TRAIN_SMOKE_B, TRAIN_SMOKE_S
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.n_enc_layers:
+        b["enc_feats"] = rng.normal(
+            size=(B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        b["vis_embeds"] = rng.normal(size=(B, 4, cfg.d_model)) \
+            .astype(np.float32)
+    return b
+
+
+def cut_labels_at_ties(rt, torch, model, params, batch) -> tuple[dict, int]:
+    """bf16 MoE: labels of each row masked (-1) from its first router near
+    tie on the CPU (another device may pick another expert there); the
+    count of rows cut."""
+    with RouteMargins(rt) as margins, torch.no_grad():
+        model.forward_train(params, batch["tokens"],
+                            enc_feats=batch.get("enc_feats"),
+                            vis_embeds=batch.get("vis_embeds"))
+    B, S = batch["labels"].shape
+    labels = batch["labels"].copy()
+    cut = margins.cut(B, S)
+    for b, n in enumerate(cut):
+        labels[b, n:] = -1
+    return dict(batch, labels=labels), sum(n < S for n in cut)
+
+
+def param_gap(rt, torch, a, b) -> float:
+    leaves = rt.train_optim.tree_leaves
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def train_smoke(rt, torch, arch: str, dtype: str) -> dict:
+    """TRAIN_SMOKE_STEPS train steps of a smoke() config on the card and on
+    the CPU from the same state and batch."""
+    cfg = rt.lm_configs.get(arch, smoke=True)
+    if dtype != cfg.compute_dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    what = f"[train:smoke {arch} {dtype}]"
+    opt = rt.AdamWConfig(**TRAIN_OPT)
+    cpu = rt.lm_build(cfg, "cpu")
+    state_cpu = rt.make_init_state(cpu, opt)(
+        torch.Generator().manual_seed(SEED))
+    state = state_to(rt, state_cpu, DEV)
+    batch = train_batch(cfg, np.random.default_rng(SEED))
+    rows_cut = 0
+    if dtype == "bfloat16" and cfg.moe is not None:
+        batch, rows_cut = cut_labels_at_ties(rt, torch, cpu,
+                                             state_cpu.params, batch)
+    step_cpu = rt.make_train_step(cpu, opt)
+    step_dev = rt.make_train_step(rt.lm_build(cfg, DEV), opt)
+    loss_tol = TRAIN_LOSS_TOL32 if dtype == "float32" else LM_TOL
+    lr_sum, losses, err = 0.0, [], {"loss": 0.0, "grad_norm_rel": 0.0,
+                                    "params": 0.0}
+    for i in range(TRAIN_SMOKE_STEPS):
+        state_cpu, want = step_cpu(state_cpu, batch)
+        state, got = step_dev(state, batch)
+        check(set(got) == set(want), f"{what} metrics {sorted(got)}")
+        for k in set(want) - {"accuracy", "grad_norm", "lr"}:
+            d = abs(float(got[k]) - float(want[k]))
+            check(d <= loss_tol, f"{what} step {i + 1} {k}: card "
+                  f"{float(got[k]):.6g}, cpu {float(want[k]):.6g}")
+            err["loss"] = max(err["loss"], d)
+        g, w = float(got["grad_norm"]), float(want["grad_norm"])
+        err["grad_norm_rel"] = max(err["grad_norm_rel"], abs(g - w) / w)
+        check(abs(g - w) <= TRAIN_GNORM_RTOL[dtype] * w,
+              f"{what} step {i + 1} grad_norm: card {g:.6g}, cpu {w:.6g}")
+        lr_sum += float(want["lr"])
+        gap = param_gap(rt, torch, state.params, state_cpu.params)
+        err["params"] = max(err["params"], gap)
+        check(gap <= 2.1 * lr_sum, f"{what} step {i + 1}: a parameter "
+              f"{gap:.3g} from the CPU's, bound {2.1 * lr_sum:.3g}")
+        check(int(state.step) == i + 1 and np.array_equal(
+            state.rng.numpy(), state_cpu.rng.numpy()),
+              f"{what} step or rng differs")
+        losses.append(float(got["loss"]))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{what} losses {losses}")
+    return {"losses": losses, "max_abs_err": err, "rows_cut": rows_cut,
+            "params_bound": 2.1 * lr_sum}
+
+
+def train_trace(rt, torch, step_fn, state, batch):
+    """One torch.profiler'd train step: its wall, the card's busy share,
+    kernels, device time by group (the optimizer by its
+    ``record_function`` range on the card's timeline) and the autograd
+    nodes that select one layer of a stacked leaf."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    optim = rt.train_optim
+    update = optim.adamw_update
+
+    def marked(*args, **kw):
+        with record_function("adamw_update"):
+            return update(*args, **kw)
+
+    optim.adamw_update = marked
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        optim.adamw_update = update
+    events = prof.events()
+    on_dev = lambda ev: str(ev.device_type).endswith("CUDA")
+    dev = [ev for ev in events if on_dev(ev)]
+    # the range's annotation on the card's timeline, where the profiler
+    # records one; else its kernels' time through the host range
+    marks = [ev for ev in dev if ev.name == "adamw_update"]
+    kernels = [ev for ev in dev if ev.name != "adamw_update"]
+    span = (min(ev.time_range.start for ev in marks),
+            max(ev.time_range.end for ev in marks)) if marks else None
+    groups = {name: 0.0 for name, _ in TRAIN_KERNEL_GROUPS}
+    groups.update({"optimizer": 0.0, "other": 0.0})
+    for ev in kernels:
+        us = ev.time_range.elapsed_us()
+        low = ev.name.lower()
+        if span and span[0] <= ev.time_range.start <= span[1]:
+            group = "optimizer"
+        else:
+            group = next((g for g, keys in TRAIN_KERNEL_GROUPS
+                          if any(k in low for k in keys)), "other")
+        groups[group] += us
+    if span is None:           # the optimizer's kernels are elementwise
+        host = [ev for ev in events
+                if ev.name == "adamw_update" and not on_dev(ev)]
+        groups["optimizer"] = sum(ev.device_time_total for ev in host)
+        groups["other"] -= groups["optimizer"]
+    device_us = sum(groups.values())
+    nodes = {}
+    for ev in events:          # bare and engine-wrapped autograd nodes
+        for node in ("SelectBackward0", "UnbindBackward0"):
+            if node in ev.name and not on_dev(ev):
+                nodes[ev.name] = nodes.get(ev.name, 0) + 1
+    return state, {"wall_us": wall_us, "device_us": device_us,
+                   "busy_share": device_us / wall_us,
+                   "kernels": len(kernels), "device_us_by_group": groups,
+                   "optimizer_on_timeline": span is not None,
+                   "autograd_nodes": nodes}
+
+
+def train_full(rt, torch, arch: str, trace: bool) -> tuple[dict, object]:
+    """A full() config at full width and depth, random fp32 weights from a
+    seeded generator on the card: TRAIN_STEPS in-place train steps of batch
+    TRAIN_B x TRAIN_S (one repeated synthetic_batch) at the config's bf16
+    with remat; step ms beside the bound; the state after them."""
+    cfg = rt.lm_configs.get(arch)
+    what = f"[train:full {arch}]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = rt.lm_build(cfg)
+    opt = rt.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    state = rt.make_init_state(model, opt)(
+        torch.Generator(device=DEV).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    n_params = sum(t.numel() for _, t in lm_leaves(state.params))
+    batch = rt.synthetic_batch(0, cfg.vocab, TRAIN_B, TRAIN_S)
+    step_fn = rt.make_train_step(model, opt)
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    check(all(np.isfinite(losses)), f"{what} losses {losses}")
+    check(losses[-1] < losses[0], f"{what} loss did not fall: {losses}")
+    check(int(state.step) == TRAIN_STEPS, f"{what} step {int(state.step)}")
+    fb = rt.lm_analytic.flops_model(cfg, "train", TRAIN_S, TRAIN_B)
+    gemm_ms = fb.computed_flops / BF16_FLOPS_PER_S * 1e3
+    adam_ms = ADAM_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
+    p50 = statistics.median(step_ms[1:])
+    res = {"params": n_params, "init_s": init_s, "state_gib": state_gib,
+           "peak_gib": peak, "step_ms": step_ms, "step_ms_p50": p50,
+           "tokens_per_s": TRAIN_B * TRAIN_S / p50 * 1e3,
+           "losses": losses, "flops": fb.computed_flops,
+           "bound_ms": gemm_ms + adam_ms, "bound_flops_ms": gemm_ms,
+           "bound_optimizer_ms": adam_ms}
+    log(f"{what} {n_params / 1e9:.3f} G params fp32, remat "
+        f"{cfg.remat}; state (params, mu, nu) {state_gib:.2f} GiB after init "
+        f"({init_s:.1f} s); {TRAIN_STEPS} steps of {TRAIN_B}x{TRAIN_S}: "
+        f"step p50 {p50:.1f} ms (steps 2-{TRAIN_STEPS}; first "
+        f"{step_ms[0]:.1f} ms, min {min(step_ms[1:]):.1f}, max "
+        f"{max(step_ms[1:]):.1f}), {res['tokens_per_s']:,.0f} tokens/s, "
+        f"against a bound of {res['bound_ms']:.2f} ms "
+        f"({fb.computed_flops / 1e12:.2f} TFLOP over "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s = {gemm_ms:.2f} "
+        f"ms, plus {ADAM_BYTES_PER_PARAM} B a parameter over "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {adam_ms:.2f} ms); peak "
+        f"{peak:.2f} GiB; losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if trace:
+        state, tr = train_trace(rt, torch, step_fn, state, batch)
+        tr["busy_share_of_p50"] = tr["device_us"] / (p50 * 1e3)
+        res["trace"] = tr
+        log(f"[train:trace {arch}] a profiled step: {tr['wall_us'] / 1e3:.1f}"
+            f" ms wall, {tr['device_us'] / 1e3:.1f} ms on the card (busy "
+            f"{100 * tr['busy_share']:.1f}% of it, "
+            f"{100 * tr['busy_share_of_p50']:.1f}% of the unprofiled p50), "
+            f"{tr['kernels']} kernels; by group (ms): " + ", ".join(
+                f"{g} {us / 1e3:.2f}"
+                for g, us in tr["device_us_by_group"].items())
+            + f"; autograd nodes {tr['autograd_nodes']}")
+        check(not any("SelectBackward0" in n for n in tr["autograd_nodes"]),
+              f"[train:trace {arch}] a stacked leaf selected a layer at a "
+              "time in the backward pass")
+    return res, state
+
+
+def train_ckpt(rt, torch, state) -> dict:
+    """The AsyncCheckpointer on a full state: the host copy (save()) and
+    the write (wait()) timed apart, then a restore to the card compared
+    leaf by leaf, bit for bit."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    mgr = rt.CheckpointManager(TRAIN_DIR / "ckpt")
+    ac = rt.AsyncCheckpointer(mgr)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in rt.train_optim.tree_leaves(
+                      {"p": state.params, "o": state.opt_state}))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ac.save(int(state.step), state)
+    t1 = time.perf_counter()
+    ac.wait()
+    t2 = time.perf_counter()
+    restored, step = mgr.restore(state)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    check(step == int(state.step), f"[train:ckpt] restored step {step}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        rt.train_optim.tree_leaves({"p": restored.params,
+                                    "o": restored.opt_state}),
+        rt.train_optim.tree_leaves({"p": state.params,
+                                    "o": state.opt_state})))
+    check(same and torch.equal(restored.step, state.step)
+          and np.array_equal(restored.rng.numpy(), state.rng.numpy()),
+          "[train:ckpt] a restored leaf differs")
+    on = restored.params["embed"]["tok"].device.type
+    check(on == torch.device(DEV).type, "[train:ckpt] restored off the card")
+    res = {"bytes": n_bytes, "host_copy_s": t1 - t0, "write_s": t2 - t1,
+           "restore_s": t3 - t2}
+    log(f"[train:ckpt] {n_bytes / 2 ** 30:.2f} GiB state: save() (host "
+        f"copy) {res['host_copy_s']:.2f} s, write {res['write_s']:.2f} s, "
+        f"restore to the card {res['restore_s']:.2f} s; every leaf "
+        "bit-equal")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return res
+
+
+def restart_child(root: str) -> int:
+    """[train:restart]'s child process (deterministic algorithms from its
+    first CUDA call): qwen3-4b smoke under run_with_restarts, clean and
+    with failures injected at steps 5 and 9, checkpoints under ``root``;
+    prints one JSON line."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    sys.path.insert(0, str(SRC))
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.ft import FailureInjector, run_with_restarts
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, make_init_state,
+                                   make_train_step)
+    from repro_torch.train.optim import tree_leaves
+    cfg = configs.get("qwen3-4b", smoke=True)
+    model = build_model(cfg, DEV)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=40)
+    init, step = make_init_state(model, opt), make_train_step(model, opt)
+    data = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (64, 2, 12)).astype(np.int32)).to(DEV)
+
+    def step_fn(state, i):
+        state, m = step(state, {"tokens": data[i % 64],
+                                "labels": data[i % 64]})
+        return state, {"loss": float(m["loss"])}
+
+    runs = {}
+    for name, fail in (("clean", set()), ("crashed", {5, 9})):
+        runs[name] = run_with_restarts(
+            lambda: init(torch.Generator(device=DEV).manual_seed(SEED)),
+            step_fn, CheckpointManager(Path(root) / name), total_steps=12,
+            checkpoint_every=4, injector=FailureInjector(fail_at=fail))
+    (a, log_a, ra), (b, log_b, rb) = runs["clean"], runs["crashed"]
+    losses = lambda entries: {m["step"]: m["loss"] for m in entries}
+    print(json.dumps({
+        "restarts": [ra, rb], "steps_run": [len(log_a), len(log_b)],
+        "losses_equal": losses(log_a) == losses(log_b),
+        "losses": [m["loss"] for m in log_a],
+        "params_equal": all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a.params), tree_leaves(b.params)))}))
+    return 0
+
+
+def train_restart(rt, torch) -> dict:
+    """qwen3-4b smoke under run_with_restarts on the card, clean and with
+    failures injected at steps 5 and 9, in a child process with
+    deterministic algorithms: the losses and final parameters equal."""
+    env = cli_env()
+    env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.restart_child(sys.argv[1]))",
+             str(TRAIN_DIR)], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=TRAIN_TIMEOUT)
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[train:restart] child exited "
+          f"{proc.returncode}:\n{(proc.stdout + proc.stderr)[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["seconds"] = secs
+    check(res["restarts"] == [0, 2], f"[train:restart] restarts "
+          f"{res['restarts']}")
+    check(res["losses_equal"] and res["params_equal"],
+          "[train:restart] the restarted run differs from the clean run")
+    log(f"[train:restart] qwen3-4b smoke, 12 steps, checkpoints every 4, "
+        f"failures at 5 and 9: restarts {res['restarts'][1]}, "
+        f"{res['steps_run'][1]} steps run (clean {res['steps_run'][0]}), "
+        "losses and parameters bit-equal to the clean run (deterministic "
+        f"algorithms); {secs:.1f} s")
+    return res
+
+
+def train_cli() -> dict:
+    """``python -m repro_torch.launch.train`` on the card: 6 steps with a
+    checkpoint every 3, then resumed to 9."""
+    ck = TRAIN_DIR / "cli"
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "xlstm-125m", "--smoke", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", str(ck)]
+    res = {}
+    try:
+        for name, extra in (("first", ["--steps", "6", "--ckpt-every", "3"]),
+                            ("resumed", ["--steps", "9"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + extra, cwd=ROOT, env=cli_env(),
+                                  capture_output=True, text=True,
+                                  timeout=TRAIN_TIMEOUT)
+            secs = time.perf_counter() - t0
+            lines = proc.stdout.strip().splitlines()
+            check(proc.returncode == 0 and lines and lines[-1] == "done",
+                  f"[train:cli {name}] exited {proc.returncode}:\n"
+                  f"{(proc.stdout + proc.stderr)[-3000:]}")
+            res[name] = {"seconds": secs, "lines": lines}
+        check(res["resumed"]["lines"][0] == "resumed from step 5",
+              f"[train:cli] {res['resumed']['lines'][:1]}")
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    log(f"[train:cli] xlstm-125m smoke on the card: 6 steps in "
+        f"{res['first']['seconds']:.1f} s ({res['first']['lines'][-2]}); "
+        f"resumed from step 5 to 9 in {res['resumed']['seconds']:.1f} s "
+        f"({res['resumed']['lines'][-2]})")
+    return res
+
+
+def phase_train(rt, torch, card: str) -> dict:
+    """[train:smoke] every arch's smoke() config, card against CPU, at fp32
+    and bf16 compute; [train:full] qwen2.5-3b and xlstm-125m at full width
+    ([train:trace] a profiled qwen2.5-3b step); [train:ckpt];
+    [train:restart]; [train:cli]."""
+    t0 = time.perf_counter()
+    log(f"[train] {card}")
+    out = {"smoke": {}}
+    for arch in rt.lm_configs.list_archs():
+        for dtype in ("float32", "bfloat16"):
+            r = train_smoke(rt, torch, arch, dtype)
+            out["smoke"][f"{arch} {dtype}"] = r
+            log(f"[train:smoke {arch} {dtype}] {TRAIN_SMOKE_STEPS} steps, "
+                "card against cpu: max |loss| "
+                f"{r['max_abs_err']['loss']:.3g}, grad_norm rel "
+                f"{r['max_abs_err']['grad_norm_rel']:.3g}, params "
+                f"{r['max_abs_err']['params']:.3g} (bound "
+                f"{r['params_bound']:.3g}); losses "
+                + " ".join(f"{x:.4f}" for x in r["losses"])
+                + (f"; rows cut at a router near tie: {r['rows_cut']}"
+                   if r["rows_cut"] else ""))
+    out["full"] = {}
+    for arch in TRAIN_FULL_ARCHS:
+        res, state = train_full(rt, torch, arch,
+                                trace=arch == TRAIN_FULL_ARCHS[0])
+        out["full"][arch] = res
+        if arch == "xlstm-125m":
+            out["ckpt"] = train_ckpt(rt, torch, state)
+        del state
+        torch.cuda.empty_cache()
+    out["restart"] = train_restart(rt, torch)
+    out["cli"] = train_cli()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train] {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
 # Timing
 # --------------------------------------------------------------------------
 
@@ -4411,6 +4874,12 @@ class _Port:
         from repro_torch.models import moe as lm_moe
         from repro_torch.serve import (greedy_generate, make_decode_step,
                                        make_prefill_step)
+        from repro_torch.checkpoint import (AsyncCheckpointer,
+                                            CheckpointManager)
+        from repro_torch.launch.train import synthetic_batch
+        from repro_torch.train import (AdamWConfig, make_init_state,
+                                       make_train_step)
+        from repro_torch.train import optim as train_optim
         self.IndexParams, self.QueryEngine = IndexParams, QueryEngine
         self.QueryServer, self.ServerConfig = QueryServer, ServerConfig
         self.Status, self.server_mod = Status, server_mod
@@ -4440,6 +4909,12 @@ class _Port:
         self.lm_prefill_step, self.lm_decode_step = make_prefill_step, \
             make_decode_step
         self.lm_greedy = greedy_generate
+        self.AdamWConfig, self.train_optim = AdamWConfig, train_optim
+        self.make_init_state, self.make_train_step = make_init_state, \
+            make_train_step
+        self.CheckpointManager, self.AsyncCheckpointer = \
+            CheckpointManager, AsyncCheckpointer
+        self.synthetic_batch = synthetic_batch
 
 
 def main() -> int:
@@ -4511,6 +4986,7 @@ def main() -> int:
                 launches, comp, chunk, serve)
         torch.cuda.synchronize()
         record["lm"] = phase_lm(rt, torch, record["card"])
+        record["train"] = phase_train(rt, torch, record["card"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

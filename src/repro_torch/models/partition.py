@@ -6,11 +6,13 @@ built as ``ParamMeta`` leaves carrying their logical axes; ``split_meta``
 separates values from axes, so the same init code serves real runs,
 meta-device shapes (``Model.abstract_params``) and the sharding rule engine.
 
-``partitioning`` records a (mesh, rules) context and ``resolve_spec`` turns
+``partitioning`` records a (mesh, rules) context (the launcher installs
+``launch/sharding.py: act_rules_for(mesh)``) and ``resolve_spec`` turns
 logical axes into a partition spec (a tuple, as JAX's ``PartitionSpec``
-reads) under it. ``hint`` returns its input unchanged, inside a context as
-outside: sharding constraints come with ``launch/sharding.py`` (ROADMAP
-A17.4), which has no port yet.
+reads) under it. ``hint`` resolves an activation's spec under the context,
+as JAX does before ``with_sharding_constraint``, and returns its input: one
+process drives every position of the port's mesh, so there is no placement
+to constrain (``moe_apply_local`` places its work position by position).
 """
 from __future__ import annotations
 
@@ -91,6 +93,11 @@ def resolve_spec(axes: tuple[str | None, ...], shape: tuple[int, ...] | None,
 
 
 def hint(x, *axes: str | None):
-    """Annotate an activation with logical axes. Returns ``x`` unchanged:
-    the port applies no sharding constraint yet (ROADMAP A17.4)."""
+    """Annotate an activation with logical axes: under a context the spec
+    is resolved (a rule naming an axis the mesh lacks raises, as in JAX);
+    ``x`` is returned unchanged either way."""
+    ctx = _CTX.get()
+    if ctx is not None:
+        mesh, rules = ctx
+        resolve_spec(tuple(axes), tuple(x.shape), mesh, rules)
     return x

@@ -7,6 +7,11 @@ each segment's parameters are stacked along a leading "layers" axis, with
 JAX's tree and keys, and the segment runs as a loop over that axis (JAX's
 ``lax.scan``). Caches are stacked the same way.
 
+A segment's stacked parameters are unbound into its layers once (their
+grads are one ``stack`` in the backward pass). Under autograd,
+``cfg.remat == "full"`` checkpoints each block as JAX's ``jax.checkpoint``
+does (``train/step.py`` takes the grads).
+
 Caches are updated in place: ``prefill`` fills the caches it allocates,
 and ``decode_step`` writes the caller's cache tensors (each attention
 layer's new K/V slot, each recurrent block's state) and returns them. The
@@ -19,6 +24,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..device import resolve_device
 from . import layers, moe as moe_mod, rglru, xlstm
@@ -227,6 +233,32 @@ def _layer(tree, i: int):
     return _tree_map(lambda t: t[i], tree)
 
 
+def _unstack(tree, count: int) -> list:
+    """The ``count`` layers of a stacked tree, one ``torch.unbind`` a leaf.
+    Under autograd an unbind's backward is one ``stack`` of the layers'
+    grads, where ``t[i]`` a layer would add ``count`` zero-filled grads of
+    the whole stacked leaf."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(count)]
+    return torch.unbind(tree, 0)
+
+
+def _block(remat: bool):
+    """``block_apply``, or (``remat``, under autograd) a checkpointed
+    ``block_apply`` whose activations are recomputed in the backward pass
+    (JAX's ``jax.checkpoint`` with ``nothing_saveable``)."""
+    if not (remat and torch.is_grad_enabled()):
+        return block_apply
+
+    def checkpointed(*args, **kw):
+        # the forward draws nothing: no RNG state to keep
+        return torch.utils.checkpoint.checkpoint(
+            block_apply, *args, use_reentrant=False,
+            preserve_rng_state=False, **kw)
+    return checkpointed
+
+
 def _store_layer(stacked: dict, views: dict, new: dict, i: int) -> None:
     """Write layer i's new cache into the stacked cache tree: a leaf that
     is the view itself was written in place already; another is copied
@@ -298,8 +330,10 @@ class Model:
     # -- forward (training / scoring) ----------------------------------------
     def forward_train(self, params, tokens, *, enc_feats=None,
                       vis_embeds=None):
-        """tokens int [B, S] -> (logits fp32 [B, S, V], aux dict). The
-        forward pass alone: ``cfg.remat`` matters only to a backward pass."""
+        """tokens int [B, S] -> (logits fp32 [B, S, V], aux dict). With
+        ``cfg.remat == "full"`` and grad enabled, each block is checkpointed
+        (its activations recomputed in the backward pass); the values do
+        not change."""
         cfg = self.cfg
         tokens = self._on(tokens)
         B, S = tokens.shape
@@ -330,23 +364,23 @@ class Model:
         x = enc_feats.to(dtype_of(cfg.compute_dtype))
         if cfg.learned_pos:
             x = x + params["embed"]["pos"][pos].to(x.dtype)
-        for i in range(cfg.n_enc_layers):
-            x, _, _ = block_apply(_layer(params["encoder"], i), cfg, "enc",
-                                  x, pos)
+        block = _block(cfg.remat == "full")
+        for p_i in _unstack(params["encoder"], cfg.n_enc_layers):
+            x, _, _ = block(p_i, cfg, "enc", x, pos)
         return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
     def _run_segments(self, params, x, positions, *, enc_out=None,
                       caches=None, aux_out=None):
         cfg = self.cfg
+        block = _block(cfg.remat == "full")
         for si, (kind, count) in enumerate(cfg.block_pattern):
             name = f"seg{si}_{kind}"
-            seg_p = params["segments"][name]
             auxs = {}
-            for i in range(count):
-                p_i = _layer(seg_p, i)
+            for i, p_i in enumerate(_unstack(params["segments"][name],
+                                             count)):
                 if caches is None:
-                    x, _, aux = block_apply(p_i, cfg, kind, x, positions,
-                                            enc_out=enc_out)
+                    x, _, aux = block(p_i, cfg, kind, x, positions,
+                                      enc_out=enc_out)
                     for k, v in aux.items():
                         auxs.setdefault(k, []).append(v)
                 else:

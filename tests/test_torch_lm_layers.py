@@ -14,7 +14,8 @@ partition specs) exactly.
 * ``chunked_attention`` over ``tests/test_attention.py``'s sweep (causal,
   window, window with block skipping, prime sizes, bidirectional cross,
   MQA) against JAX's direct ``attention``;
-* ``moe_apply`` at a capacity that drops picks;
+* ``moe_apply`` at a capacity that drops picks, and its local dispatch
+  under a mesh with a "model" axis;
 * ``rglru_apply``, ``mlstm_apply`` and ``slstm_apply`` against JAX's, and
   their parallel forms against their own step-by-step decode;
 * ``resolve_spec``, ``split_meta`` and ``hint``.
@@ -264,16 +265,31 @@ def test_moe_top_k_keeps_lower_index_on_ties():
 
 
 def test_moe_local_dispatch_waits_for_sharding():
-    moe = MoEConfig(n_experts=4, top_k=1, d_ff_expert=8, dispatch="local")
-    cfg = ModelConfig(**dict(KW, block_pattern=(("moe", 1),)), moe=moe)
-    draws = tl.Draws(torch.Generator().manual_seed(0), "cpu")
-    p, _ = tpart.split_meta(tmoe.moe_init(draws, cfg))
-    x = torch.randn(1, 4, 64)
-    tmoe.moe_apply(p, cfg, x)                   # no context: einsum path
+    """(Named when the local dispatch waited for ``launch/sharding.py``; it
+    now runs.) ``dispatch="local"``: without a context ``moe_apply`` takes
+    the einsum path, under a (data 1, model 2) mesh the local one, which
+    equals JAX's ``moe_apply_local`` on a (1, 1) mesh at fp32 (one data
+    shard: the same capacity; the model split only partitions experts)."""
+    moe = dict(n_experts=4, top_k=1, d_ff_expert=8, dispatch="local")
+    kw = dict(KW, block_pattern=(("moe", 1),), **F32)
+    cfg = ModelConfig(**kw, moe=MoEConfig(**moe))
+    jcfg = JaxConfig(**kw, moe=JaxMoE(**moe))
+    pj, pt = _init(jmoe.moe_init, jcfg, seed=4)
+    x = _x(1, 4, 64, seed=2)
+    out_e, _ = tmoe.moe_apply(pt, cfg, torch.from_numpy(x))   # no context
+    want_e, _ = jax.jit(jmoe.moe_apply_einsum, static_argnums=1)(
+        pj, jcfg, jnp.asarray(x))
+    _close(out_e, want_e, FP32)
     mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
     with tpart.partitioning(mesh, {"experts": "model"}):
-        with pytest.raises(NotImplementedError, match="A17.4"):
-            tmoe.moe_apply(p, cfg, x)
+        out_t, aux_t = tmoe.moe_apply(pt, cfg, torch.from_numpy(x))
+    jm = jax_mesh((1, 1), ("data", "model"))
+    with jm:
+        out_j, aux_j = jax.jit(lambda p, x: jmoe.moe_apply_local(
+            p, jcfg, x, jm))(pj, jnp.asarray(x))
+    _close(out_t, out_j, FP32)
+    for key in ("moe_aux", "moe_z"):
+        _close(aux_t[key], aux_j[key], FP32)
 
 
 # -- recurrent blocks: against JAX, and parallel against stepwise ----------------
