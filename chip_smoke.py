@@ -167,7 +167,22 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    ``run_with_restarts`` with failures at steps 5 and 9 in a child process
    with deterministic algorithms ("[train:restart]": bit-equal to the
    clean run); and ``python -m repro_torch.launch.train`` twice on the
-   card ("[train:cli]": 6 steps, then resumed from step 5 to 9).
+   card ("[train:cli]": 6 steps, then resumed from step 5 to 9);
+15. holds the analytic dry-run against the card ("[dryrun]", no kernel of
+   its own): ``python -m repro_torch.launch.dryrun`` over every arch,
+   shape and production mesh at full width in a child process
+   ("[dryrun:cli]": exit 0, per mesh 32 ok, 8 skipped and 1 COBS cell,
+   CUDA never initialised); each of the 32 supported smoke cells on a
+   (1, 1) mesh of the card, its arguments made real ("[dryrun:smoke]": the
+   bytes allocated equal the per-leaf prediction in the allocator's
+   512-byte blocks; one step run, its outputs the predicted leaves, the
+   peak above the arguments printed as the measured temp, which the
+   dry-run does not predict). Every shard factor is 1 on that mesh, so
+   this checks the cells' leaves and the allocator's rounding, not the
+   division by the mesh that the 16x16 numbers rest on; the full-width
+   qwen2.5-3b train cell on "meta" ("[dryrun:full]": its state equal,
+   leaf by leaf and in bytes, to the state [train:full] allocated); and
+   [dist]'s slices against the dry-run's COBS padding ("[dryrun:cobs]").
 
 It prints the card's name and power limit and a ``{"kernels": ...}`` line,
 writes its measurements to ``chiprun_out/chip_smoke.json``, and ends with
@@ -177,6 +192,7 @@ line. Without CUDA, or outside a checkout, it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import queue
@@ -1114,7 +1130,8 @@ def phase_dist(rt, torch, index, queries, origin, chk) -> dict:
     term_sets = [rt.query.compile_pattern(q, index.params) for q in queries]
     buf, ells = rt.query.pad_term_batch(term_sets, 64)
     plain_scores = ref.score_terms_batch(buf, ells)          # [Q, n_docs]
-    out = {"mesh": dict(zip(DIST_AXES, DIST_SHAPE)), "methods": {}}
+    out = {"mesh": dict(zip(DIST_AXES, DIST_SHAPE)), "methods": {},
+           "arena_shape": list(index.arena.shape)}
     rec = ChunkRecorder(k, DIST_KERNELS)
     k.reset_launches()                  # the mesh-sharded path starts here
     with rec:
@@ -1128,7 +1145,9 @@ def phase_dist(rt, torch, index, queries, origin, chk) -> dict:
             m = {"build_s": time.perf_counter() - t0,
                  "slices": len(dist.slices),
                  "slice_bytes": [int(a.numel()) * 4 for _, a, _, _
-                                 in dist.slices.values()]}
+                                 in dist.slices.values()],
+                 "slice_shapes": [list(a.shape) for _, a, _, _
+                                  in dist.slices.values()]}
             for i, terms in enumerate(term_sets[:DIST_SCORE_QUERIES]):
                 check(np.array_equal(dist.scores_for(terms),
                                      plain_scores[i]),
@@ -4042,17 +4061,26 @@ def train_full(rt, torch, arch: str, trace: bool) -> tuple[dict, object]:
     with remat; step ms beside the bound; the state after them."""
     cfg = rt.lm_configs.get(arch)
     what = f"[train:full {arch}]"
+    gc.collect()            # no earlier garbage freed inside the counts
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     model = rt.lm_build(cfg)
     opt = rt.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
     t0 = time.perf_counter()
+    req_base = requested_bytes(torch)
     state = rt.make_init_state(model, opt)(
         torch.Generator(device=DEV).manual_seed(SEED))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    state_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    state_alloc = torch.cuda.memory_allocated() - base
+    state_req = None if req_base is None else \
+        requested_bytes(torch) - req_base
+    state_gib = state_alloc / 2 ** 30
+    # the state's leaves as [dryrun:full] holds them against the dry-run
+    state_leaves = [(p, list(t.shape), str(t.dtype), t.device.type,
+                     t.numel() * t.element_size())
+                    for p, t in rt.dr_analysis.flatten(state)]
     n_params = sum(t.numel() for _, t in lm_leaves(state.params))
     batch = rt.synthetic_batch(0, cfg.vocab, TRAIN_B, TRAIN_S)
     step_fn = rt.make_train_step(model, opt)
@@ -4073,6 +4101,8 @@ def train_full(rt, torch, arch: str, trace: bool) -> tuple[dict, object]:
     adam_ms = ADAM_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
     p50 = statistics.median(step_ms[1:])
     res = {"params": n_params, "init_s": init_s, "state_gib": state_gib,
+           "state_leaves": state_leaves, "state_alloc_bytes": state_alloc,
+           "state_requested_bytes": state_req,
            "peak_gib": peak, "step_ms": step_ms, "step_ms_p50": p50,
            "tokens_per_s": TRAIN_B * TRAIN_S / p50 * 1e3,
            "losses": losses, "flops": fb.computed_flops,
@@ -4294,6 +4324,294 @@ def phase_train(rt, torch, card: str) -> dict:
     out["cli"] = train_cli()
     out["seconds"] = time.perf_counter() - t0
     log(f"[train] {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# [dryrun]: the analytic dry-run held against the card
+# --------------------------------------------------------------------------
+
+DRYRUN_TIMEOUT = 300
+DRYRUN_FULL_ARCH = "qwen2.5-3b"       # [train:full]'s state
+ALLOC_BLOCK = 512     # the caching allocator rounds each block up to this
+CARD_BYTES = 80e9
+
+
+def requested_bytes(torch):
+    """The caching allocator's count of requested bytes (each allocation's
+    own size, unrounded), or None where this torch does not keep it."""
+    v = torch.cuda.memory_stats().get("requested_bytes.all.current")
+    return None if v is None else int(v)
+
+
+def round_block(n: int) -> int:
+    return -(-n // ALLOC_BLOCK) * ALLOC_BLOCK
+
+
+def on_host(path: str) -> bool:
+    """The train state's PRNG key, which the port's step keeps on the
+    host (JAX's is an argument like any other)."""
+    return path.endswith("/rng")
+
+
+def dryrun_cli(rt) -> dict:
+    """``python -m repro_torch.launch.dryrun`` (every arch, shape and
+    production mesh at full width) in a child process: exit 0, per mesh 32
+    ok, 8 skipped and 1 COBS record, no error, CUDA never initialised."""
+    out = OUT_DIR / "dryrun.jsonl"
+    out.unlink(missing_ok=True)          # the dry-run appends
+    code = ("import sys, torch\n"
+            "from repro_torch.launch import dryrun\n"
+            f"rc = dryrun.main(['--out', {str(out)!r}])\n"
+            "print('CUDA_INITIALIZED', torch.cuda.is_initialized())\n"
+            "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], env=cli_env(),
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[dryrun:cli] exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check("CUDA_INITIALIZED False" in proc.stdout,
+          "[dryrun:cli] the dry-run initialised CUDA")
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    res = {"seconds": secs, "meshes": {}}
+    for mesh in ("single-pod-16x16", "multi-pod-2x16x16"):
+        mine = [r for r in recs if r["mesh"] == mesh]
+        lm = [r for r in mine if r["arch"] != "cobs-index"]
+        cobs = [r for r in mine if r["arch"] == "cobs-index"]
+        ok = [r for r in lm if r["status"] == "ok"]
+        n = {"ok": len(ok), "skipped": sum(r["status"] == "skipped"
+                                           for r in lm),
+             "cobs": len(cobs), "errors": sum(r["status"] == "error"
+                                              for r in mine)}
+        check(n == {"ok": 32, "skipped": 8, "cobs": 1, "errors": 0}
+              and cobs[0]["status"] == "ok",
+              f"[dryrun:cli] {mesh}: {n}")
+        args = {f"{r['arch']} x {r['shape']}":
+                r["memory"]["argument_size_in_bytes"] for r in ok}
+        worst = max(args, key=args.get)
+        n.update(index_bytes_per_chip=cobs[0]["index_bytes_per_chip"],
+                 over_card=sorted(k for k, v in args.items()
+                                  if v > CARD_BYTES),
+                 largest=(worst, args[worst]),
+                 bottlenecks={b: sum(r["roofline"].get("bottleneck") == b
+                                     for r in ok)
+                              for b in ("compute", "memory", "collective")},
+                 coll_lower_bound=sorted(
+                     f"{r['arch']} x {r['shape']}" for r in ok
+                     if "t_collective_min_s" in r["roofline"]))
+        res["meshes"][mesh] = n
+        log(f"[dryrun:cli] {mesh}: {n['ok']} ok, {n['skipped']} skipped, "
+            f"1 COBS cell ({n['index_bytes_per_chip']:,} index bytes a "
+            f"device), 0 errors; arguments alone a device (a lower bound "
+            f"of its memory: no temporaries) above 80 GB in "
+            f"{len(n['over_card'])} cells, the largest {worst} "
+            f"({args[worst]:,} B); bottlenecks {n['bottlenecks']}, and "
+            f"{len(n['coll_lower_bound'])} cells whose collective time is "
+            f"a lower bound")
+    log(f"[dryrun:cli] python -m repro_torch.launch.dryrun: exit 0, CUDA "
+        f"never initialised, {secs:.1f} s (child process)")
+    return res
+
+
+def dr_real_args(rt, torch, cell, gen) -> tuple:
+    """A smoke cell's arguments made real on the card: parameters (and the
+    train state) drawn from ``gen`` by the model's own init, zero caches,
+    tokens in range, fp32 encoder features."""
+    cfg, s, model = cell.cfg, cell.shape, cell.model
+    B, S = s.global_batch, s.seq_len
+
+    def tokens(*shape):
+        return torch.randint(0, cfg.vocab, shape, generator=gen, device=DEV,
+                             dtype=torch.int32)
+
+    def batch(labels: bool) -> dict:
+        b = {"tokens": tokens(B, S)}
+        if labels:
+            b["labels"] = tokens(B, S)
+        if cfg.n_enc_layers:
+            b["enc_feats"] = torch.randn((B, cfg.enc_seq, cfg.d_model),
+                                         generator=gen, device=DEV)
+        return b
+
+    if s.mode == "train":
+        return (rt.make_init_state(model, rt.AdamWConfig())(gen),
+                batch(True))
+    params, _ = model.init(gen)
+    if s.mode == "prefill":
+        return params, batch(False)
+    return (params, model.init_cache(B, S), tokens(B, 1),
+            torch.full((), S // 2, dtype=torch.int32, device=DEV))
+
+
+def leaf_sig(flat) -> list:
+    return [(p, list(t.shape), str(t.dtype)) for p, t in flat]
+
+
+def dryrun_smoke(rt, torch) -> dict:
+    """Each supported smoke cell on a (1, 1) mesh of the card: its
+    arguments made real, the allocated bytes equal to the dry-run's
+    per-leaf prediction in the allocator's 512-byte blocks (and the
+    requested bytes to the prediction itself), the step run once: its
+    outputs the predicted leaves, finite, and the peak above the
+    arguments printed as the measured temp."""
+    an, sp = rt.dr_analysis, rt.dr_specs
+    mesh = rt.make_mesh((1, 1), ("data", "model"))
+    gen = torch.Generator(device=DEV)
+    out = {}
+    for arch in rt.lm_configs.list_archs():
+        for shape in sp.SHAPES:
+            if not sp.cell_supported(rt.lm_configs.get(arch, smoke=True),
+                                     shape)[0]:
+                continue
+            what = f"[dryrun:smoke {arch} x {shape}]"
+            cell = sp.make_cell(arch, shape, mesh, smoke=True)
+            mem = an.memory_from_specs(cell.args, cell.in_shardings,
+                                       cell.outs, cell.out_specs, mesh,
+                                       cell.donate_argnums)
+            leaves = an.leaf_bytes(cell.args, cell.in_shardings, mesh)
+            want_alloc = sum(round_block(b) for p, b in leaves
+                             if not on_host(p))
+            want_req = sum(b for p, b in leaves if not on_host(p))
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            req0 = requested_bytes(torch)
+            gen.manual_seed(SEED)
+            args = dr_real_args(rt, torch, cell, gen)
+            torch.cuda.synchronize()
+            alloc = torch.cuda.memory_allocated() - base
+            req = None if req0 is None else requested_bytes(torch) - req0
+            real = an.flatten(args)
+            check(leaf_sig(real) == leaf_sig(an.flatten(cell.args)),
+                  f"{what} the real arguments' leaves differ from the "
+                  "cell's")
+            check(all((t.device.type == "cpu") == on_host(p)
+                      for p, t in real),
+                  f"{what} an argument off the card")
+            check(alloc == want_alloc,
+                  f"{what} {alloc:,} B allocated for the arguments, "
+                  f"predicted {want_alloc:,} ({want_req:,} in 512-B blocks)")
+            check(req is None or req == want_req,
+                  f"{what} {req} B requested, predicted {want_req}")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if cell.shape.mode == "train":
+                result = cell.step_fn(*args)
+            else:
+                with torch.no_grad():
+                    result = cell.step_fn(*args)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            check(leaf_sig(an.flatten(result))
+                  == leaf_sig(an.flatten(cell.outs)),
+                  f"{what} the step's outputs differ from the predicted "
+                  "leaves")
+            check(all(bool(torch.isfinite(t).all()) for _, t in
+                      an.flatten(result) if t.is_floating_point()),
+                  f"{what} non-finite outputs")
+            r = {"predicted": mem, "alloc_bytes": alloc,
+                 "requested_bytes": req, "peak_bytes": peak,
+                 "temp_bytes": peak - alloc, "step_s": step_s}
+            r["temp_over_args"] = r["temp_bytes"] / alloc
+            out[f"{arch} x {shape}"] = r
+            log(f"{what} arguments {alloc:,} B allocated = predicted "
+                f"{want_alloc:,} in 512-B blocks ({want_req:,} B of "
+                f"leaves, requested {req if req is None else f'{req:,}'}); "
+                f"step {step_s * 1e3:.1f} ms, peak {peak:,} B: measured "
+                f"temp {r['temp_bytes']:,} B = {r['temp_over_args']:.2f}x "
+                f"the arguments; predicted outputs "
+                f"{mem['output_size_in_bytes']:,} B")
+            del args, result, real
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_full(rt, torch, train: dict) -> dict:
+    """The full-width qwen2.5-3b train cell on a (1, 1) "meta" mesh: its
+    state leaf by leaf (path, shape, dtype) and in bytes equal to the state
+    ``[train:full]`` allocated on the card."""
+    an = rt.dr_analysis
+    what = f"[dryrun:full {DRYRUN_FULL_ARCH}]"
+    mesh = rt.make_mesh((1, 1), ("data", "model"), device="meta")
+    t0 = time.perf_counter()
+    cell = rt.dr_specs.make_cell(DRYRUN_FULL_ARCH, "train_4k", mesh)
+    build_s = time.perf_counter() - t0
+    mem = an.memory_from_specs(cell.args, cell.in_shardings, cell.outs,
+                               cell.out_specs, mesh, cell.donate_argnums)
+    leaves = an.leaf_bytes(cell.args[0], cell.in_shardings[0], mesh)
+    state = an.flatten(cell.args[0])
+    real = train["full"][DRYRUN_FULL_ARCH]
+    got = [(p, shape, dtype) for p, shape, dtype, _, _ in
+           real["state_leaves"]]
+    check(got == leaf_sig(state),
+          f"{what} the dry-run's state leaves differ from [train:full]'s")
+    check(all((dev == "cpu") == on_host(p) for p, _, _, dev, _ in
+              real["state_leaves"]), f"{what} a state leaf off the card")
+    card = sum(leaf[4] for leaf in real["state_leaves"]
+               if not on_host(leaf[0]))
+    pred = sum(b for p, b in leaves if not on_host(p))
+    check(pred == card, f"{what} predicted {pred:,} B of state on the card, "
+          f"[train:full] holds {card:,}")
+    req = real["state_requested_bytes"]
+    check(req is None or req == pred,
+          f"{what} [train:full] requested {req} B, predicted {pred}")
+    res = {"build_s": build_s, "state_bytes": mem["argument_bytes"][0],
+           "state_card_bytes": pred, "train_full_alloc_bytes":
+               real["state_alloc_bytes"], "train_full_requested_bytes": req,
+           "argument_size_in_bytes": mem["argument_size_in_bytes"],
+           "alias_size_in_bytes": mem["alias_size_in_bytes"]}
+    log(f"{what} built on meta in {build_s:.2f} s: state {pred:,} B on the "
+        f"card (+ {mem['argument_bytes'][0] - pred} B of PRNG key on the "
+        f"host) = [train:full]'s {card:,} B of leaves (requested "
+        f"{req if req is None else f'{req:,}'}; allocated "
+        f"{real['state_alloc_bytes']:,} B in the allocator's blocks, "
+        f"{real['state_alloc_bytes'] / 2 ** 30:.2f} GiB); the whole cell "
+        f"at batch 256 x 4,096 would take {mem['argument_size_in_bytes']:,}"
+        f" B of arguments on one card")
+    return res
+
+
+def dryrun_cobs(rt, dist: dict) -> dict:
+    """[dist]'s DistributedIndex slices against ``cobs_padding`` of the
+    main index's arena shape on the same (2, 2, 2) mesh."""
+    pred = rt.dryrun.cobs_padding(tuple(dist["arena_shape"]), dist["mesh"])
+    for method, m in dist["methods"].items():
+        check(m["slices"] == pred["n_slices"],
+              f"[dryrun:cobs] {method}: {m['slices']} slices, predicted "
+              f"{pred['n_slices']}")
+        for shape, nb in zip(m["slice_shapes"], m["slice_bytes"]):
+            check(tuple(shape) == pred["slice_shape"]
+                  and nb == pred["slice_bytes"],
+                  f"[dryrun:cobs] {method}: a slice {shape} of {nb:,} B, "
+                  f"predicted {pred['slice_shape']} of "
+                  f"{pred['slice_bytes']:,}")
+    log(f"[dryrun:cobs] arena {tuple(dist['arena_shape'])} on "
+        f"{dist['mesh']}: each of the {pred['n_slices']} slices of every "
+        f"[dist] method {pred['slice_shape']}, {pred['slice_bytes']:,} B, "
+        f"as cobs_padding predicts (rows padded to {pred['rows_padded']:,},"
+        f" words to {pred['words_padded']})")
+    return {k: list(v) if isinstance(v, tuple) else v
+            for k, v in pred.items()}
+
+
+def phase_dryrun(rt, torch, card: str, train: dict, dist: dict) -> dict:
+    """[dryrun:cli], [dryrun:smoke], [dryrun:full], [dryrun:cobs]."""
+    t0 = time.perf_counter()
+    log(f"[dryrun] {card}")
+    out = {"cli": dryrun_cli(rt), "smoke": dryrun_smoke(rt, torch),
+           "full": dryrun_full(rt, torch, train), "cobs": dryrun_cobs(rt,
+                                                                    dist)}
+    temps = [r["temp_over_args"] for r in out["smoke"].values()]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[dryrun:smoke] {len(temps)} cells, arguments allocated as "
+        f"predicted in every one; measured temp {min(temps):.2f}-"
+        f"{max(temps):.2f}x the arguments (median "
+        f"{statistics.median(temps):.2f})")
+    log(f"[dryrun] {out['seconds']:.1f} s")
     return out
 
 
@@ -4915,6 +5233,10 @@ class _Port:
         self.CheckpointManager, self.AsyncCheckpointer = \
             CheckpointManager, AsyncCheckpointer
         self.synthetic_batch = synthetic_batch
+        from repro_torch.launch import analysis as dr_analysis
+        from repro_torch.launch import dryrun, specs as dr_specs
+        self.dr_analysis, self.dryrun, self.dr_specs = dr_analysis, dryrun, \
+            dr_specs
 
 
 def main() -> int:
@@ -4987,6 +5309,8 @@ def main() -> int:
         torch.cuda.synchronize()
         record["lm"] = phase_lm(rt, torch, record["card"])
         record["train"] = phase_train(rt, torch, record["card"])
+        record["dryrun"] = phase_dryrun(rt, torch, record["card"],
+                                        record["train"], record["dist"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

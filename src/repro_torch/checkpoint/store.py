@@ -38,11 +38,13 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _flatten(tree, path=()):
+def _flatten(tree, path=(), is_leaf=None):
     """(name path, leaf) pairs in JAX's leaf order. None is an empty
-    subtree, as in JAX."""
+    subtree, as in JAX; a node that ``is_leaf`` accepts is a leaf."""
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [(path, tree)]
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
     elif _is_namedtuple(tree):
@@ -51,7 +53,8 @@ def _flatten(tree, path=()):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
         return [(path, tree)]
-    return [pair for name, v in items for pair in _flatten(v, path + (name,))]
+    return [pair for name, v in items
+            for pair in _flatten(v, path + (name,), is_leaf)]
 
 
 def _unflatten(tree, leaves):

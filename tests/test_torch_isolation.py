@@ -6,11 +6,14 @@
 * ``device=None`` means the CUDA card: without one, every entry point
   raises instead of running on the CPU;
 * a CPU tensor, passed on purpose, takes the plain path;
-* ``chip_smoke.py`` refuses to run without CUDA or outside a checkout.
+* ``chip_smoke.py`` refuses to run without CUDA or outside a checkout;
+* the dry-run CLI and ``make_cell`` run on "meta" alone: no CUDA, no
+  tensor elsewhere, neither ``jax`` nor ``repro``.
 
 The comparisons below are exact (``np.testing.assert_array_equal``).
 """
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -256,3 +259,49 @@ def _numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
     return tree.numpy()
+
+
+def test_dryrun_and_make_cell_stay_on_meta():
+    """The dry-run CLI (every arch, shape and mesh at full width) and
+    ``make_cell`` on the production meshes import neither ``jax`` nor
+    ``repro``, never initialise CUDA and leave no tensor off "meta": the
+    dry-run is the one entry point that runs nothing on any device."""
+    code = (
+        "import contextlib, gc, io, json, sys, torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.launch import dryrun, specs\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    rc = dryrun.main([])\n"
+        "cells = [specs.make_cell(a, s, make_production_mesh(\n"
+        "             multi_pod=mp, device='meta'))\n"
+        "         for mp in (False, True) for a in configs.list_archs()\n"
+        "         for s in specs.SHAPES\n"
+        "         if specs.cell_supported(configs.get(a), s)[0]]\n"
+        "off = [str(t.device) for t in gc.get_objects()\n"
+        "       if isinstance(t, torch.Tensor) and t.device.type != 'meta']\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps({'rc': rc, 'cells': len(cells), 'off': off,\n"
+        "                  'bad': bad, 'cuda': torch.cuda.is_initialized(),\n"
+        "                  'last': out.getvalue().strip().splitlines()[-1]}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res == {"rc": 0, "cells": 64, "off": [], "bad": [], "cuda": False,
+                   "last": "== dry-run done: 66 ok, 16 skipped, 0 errors =="}
+
+
+def test_make_cell_needs_no_cuda(monkeypatch):
+    """A "meta" mesh builds cells without CUDA; a mesh for the card raises
+    without it, as every other entry point does."""
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = make_mesh((1, 1), ("data", "model"), device="meta")
+    cell = specs.make_cell("qwen3-4b", "train_4k", mesh, smoke=True)
+    assert cell.model.device.type == "meta"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 1), ("data", "model"))
