@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.trace import span
 from . import codec as _codec
 
 
@@ -497,7 +498,9 @@ class DeviceTileCache:
     the tile's memory out again while a kernel still reads it. A copy
     from pageable memory would be synchronous, which is why the pinned
     buffer is there: with it, the next shard's copy overlaps the current
-    shard's kernel.
+    shard's kernel. While a torch profiler runs, the host copy and the
+    copy's enqueue are the ranges ``repro.tile.host_copy`` and
+    ``repro.tile.h2d``.
 
     Counters (hits, faults, prefetched, prefetch_hits, evictions, the
     per-shard dicts, resident and staged bytes) equal the JAX cache's for
@@ -549,27 +552,30 @@ class DeviceTileCache:
         ``rows[i]``, to the cache's device as int32 tensors. Returns the
         tensors and the side stream's event (None off CUDA)."""
         if self.device.type != "cuda":
-            outs = []
+            with span("tile.host_copy"):
+                host = []
+                for a, n in zip(arrays, rows):
+                    a = np.asarray(a)
+                    t = torch.zeros((n,) + a.shape[1:], dtype=torch.int32)
+                    t.numpy()[:a.shape[0]] = a.view(np.int32)
+                    host.append(t)
+            with span("tile.h2d"):
+                return [t.to(self.device) for t in host], None
+        with span("tile.host_copy"):
+            pinned = []
             for a, n in zip(arrays, rows):
                 a = np.asarray(a)
-                t = torch.zeros((n,) + a.shape[1:], dtype=torch.int32)
-                t.numpy()[:a.shape[0]] = a.view(np.int32)
-                outs.append(t.to(self.device))
-            return outs, None
-        pinned = []
-        for a, n in zip(arrays, rows):
-            a = np.asarray(a)
-            p = torch.empty((n,) + a.shape[1:], dtype=torch.int32,
-                            pin_memory=True)
-            buf = p.numpy()
-            buf[:a.shape[0]] = a.view(np.int32)
-            buf[a.shape[0]:] = 0
-            pinned.append(p)
+                p = torch.empty((n,) + a.shape[1:], dtype=torch.int32,
+                                pin_memory=True)
+                buf = p.numpy()
+                buf[:a.shape[0]] = a.view(np.int32)
+                buf[a.shape[0]:] = 0
+                pinned.append(p)
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(device=self.device)
         # the pinned buffers may be dropped once the copies are queued:
         # PyTorch's host allocator does not reuse them until the copies end
-        with torch.cuda.stream(self._copy_stream):
+        with span("tile.h2d"), torch.cuda.stream(self._copy_stream):
             outs = [p.to(self.device, non_blocking=True) for p in pinned]
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)

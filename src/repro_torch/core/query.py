@@ -38,6 +38,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..obs.trace import span
 from . import codec as _codec
 from . import dna, hashing
 from .arena import ArenaLayout, DeviceTileCache, _pad_dict_rows
@@ -101,9 +102,11 @@ def plan_shards_subset(layout: ArenaLayout, global_row_starts: np.ndarray,
 def compile_pattern(pattern, params: IndexParams) -> np.ndarray:
     """Pattern (DNA string or uint8 code array) -> distinct packed terms
     uint32 [ell, 2] under the index's k-mer parameters."""
-    codes = dna.encode_dna(pattern) if isinstance(pattern, str) else pattern
-    return dna.unique_terms(
-        dna.pack_kmers(codes, params.kmer, params.canonical))
+    with span("compile"):
+        codes = (dna.encode_dna(pattern) if isinstance(pattern, str)
+                 else pattern)
+        return dna.unique_terms(
+            dna.pack_kmers(codes, params.kmer, params.canonical))
 
 
 def padded_len(n_terms: int, term_pad: int) -> int:
@@ -194,12 +197,14 @@ def run_paged(tiles: DeviceTileCache, shard_args, fn, *args
     ``shard_args`` is [(shard, row_offset, block_width)] with the offsets
     and widths already on the device."""
     parts = []
-    for i, (s, offs, widths) in enumerate(shard_args):
-        out = fn(tiles.get(s), offs, widths, *args)
-        if i + 1 < len(shard_args):
-            tiles.prefetch(shard_args[i + 1][0])
-        parts.append(out)
-    return [p.cpu().numpy() for p in parts]
+    with span("launch"):
+        for i, (s, offs, widths) in enumerate(shard_args):
+            out = fn(tiles.get(s), offs, widths, *args)
+            if i + 1 < len(shard_args):
+                tiles.prefetch(shard_args[i + 1][0])
+            parts.append(out)
+    with span("copy"):
+        return [p.cpu().numpy() for p in parts]
 
 
 def run_paged_compressed(tiles: DeviceTileCache, shard_args, fn_raw, fn_comp,
@@ -213,18 +218,20 @@ def run_paged_compressed(tiles: DeviceTileCache, shard_args, fn_raw, fn_comp,
     comp = [storage.shard_codec(s) in _codec.DICT_CODECS
             for (s, _, _) in shard_args]
     parts = []
-    for i, (s, offs, widths) in enumerate(shard_args):
-        if comp[i]:
-            dict_rows, refs = tiles.get_compressed(s)
-            out = fn_comp(dict_rows, refs, offs, widths, *args)
-        else:
-            out = fn_raw(tiles.get(s), offs, widths, *args)
-        if i + 1 < len(shard_args):
-            nxt = shard_args[i + 1][0]
-            (tiles.prefetch_compressed if comp[i + 1]
-             else tiles.prefetch)(nxt)
-        parts.append(out)
-    return [p.cpu().numpy() for p in parts]
+    with span("launch"):
+        for i, (s, offs, widths) in enumerate(shard_args):
+            if comp[i]:
+                dict_rows, refs = tiles.get_compressed(s)
+                out = fn_comp(dict_rows, refs, offs, widths, *args)
+            else:
+                out = fn_raw(tiles.get(s), offs, widths, *args)
+            if i + 1 < len(shard_args):
+                nxt = shard_args[i + 1][0]
+                (tiles.prefetch_compressed if comp[i + 1]
+                 else tiles.prefetch)(nxt)
+            parts.append(out)
+    with span("copy"):
+        return [p.cpu().numpy() for p in parts]
 
 
 # unique-row count -> padded buffer length (a power of two, at least 8):
@@ -381,25 +388,28 @@ def run_paged_dedup(tiles: DeviceTileCache, shard_plans: list[ShardPlan], fn,
             and storage.shard_codec(sp.shard) in _codec.DICT_CODECS
             for sp in shard_plans]
     parts = []
-    for i, sp in enumerate(shard_plans):
-        dp = plan_dedup_batch(terms, n_valid, sp.row_offset, sp.block_width,
-                              n_hashes=n_hashes)
-        what = f"shard {sp.shard}'s tile"
-        if comp[i]:
-            dict_rows, refs = tiles.get_compressed(sp.shard)
-            out = fn_comp(dict_rows, refs,
-                          *dedup_inputs(dp, refs.shape[0], tiles.device, what),
-                          range_checked=True)
-        else:
-            tile = tiles.get(sp.shard)
-            out = fn(tile, *dedup_inputs(dp, tile.shape[0], tiles.device,
-                                         what), range_checked=True)
-        if i + 1 < len(shard_plans):
-            nxt = shard_plans[i + 1].shard
-            (tiles.prefetch_compressed if comp[i + 1]
-             else tiles.prefetch)(nxt)
-        parts.append(out)
-    return np.concatenate([p.cpu().numpy() for p in parts], axis=1)
+    with span("launch"):
+        for i, sp in enumerate(shard_plans):
+            dp = plan_dedup_batch(terms, n_valid, sp.row_offset,
+                                  sp.block_width, n_hashes=n_hashes)
+            what = f"shard {sp.shard}'s tile"
+            if comp[i]:
+                dict_rows, refs = tiles.get_compressed(sp.shard)
+                out = fn_comp(dict_rows, refs,
+                              *dedup_inputs(dp, refs.shape[0], tiles.device,
+                                            what),
+                              range_checked=True)
+            else:
+                tile = tiles.get(sp.shard)
+                out = fn(tile, *dedup_inputs(dp, tile.shape[0], tiles.device,
+                                             what), range_checked=True)
+            if i + 1 < len(shard_plans):
+                nxt = shard_plans[i + 1].shard
+                (tiles.prefetch_compressed if comp[i + 1]
+                 else tiles.prefetch)(nxt)
+            parts.append(out)
+    with span("copy"):
+        return np.concatenate([p.cpu().numpy() for p in parts], axis=1)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,10 @@
-"""Kernel profiling: per-(method, bucket, word_block) wall time and
+"""Kernel profiling: per-(method, bucket, word_block) dispatch time and
 bytes-moved accounting for every score dispatch.
+
+A dispatch's time is host time on the server's clock, from the upload of
+the batch's terms through the copy of its scores to the host: the
+kernels, the copies around them and the host work between them, not the
+kernels' device time alone (a profiler trace gives that).
 
 The serving layers already know everything worth recording at the
 moment a kernel returns — the method the planner chose, the bucket and
@@ -45,7 +50,7 @@ class KernelProfiler:
     def bind_registry(self, registry) -> None:
         self._hist = registry.histogram(
             "kernel_score_seconds",
-            "score-kernel wall time per dispatch",
+            "score dispatch host time, terms upload to scores on the host",
             labels=("method", "bucket", "word_block"))
         self._bytes = registry.counter(
             "kernel_bytes_moved_total",

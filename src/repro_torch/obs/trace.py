@@ -18,14 +18,26 @@ is emitted to the JSONL ``EventLog`` with its full span tree.
 Everything is cheap when disabled: ``tracer.begin`` returns None and
 every call site guards with ``if trace is not None`` (span recording
 itself is two clock reads and an append under a small lock).
+
+``span`` is the one primitive the serving path times its stages with. It
+feeds a batch's per-request marks as above, and while a torch profiler
+session is open it also opens a ``torch.profiler.record_function`` range
+named ``repro.<stage>``. The profiler stamps that range itself, so the
+program's stages and the device's kernels and copies lie on one clock in
+the profiler's trace. ``watch_gc`` adds a ``repro.gc`` range around
+every Python garbage collection while a profile is open.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import itertools
 import threading
 import time
 from collections import deque
 from typing import Callable, Optional
+
+import torch.autograd.profiler as _autograd_profiler
 
 
 class Span:
@@ -197,3 +209,116 @@ class Tracer:
                 if t.trace_id == trace_id:
                     return t
         return None
+
+
+# -- profiler ranges --------------------------------------------------------
+# The profiler's range names are ``PREFIX + stage``. Ranges open while
+# ``torch.autograd.profiler._is_profiler_enabled`` is set: the process-wide
+# flag of an open profiler session, not the calling thread's
+# ``_profiler_enabled()``, which is false on every thread under a profile
+# that records all threads. On a thread that a one-thread profile does
+# not record, a range costs its enter and exit and is not recorded.
+PREFIX = "repro."
+
+_OFF = contextlib.nullcontext()       # what ``span`` returns with nothing to do
+
+
+class _Span:
+    __slots__ = ("name", "marks", "tags", "clock", "seq", "start", "_range")
+
+    def __init__(self, name: str, marks: Optional[list],
+                 clock: Callable[[], float], seq: Optional[int]):
+        self.name = name
+        self.marks = marks
+        self.tags = None
+        self.clock = clock
+        self.seq = seq
+        self._range = None
+
+    def __enter__(self) -> "_Span":
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = _autograd_profiler.record_function(
+                PREFIX + self.name,
+                None if self.seq is None else f"seq={self.seq}")
+            self._range.__enter__()
+        if self.marks is not None:
+            self.start = self.clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.marks is not None:
+            self.marks.append((self.name, self.start, self.clock(),
+                               self.tags))
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+
+
+def span(name: str, marks: Optional[list] = None, *,
+         clock: Callable[[], float] = time.monotonic,
+         seq: Optional[int] = None):
+    """Context manager timing one stage.
+
+    With ``marks`` (a list; a batch whose requests are traced) it appends
+    ``(name, start, end, tags)`` on ``clock`` when the stage ends, ``tags``
+    being what the block set on the returned object (None if nothing).
+    While a profiler session is open it also opens the range
+    ``repro.<name>``, with ``seq=<seq>`` as its args when the stage
+    belongs to a batch, so a batch's ranges can be joined across threads.
+    With neither, the cost is one test of a flag."""
+    if marks is None and not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, marks, clock, seq)
+
+
+class _GcSpans:
+    """``gc.callbacks`` hook: a ``repro.gc`` range from a collection's
+    "start" to its "stop", with the generation in its args, while a
+    profiler session is open."""
+
+    def __init__(self):
+        self._open = threading.local()
+        self._users = 0
+        self._lock = threading.Lock()
+
+    def __call__(self, phase: str, info: dict) -> None:
+        # the interpreter reports an exception raised here as unraisable
+        # and goes on with the collection
+        if phase == "start":
+            if _autograd_profiler._is_profiler_enabled:
+                r = _autograd_profiler.record_function(
+                    PREFIX + "gc", f"generation={info['generation']}")
+                r.__enter__()
+                self._open.range = r
+        else:
+            r = getattr(self._open, "range", None)
+            if r is not None:
+                self._open.range = None
+                r.__exit__(None, None, None)
+
+    def watch(self) -> None:
+        with self._lock:
+            self._users += 1
+            if self._users == 1:
+                gc.callbacks.append(self)
+
+    def unwatch(self) -> None:
+        with self._lock:
+            if self._users == 0:
+                return
+            self._users -= 1
+            if self._users == 0:
+                gc.callbacks.remove(self)
+
+
+_GC_SPANS = _GcSpans()
+
+
+def watch_gc() -> None:
+    """Install the ``repro.gc`` hook (counted: every ``watch_gc`` takes one
+    ``unwatch_gc``; the hook stays while any caller watches)."""
+    _GC_SPANS.watch()
+
+
+def unwatch_gc() -> None:
+    _GC_SPANS.unwatch()

@@ -31,6 +31,10 @@ tests and embeddable under any async runtime. An active serving loop
 wraps it in exactly such a runtime — an active dispatcher thread that sleeps
 until ``next_due_at`` and wakes on submission — so network clients get
 fill/wait-timer flushes without any caller poking the server.
+
+Each flushed batch carries a sequence number (``MicroBatch.seq``, counted
+per batcher) and, while a torch profiler runs, its flush is the range
+``repro.flush.<reason>`` with ``seq=<n>`` as its args.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import dataclasses
 from collections import OrderedDict, deque
 
 from ..core.query import padded_len
+from ..obs.trace import span
 from .request import QueryRequest
 
 
@@ -76,6 +81,9 @@ class MicroBatch:
     # wait-timer flushes from fill flushes at a glance
     reason: str = ""
     flushed_at: float = 0.0
+    # the batcher's count of flushed batches: joins a batch's profiler
+    # ranges (``seq=<n>`` in their args) across threads
+    seq: int = 0
 
     @property
     def size(self) -> int:
@@ -114,6 +122,7 @@ class MicroBatcher:
         self._observed: "deque[int]" = deque(maxlen=int(adapt_window))
         self._edges: list[int] = []
         self._since_fit = 0
+        self._flushed = 0
 
     # -- enqueue -----------------------------------------------------------
     def __len__(self) -> int:
@@ -242,10 +251,13 @@ class MicroBatcher:
                     reason = "force"
                 else:
                     break
-                live = self._take(q, now, self.max_batch, expired)
-                if live:
-                    batches.append(MicroBatch(b, live, reason=reason,
-                                              flushed_at=now))
+                with span("flush." + reason, seq=self._flushed + 1):
+                    live = self._take(q, now, self.max_batch, expired)
+                    if live:
+                        self._flushed += 1
+                        batches.append(MicroBatch(b, live, reason=reason,
+                                                  flushed_at=now,
+                                                  seq=self._flushed))
             if not q:
                 del self._buckets[b]
         return batches, expired

@@ -35,15 +35,27 @@ This is ``repro.serve.loop`` for the PyTorch port, the same code over the
 port's ``QueryServer``. The loop takes no device: a scoring worker
 launches its kernels on the current stream of the backend's device, as
 the thread that calls ``QueryServer.drain`` would.
+
+While a torch profiler runs, the loop's stages are profiler ranges
+(``obs.trace.span``): ``repro.loop.submit`` (admission under the lock),
+``repro.loop.lock_wait`` (an acquisition that found the lock held),
+``repro.loop.timer_wait`` (the dispatcher holding a partial bucket for
+its flush timer), ``repro.loop.deliver`` (the response callbacks) and,
+between ``start`` and ``stop``, ``repro.gc`` around every garbage
+collection. Each contended acquisition is also observed in the backend's
+``serve_loop_lock_wait_seconds`` histogram.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
 
+from ..obs import trace as _trace
+from ..obs.trace import span
 from .request import QueryResponse, Status
 
 # Dispatcher fallback tick: the loop sleeps until the batcher's next due
@@ -55,6 +67,36 @@ DEFAULT_POLL_S = 0.1
 
 class LoopClosed(RuntimeError):
     """submit() after stop(): the loop no longer accepts work."""
+
+
+class _Lock:
+    """The loop's one re-entrant lock. An acquisition that finds it held
+    by another thread waits inside a ``loop.lock_wait`` span and hands
+    the wait to ``on_wait(seconds)``; an uncontended one costs a
+    non-blocking acquire."""
+
+    __slots__ = ("_lock", "_on_wait")
+
+    def __init__(self, on_wait: Callable[[float], None]):
+        self._lock = threading.RLock()
+        self._on_wait = on_wait
+
+    def __enter__(self) -> "_Lock":
+        lock = self._lock
+        if lock.acquire(blocking=False):
+            return self
+        t0 = time.perf_counter()
+        with span("loop.lock_wait"):
+            lock.acquire()
+        try:
+            self._on_wait(time.perf_counter() - t0)
+        except BaseException:
+            lock.release()            # no __exit__ follows a failed __enter__
+            raise
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._lock.release()
 
 
 class ServingLoop:
@@ -76,7 +118,8 @@ class ServingLoop:
         # flush, scoring): the backends are single-threaded by design.
         # Coalescing benefits — submissions arriving while a batch scores
         # queue up at the lock and enter the batcher together.
-        self._lock = threading.RLock()
+        self._lock = _Lock(
+            lambda s: self.backend.metrics.record_lock_wait(s))
         self._cbs: dict[int, Callable[[QueryResponse], None]] = {}
         self._wake = threading.Event()
         self._batchq: "queue.SimpleQueue" = queue.SimpleQueue()
@@ -118,6 +161,7 @@ class ServingLoop:
             threading.Thread(target=self._work, name=f"serve-worker{i}",
                              daemon=True)
             for i in range(self.n_workers)]
+        _trace.watch_gc()
         for t in self._threads:
             t.start()
         return self
@@ -138,6 +182,7 @@ class ServingLoop:
         for t in self._threads:
             t.join(timeout=timeout_s)
         self._threads = []
+        _trace.unwatch_gc()
         tracer = getattr(self.backend, "tracer", None)
         if tracer is not None:
             tracer.defer_finish = False
@@ -152,7 +197,7 @@ class ServingLoop:
         """Thread-safe submit; ``on_done(response)`` fires exactly once —
         synchronously for fast paths (cache hit, point query, REJECTED),
         from a loop thread otherwise. Raises LoopClosed after stop()."""
-        with self._lock:
+        with self._lock, span("loop.submit"):
             if not self._accepting:
                 raise LoopClosed("serving loop is shut down")
             rid = self.backend.submit(pattern, terms=terms,
@@ -208,19 +253,22 @@ class ServingLoop:
         return out
 
     def _deliver(self, ready: list[tuple[Callable, QueryResponse]]) -> None:
+        if not ready:
+            return
         tracer = getattr(self.backend, "tracer", None)
-        for cb, resp in ready:
-            t0 = self.clock()
-            try:
-                cb(resp)
-            except Exception:
-                # a dead client (e.g. socket closed mid-reply) must not
-                # take the loop thread with it; the result is simply
-                # undeliverable
-                pass
-            if resp.trace is not None and tracer is not None:
-                resp.trace.add("deliver", t0, self.clock())
-                tracer.finish(resp.trace)
+        with span("loop.deliver"):
+            for cb, resp in ready:
+                t0 = self.clock()
+                try:
+                    cb(resp)
+                except Exception:
+                    # a dead client (e.g. socket closed mid-reply) must not
+                    # take the loop thread with it; the result is simply
+                    # undeliverable
+                    pass
+                if resp.trace is not None and tracer is not None:
+                    resp.trace.add("deliver", t0, self.clock())
+                    tracer.finish(resp.trace)
 
     def _flush(self, *, force: bool) -> None:
         """Flush due batches into the work queue; deliver any DROPPED."""
@@ -264,7 +312,12 @@ class ServingLoop:
             timeout = self.poll_interval_s if due is None else \
                 min(max(0.0, due - self.clock()), self.poll_interval_s)
             if timeout > 0:
-                self._wake.wait(timeout)
+                if due is None:
+                    self._wake.wait(timeout)
+                else:
+                    # a partial bucket held for its flush timer
+                    with span("loop.timer_wait"):
+                        self._wake.wait(timeout)
             self._wake.clear()
             self._flush(force=False)
         # shutdown: drain (score) or reject everything still queued, then

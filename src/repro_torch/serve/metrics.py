@@ -361,6 +361,15 @@ class ServingMetrics:
         if comp:
             self._arena_comp.inc(comp)
 
+    def record_lock_wait(self, seconds: float) -> None:
+        """One acquisition of a ``ServingLoop``'s lock that found it held
+        (``serve_loop_lock_wait_seconds``). Registered at the first wait,
+        so a registry without contention renders as JAX's does."""
+        self.registry.histogram(
+            "serve_loop_lock_wait_seconds",
+            "time a serving-loop thread waited for the loop's lock",
+            window=self._window).observe(seconds)
+
     def record_decode(self, seconds: float) -> None:
         """One host-side compressed shard decode (storage observer)."""
         self._decodes.inc()

@@ -16,8 +16,13 @@ Life of a request:
 The server is single-threaded and clock-injectable: drivers decide the
 cadence (closed-loop drivers call ``drain``, open-loop ones ``step`` on
 arrival timestamps), and tests run on a virtual clock. Every kernel span
-ends after the scores are on the host, so the profiler's kernel times
-are complete device times, not launch times.
+ends after the scores are on the host, so the kernel profiler's times are
+host times from the terms' upload through the scores' copy, not launch
+times and not the kernels' device time alone. ``obs.trace.span`` times
+each stage: into the traced requests' marks, and into ``repro.<stage>``
+ranges while a torch profiler runs (``repro.score_batch`` around a batch,
+with ``repro.plan``, ``repro.stage``, ``repro.launch``, ``repro.copy`` and
+``repro.select`` inside).
 
 With ``ServerConfig.autotune`` or ``tuning_cache`` the planner plans from
 a ``KernelTuner``'s costs measured on the server's device and persisted to
@@ -49,6 +54,7 @@ from ..device import resolve_device
 from ..kernels.autotune import KernelTuner, TuningCache
 from ..obs import EventLog, KernelProfiler, Tracer
 from ..obs.profile import gather_bytes
+from ..obs.trace import span
 from .base import ServingBackend
 from .batcher import MicroBatch, MicroBatcher
 from .cache import LRUCache, result_key, term_key
@@ -325,8 +331,8 @@ class QueryServer(ServingBackend):
         return select_hits(scores, n_terms, threshold)
 
     # -- batch scoring -------------------------------------------------------
-    def _run_plan(self, plan, fn, terms_dev, valid_dev,
-                  fn_comp=None) -> np.ndarray:
+    def _run_plan(self, plan, fn, terms_dev, valid_dev, fn_comp=None,
+                  seq: Optional[int] = None) -> np.ndarray:
         """Dispatch ``fn`` once against the dense arena, or, for a paged
         plan, once per shard tile (staged through the LRU tile cache),
         concatenating per-shard slot scores along the slot axis. With
@@ -334,15 +340,18 @@ class QueryServer(ServingBackend):
         (dict, refs) form and score through the fused-decode kernels.
         Returns the scores on the host."""
         if not plan.paged:
-            if (fn_comp is not None and self.index.storage.shard_codec(0)
-                    in _codec.DICT_CODECS):
-                dict_rows, refs = self.tiles.get_compressed(0)
-                out = fn_comp(dict_rows, refs, self.index.row_offset,
-                              self.index.block_width, terms_dev, valid_dev)
-            else:
-                out = fn(self.tiles.get(0), self.index.row_offset,
-                         self.index.block_width, terms_dev, valid_dev)
-            return out.cpu().numpy()
+            with span("launch", seq=seq):
+                if (fn_comp is not None and self.index.storage.shard_codec(0)
+                        in _codec.DICT_CODECS):
+                    dict_rows, refs = self.tiles.get_compressed(0)
+                    out = fn_comp(dict_rows, refs, self.index.row_offset,
+                                  self.index.block_width, terms_dev,
+                                  valid_dev)
+                else:
+                    out = fn(self.tiles.get(0), self.index.row_offset,
+                             self.index.block_width, terms_dev, valid_dev)
+            with span("copy", seq=seq):
+                return out.cpu().numpy()
         if fn_comp is not None:
             return np.concatenate(
                 run_paged_compressed(self.tiles, self._shard_args, fn,
@@ -353,53 +362,61 @@ class QueryServer(ServingBackend):
                       valid_dev), axis=-1)
 
     def _score_dedup(self, buf: np.ndarray, n_valid: np.ndarray, plan,
-                     marks: Optional[list] = None) -> Optional[np.ndarray]:
+                     marks: Optional[list] = None,
+                     seq: Optional[int] = None) -> Optional[np.ndarray]:
         """Row-dedup dispatch, or None when the batch's dedup rate is
         below the plan's threshold. The global-layout plan decides; dense
         execution reuses it, paged execution re-plans per shard against
         the rebased addressing. ``marks`` collects (name, start, end,
         tags) stage timings for tracing."""
         layout = self.index.layout
-        td0 = self.clock()
-        dp = plan_dedup_batch(buf, n_valid, layout.row_offset,
-                              layout.block_width)
-        if marks is not None:
-            marks.append(("dedup_plan", td0, self.clock(),
-                          {"dedup_rate": round(float(dp.dedup_rate), 4),
-                           "n_unique": int(dp.n_unique)}))
+        with span("dedup_plan", marks, clock=self.clock, seq=seq) as sp:
+            dp = plan_dedup_batch(buf, n_valid, layout.row_offset,
+                                  layout.block_width)
+            if marks is not None:
+                sp.tags = {"dedup_rate": round(float(dp.dedup_rate), 4),
+                           "n_unique": int(dp.n_unique)}
         if dp.dedup_rate < plan.dedup_threshold:
             return None
         fn = self.planner.dedup_score_fn(plan)
         fn_comp = (self.planner.comp_dedup_score_fn(plan)
                    if plan.compressed else None)
-        tk0 = self.clock()
-        if not plan.paged:
-            dev = self.index.device
-            if (fn_comp is not None and self.index.storage.shard_codec(0)
-                    in _codec.DICT_CODECS):
-                dict_rows, refs = self.tiles.get_compressed(0)
-                out = fn_comp(dict_rows, refs,
-                              *dedup_inputs(dp, refs.shape[0], dev, "refs"),
-                              range_checked=True)
+        with span("kernel_score", marks, clock=self.clock, seq=seq) as ks:
+            tk0 = self.clock()
+            if not plan.paged:
+                dev = self.index.device
+                if (fn_comp is not None and self.index.storage.shard_codec(0)
+                        in _codec.DICT_CODECS):
+                    dict_rows, refs = self.tiles.get_compressed(0)
+                    with span("stage", seq=seq):
+                        args = dedup_inputs(dp, refs.shape[0], dev, "refs")
+                    with span("launch", seq=seq):
+                        out = fn_comp(dict_rows, refs, *args,
+                                      range_checked=True)
+                else:
+                    arena = self.tiles.get(0)
+                    with span("stage", seq=seq):
+                        args = dedup_inputs(dp, arena.shape[0], dev,
+                                            "the arena")
+                    with span("launch", seq=seq):
+                        out = fn(arena, *args, range_checked=True)
+                with span("copy", seq=seq):
+                    slots = out.cpu().numpy()
             else:
-                arena = self.tiles.get(0)
-                out = fn(arena, *dedup_inputs(dp, arena.shape[0], dev,
-                                              "the arena"),
-                         range_checked=True)
-            slots = out.cpu().numpy()
-        else:
-            slots = run_paged_dedup(self.tiles, self.planner.shard_plans,
-                                    fn, buf, n_valid, fn_comp=fn_comp)
-        tk1 = self.clock()
-        self._kernel_mark(marks, "dedup_c" if plan.compressed else "dedup",
-                          plan, tk0, tk1, rows=int(dp.uniq_rows.shape[0]))
+                slots = run_paged_dedup(self.tiles, self.planner.shard_plans,
+                                        fn, buf, n_valid, fn_comp=fn_comp)
+            self._kernel_mark(ks, marks,
+                              "dedup_c" if plan.compressed else "dedup",
+                              plan, tk0, self.clock(),
+                              rows=int(dp.uniq_rows.shape[0]))
         return slots
 
-    def _kernel_mark(self, marks: Optional[list], method: str, plan,
+    def _kernel_mark(self, ks, marks: Optional[list], method: str, plan,
                      t0: float, t1: float, *, rows: int) -> None:
-        """Record one kernel dispatch: trace mark (with the shards the
-        tile cache had to stage mid-dispatch), profiler histogram, and the
-        live cost signal for the tuner."""
+        """Record one kernel dispatch: the tags of its ``kernel_score``
+        span ``ks`` (with the shards the tile cache had to stage
+        mid-dispatch), profiler histogram, and the live cost signal for
+        the tuner."""
         moved = gather_bytes(rows, int(self.index.storage.shape[1]))
         if marks is not None:
             tags = {"method": method, "bucket": plan.bucket,
@@ -409,7 +426,7 @@ class QueryServer(ServingBackend):
                               if ev == "fault"})
             if faulted:
                 tags["faulted_shards"] = faulted
-            marks.append(("kernel_score", t0, t1, tags))
+            ks.tags = tags
         self.profiler.record(
             method=method, bucket=plan.bucket, batch=plan.batch_size,
             seconds=t1 - t0, word_block=plan.word_block or 0,
@@ -418,24 +435,27 @@ class QueryServer(ServingBackend):
 
     def score_batch(self, batch: MicroBatch) -> None:
         """Plan, dispatch, and answer one flushed micro-batch."""
+        with span("score_batch", seq=batch.seq):
+            self._score_batch(batch)
+
+    def _score_batch(self, batch: MicroBatch) -> None:
         t0 = self.clock()
-        Q, B = batch.size, batch.bucket
+        Q, B, seq = batch.size, batch.bucket, batch.seq
         traced = any(r.trace is not None for r in batch.requests)
         marks: Optional[list] = [] if traced else None
         self._tile_events = []
         nb = self.index.layout.n_blocks
-        tp0 = self.clock()
         # the weakest coverage threshold across the batch is the bound
         # every block must clear for at least one request: the planner's
         # basis for predicting the prune rate (None for all-top-k batches)
         thr_hint = min((r.threshold for r in batch.requests if not r.top_k),
                        default=None)
-        plan = self.planner.plan(B, Q, threshold=thr_hint)
-        if marks is not None:
-            marks.append(("plan", tp0, self.clock(),
-                          {"method": plan.method, "fused": int(plan.fused),
+        with span("plan", marks, clock=self.clock, seq=seq) as sp:
+            plan = self.planner.plan(B, Q, threshold=thr_hint)
+            if marks is not None:
+                sp.tags = {"method": plan.method, "fused": int(plan.fused),
                            "paged": int(plan.paged),
-                           "pruned": int(plan.pruned)}))
+                           "pruned": int(plan.pruned)}
         # a compressed fused dispatch reports as "lookup_c"
         method = ("lookup_c" if plan.compressed and plan.method == "lookup"
                   else plan.method)
@@ -447,124 +467,147 @@ class QueryServer(ServingBackend):
             # chunked branch-and-bound executor: rarest-first term chunks
             # against running counts; blocks whose bound falls below the
             # cutoff skip all further gathers, staging and kernel work
-            q_pad = 1 if Q == 1 else _next_pow2(Q)
-            buf = np.zeros((q_pad, B, 2), dtype=np.uint32)
-            n_valid = np.zeros(q_pad, dtype=np.int32)
-            required = np.full(q_pad, np.iinfo(np.int32).max,
-                               dtype=np.int64)
-            topks = np.zeros(q_pad, dtype=np.int32)
-            for i, r in enumerate(batch.requests):
-                buf[i, : r.n_terms] = r.terms
-                n_valid[i] = r.n_terms
-                topks[i] = r.top_k
-                required[i] = (0 if r.top_k else
-                               coverage_cutoff(r.threshold, r.n_terms))
+            with span("stage", seq=seq):
+                q_pad = 1 if Q == 1 else _next_pow2(Q)
+                buf = np.zeros((q_pad, B, 2), dtype=np.uint32)
+                n_valid = np.zeros(q_pad, dtype=np.int32)
+                required = np.full(q_pad, np.iinfo(np.int32).max,
+                                   dtype=np.int64)
+                topks = np.zeros(q_pad, dtype=np.int32)
+                for i, r in enumerate(batch.requests):
+                    buf[i, : r.n_terms] = r.terms
+                    n_valid[i] = r.n_terms
+                    topks[i] = r.top_k
+                    required[i] = (0 if r.top_k else
+                                   coverage_cutoff(r.threshold, r.n_terms))
             method = "lookup_p"
             pstats = PruneStats()
-            tk0 = self.clock()
-            slots = run_paged_pruned(
-                self.tiles, self.planner.shard_plans, buf, n_valid,
-                required, topks, n_hashes=self.index.params.n_hashes,
-                chunk_terms=plan.chunk_terms or self.config.prune_chunk,
-                word_block=plan.word_block, stats=pstats)
-            tk1 = self.clock()
-            w = int(self.index.storage.shape[1])
-            self._kernel_mark(marks, method, plan, tk0, tk1,
-                              rows=max(1, pstats.bytes_read // (4 * w)))
-            self.metrics.record_prune(
-                blocks_total=pstats.blocks_total,
-                blocks_pruned=pstats.blocks_pruned,
-                tiles_skipped=pstats.shard_visits_skipped,
-                bytes_saved=max(
-                    0, self._arena_total_bytes - pstats.bytes_read))
-            if marks is not None:
-                marks.append(("prune", tk0, tk1, {
-                    "blocks_pruned": int(pstats.blocks_pruned),
-                    "blocks_total": int(pstats.blocks_total),
-                    "tiles_skipped": int(pstats.shard_visits_skipped),
-                    "bytes_read": int(pstats.bytes_read),
-                    "predicted": round(float(plan.predicted_prune), 3)}))
-            scores = slots[:Q][:, self._host_slot]
+            with span("prune", marks, clock=self.clock, seq=seq) as pr:
+                with span("kernel_score", marks, clock=self.clock,
+                          seq=seq) as ks:
+                    tk0 = self.clock()
+                    # the executor's own uploads and copies lie inside
+                    with span("launch", seq=seq):
+                        slots = run_paged_pruned(
+                            self.tiles, self.planner.shard_plans, buf,
+                            n_valid, required, topks,
+                            n_hashes=self.index.params.n_hashes,
+                            chunk_terms=(plan.chunk_terms
+                                         or self.config.prune_chunk),
+                            word_block=plan.word_block, stats=pstats)
+                    tk1 = self.clock()
+                    w = int(self.index.storage.shape[1])
+                    self._kernel_mark(
+                        ks, marks, method, plan, tk0, tk1,
+                        rows=max(1, pstats.bytes_read // (4 * w)))
+                self.metrics.record_prune(
+                    blocks_total=pstats.blocks_total,
+                    blocks_pruned=pstats.blocks_pruned,
+                    tiles_skipped=pstats.shard_visits_skipped,
+                    bytes_saved=max(
+                        0, self._arena_total_bytes - pstats.bytes_read))
+                if marks is not None:
+                    pr.tags = {
+                        "blocks_pruned": int(pstats.blocks_pruned),
+                        "blocks_total": int(pstats.blocks_total),
+                        "tiles_skipped": int(pstats.shard_visits_skipped),
+                        "bytes_read": int(pstats.bytes_read),
+                        "predicted": round(float(plan.predicted_prune), 3)}
         elif Q == 1:
-            buf = np.zeros((B, 2), dtype=np.uint32)
-            buf[: ells[0]] = batch.requests[0].terms
+            with span("stage", seq=seq):
+                buf = np.zeros((B, 2), dtype=np.uint32)
+                buf[: ells[0]] = batch.requests[0].terms
             fn = self.planner.single_score_fn(plan)
             fn_comp = (self.planner.comp_single_score_fn(plan)
                        if plan.compressed else None)
-            tk0 = self.clock()
-            slots = self._run_plan(plan, fn,
-                                   _to_device(buf, self.index.device),
-                                   int(ells[0]), fn_comp=fn_comp)
-            self._kernel_mark(marks, method, plan, tk0, self.clock(),
-                              rows=B * nb)
-            scores = slots[None, self._host_slot]
+            with span("kernel_score", marks, clock=self.clock,
+                      seq=seq) as ks:
+                tk0 = self.clock()
+                with span("stage", seq=seq):
+                    terms_dev = _to_device(buf, self.index.device)
+                slots = self._run_plan(plan, fn, terms_dev, int(ells[0]),
+                                       fn_comp=fn_comp, seq=seq)
+                self._kernel_mark(ks, marks, method, plan, tk0, self.clock(),
+                                  rows=B * nb)
         else:
             # the query axis padded to a power of two, as the JAX server
             # pads it; padded queries have n_valid 0 and so no live cell
-            q_pad = _next_pow2(Q)
-            buf = np.zeros((q_pad, B, 2), dtype=np.uint32)
-            for i, r in enumerate(batch.requests):
-                buf[i, : r.n_terms] = r.terms
-            n_valid = np.zeros(q_pad, dtype=np.int32)
-            n_valid[:Q] = ells
+            with span("stage", seq=seq):
+                q_pad = _next_pow2(Q)
+                buf = np.zeros((q_pad, B, 2), dtype=np.uint32)
+                for i, r in enumerate(batch.requests):
+                    buf[i, : r.n_terms] = r.terms
+                n_valid = np.zeros(q_pad, dtype=np.int32)
+                n_valid[:Q] = ells
             slots = None
             if plan.fused and plan.dedup_threshold is not None:
-                slots = self._score_dedup(buf, n_valid, plan, marks)
+                slots = self._score_dedup(buf, n_valid, plan, marks, seq)
                 if slots is not None:
                     method = "dedup_c" if plan.compressed else "dedup"
             if slots is None:
                 fn = self.planner.batch_score_fn(plan)
                 fn_comp = (self.planner.comp_batch_score_fn(plan)
                            if plan.compressed else None)
-                tk0 = self.clock()
-                slots = self._run_plan(
-                    plan, fn, _to_device(buf, self.index.device),
-                    torch.from_numpy(n_valid).to(self.index.device),
-                    fn_comp=fn_comp)
-                self._kernel_mark(marks, method, plan, tk0, self.clock(),
-                                  rows=q_pad * nb * B)
-            scores = slots[:Q][:, self._host_slot]
-        t1 = self.clock()
-        service = t1 - t0
+                with span("kernel_score", marks, clock=self.clock,
+                          seq=seq) as ks:
+                    tk0 = self.clock()
+                    with span("stage", seq=seq):
+                        terms_dev = _to_device(buf, self.index.device)
+                        valid_dev = torch.from_numpy(n_valid).to(
+                            self.index.device)
+                    slots = self._run_plan(plan, fn, terms_dev, valid_dev,
+                                           fn_comp=fn_comp, seq=seq)
+                    self._kernel_mark(ks, marks, method, plan, tk0,
+                                      self.clock(), rows=q_pad * nb * B)
+        # the host tail: slot order to document order, then each request's
+        # selection, response and cache entry
+        with span("select", seq=seq):
+            with span("permute", seq=seq):
+                scores = (slots[None, self._host_slot] if slots.ndim == 1
+                          else slots[:Q][:, self._host_slot])
+            t1 = self.clock()
+            service = t1 - t0
 
-        if marks is not None:
-            # tile stagings seen during this batch's dispatches, as their
-            # own spans naming the shard (demand fault or prefetch)
-            for s, ev, t_end, dur in self._tile_events:
-                marks.append(("tile_fetch", t_end - dur, t_end,
-                              {"shard": s, "event": ev}))
-        self.planner.record(plan, method)
-        self.metrics.record_batch(Q, self.batcher.occupancy(batch), method)
-        self.metrics.record_arena_bytes(
-            raw=self.tiles.raw_bytes_staged - bytes0[0],
-            comp=self.tiles.comp_bytes_staged - bytes0[1])
-        if plan.paged:
-            self.metrics.record_tiles(
-                hits=self.tiles.hits - tiles0[0],
-                faults=self.tiles.faults - tiles0[1],
-                resident=len(self.tiles),
-                prefetched=self.tiles.prefetched - tiles0[2],
-                prefetch_hits=self.tiles.prefetch_hits - tiles0[3])
-        for i, r in enumerate(batch.requests):
-            ts0 = self.clock()
-            result = self._select(scores[i], r.n_terms, r.threshold,
-                                  r.top_k)
-            wait = max(0.0, t0 - r.submitted_at)
-            self.metrics.record_request(wait_s=wait, service_s=service)
-            resp = QueryResponse(
-                r.request_id, Status.OK, result, method=method,
-                batch_size=Q, wait_s=wait, service_s=service)
-            if r.trace is not None:
-                r.trace.add("queue_wait", r.submitted_at, t0,
-                            {"flush": batch.reason or "direct",
-                             "batch_size": Q})
-                for name, ms, me, tags in marks:
-                    r.trace.add(name, ms, me, tags)
-                r.trace.add("select", ts0, self.clock())
-                self.finalize_trace(r.trace, resp)
-            self._responses[r.request_id] = resp
-            self.results_cache.put(
-                result_key(r.terms, r.threshold, r.top_k), result)
+            if marks is not None:
+                # tile stagings seen during this batch's dispatches, as
+                # their own spans naming the shard (demand fault or
+                # prefetch)
+                for s, ev, t_end, dur in self._tile_events:
+                    marks.append(("tile_fetch", t_end - dur, t_end,
+                                  {"shard": s, "event": ev}))
+            self.planner.record(plan, method)
+            self.metrics.record_batch(Q, self.batcher.occupancy(batch),
+                                      method)
+            self.metrics.record_arena_bytes(
+                raw=self.tiles.raw_bytes_staged - bytes0[0],
+                comp=self.tiles.comp_bytes_staged - bytes0[1])
+            if plan.paged:
+                self.metrics.record_tiles(
+                    hits=self.tiles.hits - tiles0[0],
+                    faults=self.tiles.faults - tiles0[1],
+                    resident=len(self.tiles),
+                    prefetched=self.tiles.prefetched - tiles0[2],
+                    prefetch_hits=self.tiles.prefetch_hits - tiles0[3])
+            for i, r in enumerate(batch.requests):
+                ts0 = self.clock()
+                result = self._select(scores[i], r.n_terms, r.threshold,
+                                      r.top_k)
+                wait = max(0.0, t0 - r.submitted_at)
+                self.metrics.record_request(wait_s=wait, service_s=service)
+                resp = QueryResponse(
+                    r.request_id, Status.OK, result, method=method,
+                    batch_size=Q, wait_s=wait, service_s=service)
+                if r.trace is not None:
+                    r.trace.add("queue_wait", r.submitted_at, t0,
+                                {"flush": batch.reason or "direct",
+                                 "batch_size": Q})
+                    for name, ms, me, tags in marks:
+                        r.trace.add(name, ms, me, tags)
+                    r.trace.add("select", ts0, self.clock())
+                    self.finalize_trace(r.trace, resp)
+                self._responses[r.request_id] = resp
+                self.results_cache.put(
+                    result_key(r.terms, r.threshold, r.top_k), result)
 
     def _answer(self, rid: int, status: Status, result, *, wait: float,
                 service: float, trace=None) -> None:
