@@ -22,7 +22,13 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    terms) on an 8-document index through the ``vertical``, ``lookup`` and
    ``unpack`` engines and one served request, equal to ``method="ref"``,
    and runs the six wrappers of the fused-decode, dedup and chunk kernels
-   at that length ("[long]": one launch each);
+   at that length ("[long]": one launch each); and holds the server's
+   selection kernel (``select_scores``) against ``select_plain`` bit for
+   bit at the dense read batch's shape, [32, 34,816] scores of 34,134
+   documents, once with read-like scores and once forced past the hit
+   lists' cap, beside the copy of the lists to pinned memory and
+   ``index_select`` + ``>=`` + ``nonzero`` as a library yardstick
+   ("[select]");
 4. runs the main path with every launch counter at 0: 128 queries of the
    serving traffic mix (40/80/160/320 bp, half true positives, half
    verified negatives) through ``search``, ``search_batch`` (batches of 32)
@@ -503,6 +509,106 @@ def phase_kernels_vs_plain(rt, torch, index, chk: KernelCheck) -> None:
     check_split_kernels(rt, torch, chk, words, g)
     log(f"[kernels] every kernel equals its plain version: max_abs_err "
         f"{chk.err}")
+
+
+# the dense read batch of the benchmark's cell: 32 reads of 150 bp (120
+# terms) over 34 blocks of 1,024 documents, 34,134 of them live
+SELECT_Q, SELECT_DOCS, SELECT_SLOTS, SELECT_TERMS = 32, 34_134, 34 * 1024, 120
+
+
+def phase_select(rt, torch) -> dict:
+    """[select]: ``select_scores`` against ``select_plain`` at the dense
+    read batch's shape with the server's ``SELECT_CAP``: scores in slot
+    order drawn like a read's (binomial(120, 0.3) for a document without
+    the read, one document a query at 112-120), threshold 0.8 (about one
+    hit a query), then threshold 0.25 (most documents: every list over
+    the cap). Equal bit for bit, the kernel's launches equal to its calls.
+    Times: the kernel (CUDA events over a graph of 64 launches); its byte
+    bound (doc_slot and the live rows' scores read once, the lists written
+    once, at 3.35 TB/s); the lists' copy into pinned memory (events over
+    16 copies), and launch, copy and sync on the host's clock, as the
+    server makes them; ``select_plain`` on the card (events around one
+    call); ``index_select`` + ``>=`` + ``nonzero`` as the
+    library's nearest calls (the port does not call them; ``nonzero``
+    syncs, so events over 8 calls, not a graph), and with its copy of the
+    hit indices to the host."""
+    k, cap = rt.kernels, rt.server_mod.SELECT_CAP
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    shape = (SELECT_Q, SELECT_SLOTS)
+    scores = torch.binomial(
+        torch.full(shape, float(SELECT_TERMS), device=DEV),
+        torch.full(shape, 0.3, device=DEV), generator=g).to(torch.int32)
+    perm = torch.randperm(SELECT_SLOTS, generator=g, device=DEV)
+    doc_slot = perm[:SELECT_DOCS].to(torch.int32).contiguous()
+    src = torch.randint(0, SELECT_DOCS, (SELECT_Q,), generator=g,
+                        device=DEV)
+    scores[torch.arange(SELECT_Q, device=DEV), doc_slot[src].long()] = \
+        torch.randint(112, SELECT_TERMS + 1, (SELECT_Q,), generator=g,
+                      device=DEV, dtype=torch.int32)
+    out = {"shape": [SELECT_Q, SELECT_SLOTS], "docs": SELECT_DOCS,
+           "cap": cap}
+    for name, thr in (("reads", 0.8), ("overflow", 0.25)):
+        cut = torch.full((SELECT_Q,), rt.query.coverage_cutoff(
+            thr, SELECT_TERMS), dtype=torch.int32, device=DEV)
+        before = k.launches["select_scores"]
+        got = k.select_scores(scores, doc_slot, cut, cap)
+        check(k.launches["select_scores"] == before + 1,
+              "select_scores launched once a call")
+        want = k.select_plain(scores, doc_slot, cut, cap)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"select_scores != select_plain ({name})")
+        counts = got[:, 0]
+        if name == "reads":
+            check(bool((counts >= 1).all()) and int(counts.max()) <= cap,
+                  "every read finds its document, within the cap")
+        else:
+            check(bool((counts > cap).all()), "every list over the cap")
+        out[f"hits_{name}"] = [int(counts.min()), int(counts.max())]
+    cut = torch.full((SELECT_Q,), rt.query.coverage_cutoff(
+        0.8, SELECT_TERMS), dtype=torch.int32, device=DEV)
+    lists = k.select_scores(scores, doc_slot, cut, cap)
+    pinned = torch.empty(lists.shape, dtype=torch.int32, pin_memory=True)
+    slot_long = doc_slot.long()
+
+    def library():
+        docs = torch.index_select(scores, 1, slot_long)
+        return torch.nonzero(docs >= cut[:, None])
+
+    with on_side_stream(torch):
+        kernel_us = 1e3 * graph_ms(torch, [lambda: k.select_scores(
+            scores, doc_slot, cut, cap, range_checked=True)])
+        library_us = 1e3 * loop_ms(torch, [library] * 8)
+        copy_us = 1e3 * loop_ms(torch, [lambda: pinned.copy_(
+            lists, non_blocking=True)] * 16)
+    plain_us = 1e3 * event_ms(
+        torch, lambda: k.select_plain(scores, doc_slot, cut, cap), 5)
+    # the library's hit list reaches the host only through a sync'd copy
+    t0 = time.perf_counter()
+    for _ in range(64):
+        library().cpu()
+    library_host_us = 1e6 * (time.perf_counter() - t0) / 64
+    t0 = time.perf_counter()
+    for _ in range(64):
+        got = k.select_scores(scores, doc_slot, cut, cap, range_checked=True)
+        pinned.copy_(got, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+    server_host_us = 1e6 * (time.perf_counter() - t0) / 64
+    bound_us = 1e6 * (4 * SELECT_DOCS + 4 * SELECT_Q * SELECT_DOCS
+                      + lists.numel() * 4) / HBM_BYTES_PER_S
+    out.update(kernel_us=kernel_us, bound_us=bound_us, copy_us=copy_us,
+               plain_us=plain_us, library_us=library_us,
+               library_host_us=library_host_us,
+               server_host_us=server_host_us, list_bytes=lists.numel() * 4)
+    log(f"[select] [{SELECT_Q}, {SELECT_SLOTS}] of {SELECT_DOCS} docs, cap "
+        f"{cap}: equal to select_plain (hits {out['hits_reads']}, over the "
+        f"cap {out['hits_overflow']}); kernel {kernel_us:.2f} us (bound "
+        f"{bound_us:.3f} us), lists' copy ({lists.numel() * 4} B, pinned) "
+        f"{copy_us:.2f} us, launch + copy + sync on the host "
+        f"{server_host_us:.1f} us; plain {plain_us:.1f} us; library "
+        f"index_select + >= + nonzero {library_us:.2f} us, with its copy "
+        f"to the host {library_host_us:.1f} us")
+    return out
 
 
 def unpack_rows_plain(k, rows):
@@ -2320,7 +2426,7 @@ class TimedLock:
 
     def __enter__(self):
         t0 = time.perf_counter()
-        self.lock.acquire()
+        self.lock.__enter__()      # the loop's lock is a context manager
         t1 = time.perf_counter()
         depth = getattr(self.local, "depth", 0)
         if depth == 0:
@@ -2336,7 +2442,7 @@ class TimedLock:
             role = threading.current_thread().name.rstrip("0123456789")
             self.holds.setdefault(role, []).append(
                 time.perf_counter() - self.local.t1)
-        self.lock.release()
+        self.lock.__exit__(*exc)
 
     def reset(self) -> None:
         self.waits, self.holds = {}, {}
@@ -5263,6 +5369,7 @@ def main() -> int:
         corpus, index, record["index"] = phase_build_index(rt, torch)
         chk = KernelCheck(torch)
         phase_kernels_vs_plain(rt, torch, index, chk)
+        record["select"] = phase_select(rt, torch)
         record["long_query"] = phase_long_query(rt, torch, chk)
         main_path, queries, origin, extra, base = phase_main_path(
             rt, torch, corpus, index)

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "cobs_gather_rows_comp": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # uniq, indir, mask, out, cells, L, W, cluster, device, stream
     "cobs_dedup_score": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # scores, doc_slot, cut, out, Q, ld, n_docs, cap, device, stream
+    "cobs_select_hits": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

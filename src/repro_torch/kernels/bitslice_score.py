@@ -21,6 +21,11 @@ points of ``repro.kernels.bitslice_score``:
   gathered once, then every cell scored through an indirection into
   those rows.
 
+An eleventh kernel has no Pallas counterpart: ``select_scores``, the
+server's selection of a dense batch's hits (slot order to document
+order, the coverage cutoff, the hits compacted), which the JAX server
+makes on the host.
+
 Each wrapper checks device, dtype (int32 words), shape and contiguity.
 For a CPU tensor it calls the plain version; for a CUDA tensor it launches
 the kernel on the current stream, or raises. ``launches[name]`` counts the
@@ -55,7 +60,8 @@ launches: dict[str, int] = {"unpack_score": 0, "vertical_score": 0,
                             "chunk_lookup_score_multi": 0,
                             "chunk_lookup_score_multi_compressed": 0,
                             "chunk_dedup_score": 0, "gather_rows": 0,
-                            "gather_rows_compressed": 0, "dedup_score": 0}
+                            "gather_rows_compressed": 0, "dedup_score": 0,
+                            "select_scores": 0}
 
 
 # kernels launch from more than one host thread (a serving loop's worker
@@ -543,3 +549,66 @@ def dedup_score(uniq: torch.Tensor, indir: torch.Tensor, mask: torch.Tensor,
     return _lookup_launch("dedup_score", "cobs_dedup_score",
                           (uniq.data_ptr(),), indir, mask, uniq.shape[1],
                           uniq.device)
+
+
+# --------------------------------------------------------------------------
+# selection: a dense batch's scores [>= Q, S] in slot order -> each query's
+# hit list, the count and then (document, score) pairs in document order
+# --------------------------------------------------------------------------
+
+def select_plain(scores: torch.Tensor, doc_slot: torch.Tensor,
+                 cut: torch.Tensor, cap: int) -> torch.Tensor:
+    """Plain version of ``select_scores``: each query's scores in document
+    order, the documents at or above its cutoff, the first ``cap`` of
+    them written as (document, score) pairs."""
+    Q = cut.shape[0]
+    out = torch.zeros((Q, 1 + 2 * cap), dtype=torch.int32,
+                      device=scores.device)
+    docs = scores[:Q, doc_slot.long()]              # [Q, n_docs]
+    for q in range(Q):
+        hit = torch.nonzero(docs[q] >= cut[q]).flatten()
+        k = min(hit.shape[0], cap)
+        out[q, 0] = hit.shape[0]
+        out[q, 1:1 + 2 * k:2] = hit[:k].to(torch.int32)
+        out[q, 2:2 + 2 * k:2] = docs[q, hit[:k]]
+    return out
+
+
+def select_scores(scores: torch.Tensor, doc_slot: torch.Tensor,
+                  cut: torch.Tensor, cap: int, *,
+                  range_checked: bool = False) -> torch.Tensor:
+    """A dense batch's hits: scores int32 [R, S] in slot order (rows past
+    Q = len(cut) are not read), doc_slot int32 [n_docs] (document d's
+    slot, in [0, S)), cut int32 [Q] -> int32 [Q, 1 + 2 * cap]. Row q
+    holds the number of documents d with ``scores[q, doc_slot[d]] >=
+    cut[q]``, then the first ``cap`` of them as (d, score) pairs in
+    ascending d, then zeros. A count above ``cap`` says the list was cut.
+    No Pallas counterpart (the JAX server selects on the host). On a CUDA
+    tensor the range check of ``doc_slot`` costs one device sync, which
+    callers that checked it on the host before the upload skip with
+    ``range_checked``."""
+    _check("scores", scores, (2,))
+    _check("doc_slot", doc_slot, (1,))
+    _check("cut", cut, (1,))
+    Q, (R, S) = cut.shape[0], scores.shape
+    if Q > R:
+        raise ValueError(f"{Q} cutoffs for {R} score rows")
+    if not 1 <= cap < 1 << 30:
+        raise ValueError(f"cap must lie in [1, 2**30), got {cap}")
+    cuda = _on_cuda(scores, doc_slot, cut)
+    if (not cuda or not range_checked) and doc_slot.numel():
+        lo, hi = torch.aminmax(doc_slot)
+        if int(lo) < 0 or int(hi) >= S:
+            raise IndexError(f"document slots [{int(lo)}, {int(hi)}] "
+                             f"outside the scores' {S} slots")
+    if not cuda:
+        return select_plain(scores, doc_slot, cut, cap)
+    out = torch.empty((Q, 1 + 2 * cap), dtype=torch.int32,
+                      device=scores.device)
+    if Q:
+        _build.launch("cobs_select_hits", scores.data_ptr(),
+                      doc_slot.data_ptr(), cut.data_ptr(), out.data_ptr(), Q,
+                      S, doc_slot.shape[0], cap, scores.device.index or 0,
+                      _stream(scores.device))
+        _count("select_scores")
+    return out

@@ -30,6 +30,9 @@
 //   gather_comp_kernel <- the kernel of gather_rows_compressed; gather_body
 //   dedup_kernel       <- _dedup_score_kernel (dedup_score);
 //                         split_body<kUniq, false>
+//   select_kernel      <- none (select_scores): the server's selection of a
+//                         dense batch's hits, which the JAX server makes on
+//                         the host in numpy
 //
 // What bounds them on an H100: bytes. A query reads L rows of W words and
 // writes W * 32 counts; the arithmetic is a few integer operations per
@@ -1028,6 +1031,111 @@ int launch_split(Kernel kernel, long long cells, int L, int Wo, int cluster,
       cluster, device, stream, args...);
 }
 
+// ---------------------------------------------------------------------------
+// The selection of a dense batch's hits
+// ---------------------------------------------------------------------------
+
+constexpr int kSelectThreads = 1024;
+constexpr int kSelectWarps = kSelectThreads / 32;
+constexpr int kSelectUnroll = 8;   // documents a thread takes a tile
+constexpr int kSelectTile = kSelectThreads * kSelectUnroll;
+// a lane's share of the tile's (step, warp) counts in the block's scan
+constexpr int kSelectScan = kSelectUnroll * kSelectWarps / 32;
+
+// Replaces no Pallas kernel: the JAX server copies a batch's [Q, n_slots]
+// scores to the host and selects there (slot order to document order,
+// the coverage cutoff, the hits). This kernel does the first two and
+// compacts the hits on the card, so the host receives hit lists:
+// scores [>= Q, ld] in slot order, doc_slot [n_docs], cut [Q] ->
+// out [Q, 1 + 2 * cap]: out[q, 0] the number of documents d with
+// scores[q, doc_slot[d]] >= cut[q], then the first min(that, cap) of
+// them as (d, score) pairs in ascending d, then zeros. One block per
+// query walks the documents in tiles of kSelectTile: thread t takes
+// documents tile + u * kSelectThreads + t (u < kSelectUnroll), so each
+// warp's doc_slot loads are coalesced, all kUnroll slot loads and then
+// all score loads of a tile are in flight at once, and (step, warp,
+// lane) is document order. A warp ballot and popcount rank each hit in
+// its warp; one warp scans the tile's (step, warp) counts in shared
+// memory, and each hit is stored at its rank. Bound: bytes (doc_slot
+// read once, Q * n_docs scores read once, the hit lists written); at the
+// served batch ([32, 34,816] scores, 34,134 documents, cap 1,024) 4.5 MB,
+// 1.35 us at 3.35 TB/s. In practice a block's chain of dependent steps:
+// two loads and two barriers a tile, 5 tiles at that width.
+__global__ void __launch_bounds__(kSelectThreads)
+select_kernel(const int32_t* __restrict__ scores, int ld,
+              const int32_t* __restrict__ doc_slot,
+              const int32_t* __restrict__ cut, int n_docs, int cap,
+              int32_t* __restrict__ out) {
+  __shared__ int s_rank[kSelectUnroll * kSelectWarps];
+  __shared__ int s_tile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int32_t* row = scores + static_cast<long long>(blockIdx.x) * ld;
+  int32_t* dst = out + static_cast<long long>(blockIdx.x) * (1 + 2LL * cap);
+  const int c = cut[blockIdx.x];
+  int found = 0;   // hits in the tiles before this one
+  for (int t0 = 0; t0 < n_docs; t0 += kSelectTile) {
+    int slot[kSelectUnroll], s[kSelectUnroll];
+#pragma unroll
+    for (int u = 0; u < kSelectUnroll; ++u) {
+      const int d = t0 + u * kSelectThreads + threadIdx.x;
+      slot[u] = d < n_docs ? doc_slot[d] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kSelectUnroll; ++u) {
+      s[u] = slot[u] >= 0 ? row[slot[u]] : 0;
+    }
+    unsigned hit[kSelectUnroll];
+#pragma unroll
+    for (int u = 0; u < kSelectUnroll; ++u) {
+      hit[u] = __ballot_sync(0xffffffffu, slot[u] >= 0 && s[u] >= c);
+      if (lane == 0) s_rank[u * kSelectWarps + warp] = __popc(hit[u]);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // exclusive scan of the tile's counts in (step, warp) order
+      int v[kSelectScan], sum = 0;
+#pragma unroll
+      for (int i = 0; i < kSelectScan; ++i) {
+        v[i] = s_rank[lane * kSelectScan + i];
+        sum += v[i];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int n = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += n;
+      }
+      int run = found + incl - sum;
+#pragma unroll
+      for (int i = 0; i < kSelectScan; ++i) {
+        s_rank[lane * kSelectScan + i] = run;
+        run += v[i];
+      }
+      if (lane == 31) s_tile = incl;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kSelectUnroll; ++u) {
+      if ((hit[u] >> lane) & 1u) {
+        const int at = s_rank[u * kSelectWarps + warp]
+                       + __popc(hit[u] & below);
+        if (at < cap) {
+          dst[1 + 2 * at] = t0 + u * kSelectThreads + threadIdx.x;
+          dst[2 + 2 * at] = s[u];
+        }
+      }
+    }
+    found += s_tile;
+    __syncthreads();   // s_rank and s_tile are the next tile's
+  }
+  for (int i = 2 * (found < cap ? found : cap) + threadIdx.x; i < 2 * cap;
+       i += kSelectThreads) {
+    dst[1 + i] = 0;
+  }
+  if (threadIdx.x == 0) dst[0] = found;
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream`
@@ -1234,6 +1342,25 @@ extern "C" int cobs_dedup_score(const void* uniq, const void* indir,
                             static_cast<const int32_t*>(indir),
                             static_cast<const int32_t*>(mask),
                             static_cast<int32_t*>(out), L, W);
+}
+
+// The selection of a dense batch: scores [>= Q, ld] (row stride ld),
+// doc_slot [n_docs] (each in [0, ld)), cut [Q] -> out [Q, 1 + 2 * cap];
+// one block per query.
+extern "C" int cobs_select_hits(const void* scores, const void* doc_slot,
+                                const void* cut, void* out, int Q, int ld,
+                                int n_docs, int cap, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (Q < 1 || ld < 0 || n_docs < 0 || cap < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  select_kernel<<<Q, kSelectThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(scores), ld,
+      static_cast<const int32_t*>(doc_slot), static_cast<const int32_t*>(cut),
+      n_docs, cap, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* cobs_error_string(int err) {

@@ -370,6 +370,23 @@ class ServingMetrics:
             "time a serving-loop thread waited for the loop's lock",
             window=self._window).observe(seconds)
 
+    def record_select(self, where: str, n: int = 1) -> None:
+        """``n`` requests whose hits the device selected (``where`` =
+        "card", ``serve_select_card_total``) or the host did
+        (``serve_select_host_total``, ``where`` its reason: "top_k",
+        "overflow", "paged", "pruned" or "point"). Registered at the
+        first selection, so a registry that never selects renders as
+        JAX's does."""
+        if where == "card":
+            self.registry.counter(
+                "serve_select_card_total",
+                "requests whose hits the device selected").inc(n)
+        else:
+            self.registry.counter(
+                "serve_select_host_total",
+                "requests selected on the host, by reason",
+                labels=("reason",)).labels(where).inc(n)
+
     def record_decode(self, seconds: float) -> None:
         """One host-side compressed shard decode (storage observer)."""
         self._decodes.inc()

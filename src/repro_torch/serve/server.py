@@ -13,29 +13,43 @@ Life of a request:
    each request's own threshold, and cached.
 3. Responses accumulate until ``pop_responses``.
 
+Selection. A dense dispatch (one launch over the resident arena) selects
+each request's hits on the index's device (``select_scores``: slot order
+to document order, the coverage cutoff, the hits compacted) and copies
+back only the hit lists, through a pinned staging buffer. A request with
+``top_k`` or with more than ``SELECT_CAP`` hits takes its own score row to
+the host instead, and paged, pruned and point queries select on the host
+as before; every path gives ``select_hits``'s / ``select_top_k``'s
+result. ``serve_select_card_total`` and ``serve_select_host_total``
+(by reason) count the requests of each.
+
 The server is single-threaded and clock-injectable: drivers decide the
 cadence (closed-loop drivers call ``drain``, open-loop ones ``step`` on
 arrival timestamps), and tests run on a virtual clock. Every kernel span
-ends after the scores are on the host, so the kernel profiler's times are
-host times from the terms' upload through the scores' copy, not launch
-times and not the kernels' device time alone. ``obs.trace.span`` times
+ends after the scores (for a dense dispatch, the hits selected from them)
+are on the host, so the kernel profiler's times are host times from the
+terms' upload through that copy, not launch times and not the kernels'
+device time alone. ``obs.trace.span`` times
 each stage: into the traced requests' marks, and into ``repro.<stage>``
 ranges while a torch profiler runs (``repro.score_batch`` around a batch,
 with ``repro.plan``, ``repro.stage``, ``repro.launch``, ``repro.copy`` and
-``repro.select`` inside).
+``repro.select`` inside; ``repro.permute`` inside ``repro.select`` wherever
+score rows reach the host).
 
 With ``ServerConfig.autotune`` or ``tuning_cache`` the planner plans from
 a ``KernelTuner``'s costs measured on the server's device and persisted to
 disk (a reopened server plans from the file without re-tuning), and the
 kernel profiler feeds live costs back into it, as in the JAX server. It
-differs from the JAX server in one deliberate way: its tile cache does not
+differs from the JAX server in two deliberate ways: its tile cache does not
 pad tiles to a common height (PyTorch runs eagerly, so padding would only
-cost bytes).
+cost bytes), and it selects a dense batch's hits on the device (the JAX
+server selects in numpy; the answers are equal).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import Counter
 from typing import Callable, Optional
 
 import numpy as np
@@ -52,6 +66,7 @@ from ..core.query import (PruneStats, SearchResult, _to_device,
                           select_top_k)
 from ..device import resolve_device
 from ..kernels.autotune import KernelTuner, TuningCache
+from ..kernels.bitslice_score import select_scores
 from ..obs import EventLog, KernelProfiler, Tracer
 from ..obs.profile import gather_bytes
 from ..obs.trace import span
@@ -125,8 +140,26 @@ class ServerConfig:
     profile_kernels: bool = True
 
 
+# Most hits a request's list brings back from a dense dispatch. The lists
+# of a batch come back whole (Q * (1 + 2 * SELECT_CAP) int32: 262 KB at
+# 32 requests); a request with more hits copies its own score row.
+SELECT_CAP = 1024
+# the cutoff of a request the device does not select for (top-k, no terms)
+_NO_CUT = np.iinfo(np.int32).max
+
+
 def _next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
+
+
+@dataclasses.dataclass
+class _CardHits:
+    """A dense dispatch's selection: its scores [>= Q, n_slots] in slot
+    order, left on the index's device for the requests that take the host
+    path, and each live request's hit list as ``select_scores`` wrote it
+    ([Q, 1 + 2 * cap]), on the host in the server's staging buffer."""
+    scores: torch.Tensor
+    lists: np.ndarray
 
 
 class QueryServer(ServingBackend):
@@ -176,6 +209,17 @@ class QueryServer(ServingBackend):
         self._responses: dict[int, QueryResponse] = {}
         self._next_id = 0
         self._host_slot = np.asarray(index.layout.doc_slot)
+        # select_scores reads the index's resident doc_slot without its
+        # range check (a device sync a batch) once the host has checked it
+        self._slots_checked = bool(
+            self._host_slot.size == 0
+            or (self._host_slot.min() >= 0
+                and self._host_slot.max() < index.layout.n_slots))
+        # where a batch's hit lists land on the host (one batch at a time:
+        # score_batch is not reentrant); pinned for the card's async copy
+        self._staging = torch.empty(
+            config.max_batch * (1 + 2 * SELECT_CAP), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
         # Out-of-core serving state: shard tiles page onto the device
         # through a bounded LRU (unpadded, as the port's QueryEngine's);
         # dense storage is one "shard", the resident arena.
@@ -317,6 +361,7 @@ class QueryServer(ServingBackend):
         if row is None:
             row = self._gather_host_row(terms[0])
             self.rows_cache.put(k, row)
+        self.metrics.record_select("point")
         bits = ((row[:, None] >> np.arange(32, dtype=np.uint32)) & 1)
         scores = bits.astype(np.int32).reshape(-1)[self._host_slot]
         return self._select(scores, 1, threshold, top_k), hit
@@ -331,14 +376,40 @@ class QueryServer(ServingBackend):
         return select_hits(scores, n_terms, threshold)
 
     # -- batch scoring -------------------------------------------------------
-    def _run_plan(self, plan, fn, terms_dev, valid_dev, fn_comp=None,
-                  seq: Optional[int] = None) -> np.ndarray:
+    def _cutoffs(self, requests) -> torch.Tensor:
+        """Each request's integer coverage cutoff on the index's device,
+        ``_NO_CUT`` where the device selects nothing (top-k, no terms)."""
+        cut = np.array([_NO_CUT if r.top_k or not r.n_terms else
+                        min(coverage_cutoff(r.threshold, r.n_terms), _NO_CUT)
+                        for r in requests], dtype=np.int32)
+        return torch.from_numpy(cut).to(self.index.device)
+
+    def _card_hits(self, out: torch.Tensor, cut_dev: torch.Tensor,
+                   seq: Optional[int]) -> _CardHits:
+        """The tail of a dense dispatch: the live requests' hits selected
+        from ``out`` on the index's device, then their lists copied, the
+        batch's one copy to the host, into the staging buffer."""
+        scores = out.view(1, -1) if out.dim() == 1 else out
+        with span("launch", seq=seq):
+            lists = select_scores(scores, self.index.doc_slot, cut_dev,
+                                  SELECT_CAP,
+                                  range_checked=self._slots_checked)
+        with span("copy", seq=seq):
+            host = self._staging[: lists.numel()].view(lists.shape)
+            host.copy_(lists, non_blocking=True)
+            if lists.is_cuda:
+                torch.cuda.current_stream(lists.device).synchronize()
+        return _CardHits(scores, host.numpy())
+
+    def _run_plan(self, plan, fn, terms_dev, valid_dev, cut_dev,
+                  fn_comp=None, seq: Optional[int] = None):
         """Dispatch ``fn`` once against the dense arena, or, for a paged
         plan, once per shard tile (staged through the LRU tile cache),
         concatenating per-shard slot scores along the slot axis. With
         ``fn_comp`` (compressed plans) dict-coded shards stage their
         (dict, refs) form and score through the fused-decode kernels.
-        Returns the scores on the host."""
+        Returns a dense dispatch's hits, selected on the device against
+        ``cut_dev``, or a paged dispatch's scores on the host."""
         if not plan.paged:
             with span("launch", seq=seq):
                 if (fn_comp is not None and self.index.storage.shard_codec(0)
@@ -350,8 +421,7 @@ class QueryServer(ServingBackend):
                 else:
                     out = fn(self.tiles.get(0), self.index.row_offset,
                              self.index.block_width, terms_dev, valid_dev)
-            with span("copy", seq=seq):
-                return out.cpu().numpy()
+            return self._card_hits(out, cut_dev, seq)
         if fn_comp is not None:
             return np.concatenate(
                 run_paged_compressed(self.tiles, self._shard_args, fn,
@@ -362,13 +432,14 @@ class QueryServer(ServingBackend):
                       valid_dev), axis=-1)
 
     def _score_dedup(self, buf: np.ndarray, n_valid: np.ndarray, plan,
-                     marks: Optional[list] = None,
-                     seq: Optional[int] = None) -> Optional[np.ndarray]:
+                     cut_dev: Optional[torch.Tensor],
+                     marks: Optional[list] = None, seq: Optional[int] = None):
         """Row-dedup dispatch, or None when the batch's dedup rate is
         below the plan's threshold. The global-layout plan decides; dense
-        execution reuses it, paged execution re-plans per shard against
-        the rebased addressing. ``marks`` collects (name, start, end,
-        tags) stage timings for tracing."""
+        execution reuses it (and selects its hits on the device against
+        ``cut_dev``), paged execution re-plans per shard against the
+        rebased addressing. ``marks`` collects (name, start, end, tags)
+        stage timings for tracing."""
         layout = self.index.layout
         with span("dedup_plan", marks, clock=self.clock, seq=seq) as sp:
             dp = plan_dedup_batch(buf, n_valid, layout.row_offset,
@@ -400,8 +471,7 @@ class QueryServer(ServingBackend):
                                             "the arena")
                     with span("launch", seq=seq):
                         out = fn(arena, *args, range_checked=True)
-                with span("copy", seq=seq):
-                    slots = out.cpu().numpy()
+                slots = self._card_hits(out, cut_dev, seq)
             else:
                 slots = run_paged_dedup(self.tiles, self.planner.shard_plans,
                                         fn, buf, n_valid, fn_comp=fn_comp)
@@ -525,8 +595,10 @@ class QueryServer(ServingBackend):
                 tk0 = self.clock()
                 with span("stage", seq=seq):
                     terms_dev = _to_device(buf, self.index.device)
+                    cut_dev = (None if plan.paged
+                               else self._cutoffs(batch.requests))
                 slots = self._run_plan(plan, fn, terms_dev, int(ells[0]),
-                                       fn_comp=fn_comp, seq=seq)
+                                       cut_dev, fn_comp=fn_comp, seq=seq)
                 self._kernel_mark(ks, marks, method, plan, tk0, self.clock(),
                                   rows=B * nb)
         else:
@@ -539,9 +611,12 @@ class QueryServer(ServingBackend):
                     buf[i, : r.n_terms] = r.terms
                 n_valid = np.zeros(q_pad, dtype=np.int32)
                 n_valid[:Q] = ells
+                cut_dev = (None if plan.paged
+                           else self._cutoffs(batch.requests))
             slots = None
             if plan.fused and plan.dedup_threshold is not None:
-                slots = self._score_dedup(buf, n_valid, plan, marks, seq)
+                slots = self._score_dedup(buf, n_valid, plan, cut_dev, marks,
+                                          seq)
                 if slots is not None:
                     method = "dedup_c" if plan.compressed else "dedup"
             if slots is None:
@@ -556,15 +631,27 @@ class QueryServer(ServingBackend):
                         valid_dev = torch.from_numpy(n_valid).to(
                             self.index.device)
                     slots = self._run_plan(plan, fn, terms_dev, valid_dev,
-                                           fn_comp=fn_comp, seq=seq)
+                                           cut_dev, fn_comp=fn_comp, seq=seq)
                     self._kernel_mark(ks, marks, method, plan, tk0,
                                       self.clock(), rows=q_pad * nb * B)
-        # the host tail: slot order to document order, then each request's
-        # selection, response and cache entry
+        # the host tail: each request's result from its hit list, or from
+        # its score row in document order, then its response and cache entry
         with span("select", seq=seq):
-            with span("permute", seq=seq):
-                scores = (slots[None, self._host_slot] if slots.ndim == 1
-                          else slots[:Q][:, self._host_slot])
+            if isinstance(slots, _CardHits):
+                host = ["top_k" if r.top_k else
+                        "overflow" if slots.lists[i, 0] > SELECT_CAP else None
+                        for i, r in enumerate(batch.requests)]
+            else:
+                with span("permute", seq=seq):
+                    scores = (slots[None, self._host_slot] if slots.ndim == 1
+                              else slots[:Q][:, self._host_slot])
+                host = ["pruned" if plan.pruned else "paged"] * Q
+            n_host = Q - host.count(None)
+            if n_host < Q:
+                self.metrics.record_select("card", Q - n_host)
+            for reason, n in Counter(filter(None, host)).items():
+                self.metrics.record_select(reason, n)
+            sel_tags = {"card": Q - n_host, "host": n_host}
             t1 = self.clock()
             service = t1 - t0
 
@@ -590,8 +677,25 @@ class QueryServer(ServingBackend):
                     prefetch_hits=self.tiles.prefetch_hits - tiles0[3])
             for i, r in enumerate(batch.requests):
                 ts0 = self.clock()
-                result = self._select(scores[i], r.n_terms, r.threshold,
-                                      r.top_k)
+                if not isinstance(slots, _CardHits):
+                    result = self._select(scores[i], r.n_terms, r.threshold,
+                                          r.top_k)
+                elif host[i]:
+                    with span("permute", seq=seq):
+                        row = slots.scores[i].cpu().numpy()[self._host_slot]
+                    result = self._select(row, r.n_terms, r.threshold,
+                                          r.top_k)
+                else:
+                    # the host's selection over the device's hits, which
+                    # are in document order: its cutoff keeps them all and
+                    # its stable sort gives select_hits's order; positions
+                    # in the list map back to documents
+                    n = int(slots.lists[i, 0])
+                    pairs = slots.lists[i, 1:1 + 2 * n].reshape(n, 2)
+                    sub = self._select(pairs[:, 1], r.n_terms, r.threshold,
+                                       0)
+                    result = dataclasses.replace(
+                        sub, doc_ids=pairs[sub.doc_ids, 0])
                 wait = max(0.0, t0 - r.submitted_at)
                 self.metrics.record_request(wait_s=wait, service_s=service)
                 resp = QueryResponse(
@@ -603,7 +707,7 @@ class QueryServer(ServingBackend):
                                  "batch_size": Q})
                     for name, ms, me, tags in marks:
                         r.trace.add(name, ms, me, tags)
-                    r.trace.add("select", ts0, self.clock())
+                    r.trace.add("select", ts0, self.clock(), sel_tags)
                     self.finalize_trace(r.trace, resp)
                 self._responses[r.request_id] = resp
                 self.results_cache.put(

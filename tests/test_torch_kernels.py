@@ -16,6 +16,7 @@ from repro.kernels import bitslice_score as jax_k
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 
+from repro_torch.core.query import coverage_cutoff, select_hits
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import bitslice_score as k
 
@@ -185,6 +186,26 @@ def test_wrappers_check_their_inputs():
         k.lookup_score(arena, idx[0], idx[0].to("meta"))
     with pytest.raises(ValueError, match="unknown method"):
         ops.bitslice_score(torch.zeros((3, 4), dtype=torch.int32), "lookup")
+    scores = torch.zeros((4, 16), dtype=torch.int32)
+    slot = torch.arange(10, dtype=torch.int32)
+    cut = torch.ones(3, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        k.select_scores(scores.long(), slot, cut, 4)
+    with pytest.raises(ValueError, match="dimensions"):
+        k.select_scores(scores, slot[None], cut, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        k.select_scores(torch.zeros((16, 4), dtype=torch.int32).T, slot,
+                        cut, 4)
+    with pytest.raises(ValueError, match="5 cutoffs for 4 score rows"):
+        k.select_scores(scores, slot, torch.ones(5, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="cap"):
+        k.select_scores(scores, slot, cut, 0)
+    with pytest.raises(IndexError, match="outside the scores' 16 slots"):
+        k.select_scores(scores, slot + 7, cut, 4)
+    with pytest.raises(IndexError):
+        k.select_scores(scores, slot - 1, cut, 4, range_checked=True)
+    with pytest.raises(ValueError, match="different devices"):
+        k.select_scores(scores, slot, cut.to("meta"), 4)
 
 
 def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
@@ -203,6 +224,8 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     k.lookup_score(arena, idx[0, 0], idx[0, 0])
     k.lookup_score_blocks(arena, idx[0], idx[0])
     k.lookup_score_multi(arena, idx, idx)
+    k.select_scores(idx.reshape(6, 9), torch.arange(9, dtype=torch.int32),
+                    idx[:, 0, 0].contiguous(), 4)
     assert k.launches == before
 
 
@@ -222,3 +245,66 @@ def test_kernel_source_defines_every_entry_point():
     for name in list(_build._SIGNATURES) + ["cobs_error_string"]:
         assert f'extern "C" ' in src and f" {name}(" in src
     assert _build.library_path().parent == _build.BUILD_DIR
+    # the selection's entry point launches the selection kernel, whose
+    # name no scoring kernel's pattern (``*_kernel`` of a lookup, dedup,
+    # gather, unpack or vertical) takes in
+    entry = src[src.index(" cobs_select_hits("):]
+    assert "select_kernel<<<" in entry[:entry.index("\n}")]
+    assert "cobs_select_hits" in _build._SIGNATURES
+    assert k.launches["select_scores"] >= 0
+
+
+# --------------------------------------------------------------------------
+# selection: select_plain's hit lists against select_hits
+# --------------------------------------------------------------------------
+
+# name -> (queries Q, score rows R >= Q, documents, slots, n_terms of each
+# query, threshold, scores drawn from [lo, hi) as shares of n_terms, cap)
+SELECT_CASES = {
+    "ties": (4, 4, 300, 320, [40, 41, 40, 7], 0.8, (0.6, 1.01), 1024),
+    "none above": (3, 4, 200, 256, [50, 50, 50], 0.9, (0.0, 0.85), 1024),
+    "no terms": (2, 2, 64, 64, [0, 30], 0.5, (0.0, 1.01), 1024),
+    "Q not a power of two": (5, 8, 500, 512, [60, 61, 62, 63, 64], 0.7,
+                             (0.5, 1.01), 1024),
+    "Q = 1": (1, 1, 90, 96, [25], 0.6, (0.3, 1.01), 1024),
+    "over the cap": (3, 4, 300, 320, [20, 20, 20], 0.5, (0.3, 1.01), 7),
+    "no documents": (2, 2, 0, 32, [10, 10], 0.5, (0.0, 1.01), 4),
+}
+
+
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_select_plain_equals_select_hits(case):
+    Q, R, n_docs, S, ells, thr, (lo, hi), cap = SELECT_CASES[case]
+    rng = np.random.default_rng(len(case))
+    scores = np.stack([rng.integers(int(lo * max(e, 1)),
+                                    int(hi * max(e, 1)) + 1, size=S)
+                       for e in ells + [0] * (R - Q)]).astype(np.int32)
+    doc_slot = rng.permutation(S)[:n_docs].astype(np.int32)
+    # a query with no terms gets the cutoff no score reaches, as the
+    # server gives it
+    cut = np.array([coverage_cutoff(thr, e) if e else np.iinfo(np.int32).max
+                    for e in ells], np.int32)
+    lists = k.select_plain(_t(scores), _t(doc_slot), _t(cut), cap).numpy()
+    assert lists.shape == (Q, 1 + 2 * cap) and lists.dtype == np.int32
+    np.testing.assert_array_equal(
+        k.select_scores(_t(scores), _t(doc_slot), _t(cut), cap).numpy(),
+        lists)
+    for q, e in enumerate(ells):
+        want = select_hits(scores[q][doc_slot], e, thr)
+        n = int(lists[q, 0])
+        if e == 0:
+            assert n == 0 and want.doc_ids.size == 0
+            continue
+        assert n == want.doc_ids.size
+        # the first min(n, cap) hits in document order, then zeros
+        by_doc = np.argsort(want.doc_ids, kind="stable")[:cap]
+        pairs = lists[q, 1:1 + 2 * min(n, cap)].reshape(-1, 2)
+        np.testing.assert_array_equal(pairs[:, 0], want.doc_ids[by_doc])
+        np.testing.assert_array_equal(pairs[:, 1], want.scores[by_doc])
+        assert not lists[q, 1 + 2 * min(n, cap):].any()
+    if case == "ties":
+        assert max(np.bincount(lists[:, 2::2][lists[:, 2::2] > 0])) > 1
+    if case == "none above":
+        assert not lists[:, 0].any()
+    if case == "over the cap":
+        assert (lists[:, 0] > cap).all()

@@ -36,9 +36,13 @@ from repro.serve import ServerConfig as JaxConfig
 from repro.serve.planner import QueryPlanner as JaxPlanner
 
 from repro_torch.core import index_from_numpy, load_index_v2
+from repro_torch.core.query import compile_pattern, select_hits
 from repro_torch.core.store import tuning_path
 from repro_torch.kernels import autotune as tat
 from repro_torch.serve import QueryServer, ServerConfig, Status
+from repro_torch.serve import server as server_mod
+from repro_torch.serve.batcher import MicroBatch
+from repro_torch.serve.request import QueryRequest
 from repro_torch.serve.planner import QueryPlanner
 
 torch.set_num_threads(2)
@@ -318,6 +322,146 @@ def test_reset_metrics_equals_reference(world):
     assert dict(ts.planner.dispatch_counts) == dict(js.planner.dispatch_counts)
     assert dataclasses.asdict(ts.metrics.snapshot()) == \
         dataclasses.asdict(js.metrics.snapshot())
+
+
+# --------------------------------------------------------------------------
+# Selection: on the index's device for dense threshold batches (the port's
+# own path; JAX selects every batch on the host), else on the host
+# --------------------------------------------------------------------------
+
+def _select_counts(server) -> dict:
+    """{"card": n, <host reason>: n} from the server's registry."""
+    reg = server.metrics.registry
+    card = reg.get("serve_select_card_total")
+    host = reg.get("serve_select_host_total")
+    out = {"card": card.value} if card is not None else {}
+    if host is not None:
+        out.update({labels[0]: c.value for labels, c in host.children()})
+    return out
+
+
+# name -> (queries in the batch, threshold, scores drawn from [lo, hi) as
+# shares of each query's n_terms)
+RANDOM_SELECT = {
+    "ties": (4, 0.8, (0.7, 1.01)),
+    "none above": (3, 1.0, (0.0, 0.99)),
+    "Q = 3": (3, 0.5, (0.3, 1.01)),
+    "Q = 5": (5, 0.7, (0.5, 1.01)),
+    "Q = 1": (1, 0.6, (0.3, 1.01)),
+}
+
+
+@pytest.mark.parametrize("case", list(RANDOM_SELECT))
+def test_card_selection_equals_select_hits_on_random_scores(world, case):
+    """A dense batch's scores replaced by a random matrix with many ties
+    (the planner's score fns stubbed): every response equals select_hits
+    on that matrix's rows in document order, byte for byte, and every
+    request counts as selected on the device."""
+    Q, thr, (lo, hi) = RANDOM_SELECT[case]
+    c = world[0]
+    tidx = world[2]["dense"][1]
+    lay = tidx.layout
+    width = lay.n_blocks * lay.doc_words * 32
+    patterns = [d[:120] for d in c.documents[:Q]]
+    ells = [compile_pattern(p, tidx.params).shape[0] for p in patterns]
+    rng = np.random.default_rng(Q + len(case))
+    q_pad = 1 if Q == 1 else 1 << (Q - 1).bit_length()
+    scores = np.zeros((q_pad, width), np.int32)
+    for i, e in enumerate(ells):
+        scores[i] = rng.integers(int(lo * e), int(hi * e) + 1, size=width)
+    ts = QueryServer(tidx, ServerConfig(**NO_CACHE, dedup_min_rate=None),
+                     clock=Clock(), device=CPU)
+    ts.planner.batch_score_fn = lambda plan: (
+        lambda arena, offs, widths, terms, n_valid: torch.from_numpy(
+            scores[: terms.shape[0]]))
+    ts.planner.single_score_fn = lambda plan: (
+        lambda arena, offs, widths, terms, n_valid: torch.from_numpy(
+            scores[0]))
+    ids = [ts.submit(p, threshold=thr) for p in patterns]
+    ts.drain()
+    got = ts.pop_responses()
+    for i, rid in enumerate(ids):
+        want = select_hits(scores[i][np.asarray(lay.doc_slot)], ells[i], thr)
+        r = got[rid].result
+        assert got[rid].batch_size == Q
+        assert (r.n_terms, r.threshold) == (want.n_terms, want.threshold)
+        for a, b in ((r.doc_ids, want.doc_ids), (r.scores, want.scores)):
+            assert a.dtype == b.dtype == np.int32
+            assert a.tobytes() == b.tobytes()
+    assert _select_counts(ts) == {"card": Q}
+    hits = sum(got[rid].result.doc_ids.size for rid in ids)
+    assert hits == 0 if case == "none above" else hits > 0
+    if case == "ties":
+        s0 = got[ids[0]].result.scores
+        assert (np.diff(s0) == 0).any()
+
+
+def test_a_batched_request_without_terms_selects_nothing(world):
+    """``submit`` answers a query without terms at once; scored in a
+    batch beside others (as ``score_batch`` takes any micro-batch), it
+    gets the cutoff no score reaches and ``select_hits``'s empty result,
+    and the others their own."""
+    c = world[0]
+    tidx = world[2]["dense"][1]
+    ts = QueryServer(tidx, ServerConfig(**NO_CACHE), clock=Clock(),
+                     device=CPU)
+    terms = [compile_pattern(d[:120], tidx.params) for d in c.documents[:2]]
+    terms.insert(1, np.zeros((0, 2), np.uint32))
+    reqs = [QueryRequest(i, t, t.shape[0], 0.8, submitted_at=100.0,
+                         bucket=128) for i, t in enumerate(terms)]
+    ts.score_batch(MicroBatch(128, reqs, seq=1))
+    got = ts.pop_responses()
+    empty = select_hits(np.zeros(0, np.int32), 0, 0.8)
+    r = got[1].result
+    assert (r.doc_ids.tobytes(), r.scores.tobytes(), r.n_terms,
+            r.threshold) == (empty.doc_ids.tobytes(), empty.scores.tobytes(),
+                             0, 0)
+    assert got[0].result.doc_ids.size and got[2].result.doc_ids.size
+    assert _select_counts(ts) == {"card": 3}
+
+
+def test_overflowing_hit_lists_take_the_host_path(world, monkeypatch):
+    """With room for one hit a request, every request with more copies
+    its own score row: the answers stay the JAX server's."""
+    monkeypatch.setattr(server_mod, "SELECT_CAP", 1)
+    c = world[0]
+    script = (submit_all(_mix(c), threshold=0.3)
+              + submit_all(_reads(c.documents, 2, 6), threshold=0.3))
+    ts, resp = assert_same_serving(world, "dense", dict(NO_CACHE), script)
+    counts = _select_counts(ts)
+    many = sum(len(r[4][0]) > 1 for r in resp.values())
+    assert many > 0 and counts["overflow"] == many
+    assert counts["card"] + counts["overflow"] == len(resp)
+
+
+@pytest.mark.parametrize("case", ["top_k", "paged", "pruned", "point"])
+def test_host_selections_are_counted_with_unchanged_answers(world, case):
+    c = world[0]
+    qs = _mix(c)
+    kind, cfg = "dense", dict(NO_CACHE)
+    if case == "top_k":
+        script = (submit_all(qs[:4], top_k=5)
+                  + submit_all(qs[4:7], threshold=0.8))
+        want = {"top_k": 4, "card": 3}
+    elif case == "paged":
+        kind, script = "raw", submit_all(qs)
+        want = {"paged": len(qs)}
+    elif case == "pruned":
+        cfg = dict(NO_CACHE, pruned=True, prune_chunk=16, prune_min_rate=0.1)
+        script = submit_all(qs, threshold=0.9)
+        want = None
+    else:
+        cfg = dict(result_cache=0)
+        script = submit_all([d[:15] for d in c.documents[:5]])
+        want = {"point": 5}
+    ts, resp = assert_same_serving(world, kind, cfg, script)
+    counts = _select_counts(ts)
+    if want is None:
+        assert counts["pruned"] == ts.planner.dispatch_counts["lookup_p"] > 0
+        assert sum(counts.values()) == len(resp)
+    else:
+        assert counts == want
+    assert all(r[0] == Status.OK.value for r in resp.values())
 
 
 # --------------------------------------------------------------------------

@@ -33,7 +33,8 @@ CPU = [ProfilerActivity.CPU]
 WIRE_STAGES = {"queue_wait", "plan", "dedup_plan", "kernel_score", "prune",
                "tile_fetch", "select"}
 # what the dense path reaches: one request held for the flush timer, then
-# a burst that fills two buckets
+# a burst that fills two buckets, then a top-k request (its score row comes
+# to the host: repro.permute)
 DENSE = {"repro.compile", "repro.loop.submit", "repro.loop.timer_wait",
          "repro.loop.deliver", "repro.flush.timer", "repro.flush.full",
          "repro.score_batch", "repro.plan", "repro.stage",
@@ -59,8 +60,9 @@ def _server(idx, **cfg):
     return QueryServer(idx, ServerConfig(**cfg), device="cpu")
 
 
-def _serve(loop, c, n, start=0):
-    """Compile and submit ``n`` reads at once; wait for every answer."""
+def _serve(loop, c, n, start=0, **kw):
+    """Compile and submit ``n`` reads at once (``kw`` as ``submit``'s,
+    threshold 0.8 by default); wait for every answer."""
     done = threading.Semaphore(0)
     got = []
 
@@ -70,7 +72,8 @@ def _serve(loop, c, n, start=0):
 
     for i in range(start, start + n):
         terms = compile_pattern(c.documents[i % c.n_docs][:120], PARAMS)
-        loop.submit(terms=terms, threshold=0.8, on_done=on_done)
+        loop.submit(terms=terms, on_done=on_done,
+                    **{"threshold": 0.8, **kw})
     for _ in range(n):
         assert done.acquire(timeout=60)
     return got
@@ -89,11 +92,13 @@ def _ranges(prof, prefix="repro."):
 
 def _dense_run(c, idx, **kw):
     """The dense path under a profile: one request flushed by the timer,
-    then eight in two full buckets, then a collection."""
+    then eight in two full buckets, then a top-k request, then a
+    collection."""
     loop = ServingLoop(_server(idx, max_wait_s=0.2, max_batch=4)).start()
     try:
         with profile(activities=CPU, **kw) as prof:
-            got = _serve(loop, c, 1) + _serve(loop, c, 8, start=1)
+            got = (_serve(loop, c, 1) + _serve(loop, c, 8, start=1)
+                   + _serve(loop, c, 1, start=9, top_k=3))
             gc.collect()
     finally:
         loop.stop()
