@@ -21,6 +21,7 @@ returns them as numpy uint32.
 from __future__ import annotations
 
 import dataclasses
+import mmap
 import threading
 import time
 from collections import OrderedDict
@@ -328,6 +329,16 @@ class MappedArena(ArenaStorage):
             self._open[s] = a
         return a
 
+    def prefault(self, s: int) -> None:
+        """Read one word of every page of shard ``s``'s mapped file, so
+        that later reads of its rows find the pages mapped and in memory
+        (nothing for a shard held in memory or decoded from a compressed
+        source)."""
+        a = self.shard_host(s)
+        if isinstance(a, np.memmap) and a.size:
+            step = max(1, mmap.PAGESIZE // (a.shape[1] * a.itemsize))
+            np.add.reduce(a[::step, 0], dtype=np.uint64)
+
     # -- popcount stats surface ----------------------------------------------
     def has_popcounts(self) -> bool:
         """True when every shard carries a popcount sidecar."""
@@ -448,6 +459,10 @@ def wrap_arena(arena, device=None) -> ArenaStorage:
 # Device paging
 # --------------------------------------------------------------------------
 
+# each part of an upload starts on a 256-byte boundary of its allocation
+_ALIGN_WORDS = 64
+
+
 def _pad_dict_rows(n: int) -> int:
     """Pow2 padding (floor 8) of a staged dictionary's height, as the JAX
     cache pads it, so both caches account the same bytes."""
@@ -489,18 +504,24 @@ class DeviceTileCache:
     used RAW tile first (``_evict_victim``).
 
     ``prefetch`` stages a tile ahead of use and counts as a fault;
-    ``prefetch_hits`` counts gets served by a prefetched tile. On a CUDA
-    device every staging from host memory is one host copy from the
-    (read-only, mmap-backed) shard into a pinned buffer, then an
-    asynchronous copy on the cache's own side stream. The consuming
-    stream waits on that copy's event when it gets the tile, and the tile
-    is ``record_stream``-ed onto it, so the caching allocator cannot hand
-    the tile's memory out again while a kernel still reads it. A copy
-    from pageable memory would be synchronous, which is why the pinned
-    buffer is there: with it, the next shard's copy overlaps the current
-    shard's kernel. While a torch profiler runs, the host copy and the
-    copy's enqueue are the ranges ``repro.tile.host_copy`` and
-    ``repro.tile.h2d``.
+    ``prefetch_hits`` counts gets served by a prefetched tile. Every
+    staging from host memory is one host copy from the (read-only,
+    mmap-backed) shard into one of the cache's two staging buffers, used
+    in turn, then a copy to the device. The buffers are kept and grown,
+    never asked for anew a fault (``staging_allocs`` counts their
+    allocations); on a CUDA device they are pinned and the copy is
+    asynchronous, on the cache's own side stream, and the host waits for
+    the last copy out of a buffer before it writes that buffer again, so
+    the host copy of one staging overlaps the device copy of the one
+    before. The consuming stream waits on the copy's event when it gets
+    the tile, and the tile is ``record_stream``-ed onto it, so the caching
+    allocator cannot hand the tile's memory out again while a kernel
+    still reads it. A copy from pageable memory would be synchronous,
+    which is why the buffers are pinned: with them, the next shard's copy
+    overlaps the current shard's kernel. While a torch profiler runs, the
+    host copy and the copy's enqueue are the ranges ``repro.tile.host_copy``
+    and ``repro.tile.h2d``. ``upload`` sends other host data (the rows a
+    batch gathers from a shard that is not resident) the same way.
 
     Counters (hits, faults, prefetched, prefetch_hits, evictions, the
     per-shard dicts, resident and staged bytes) equal the JAX cache's for
@@ -526,6 +547,12 @@ class DeviceTileCache:
         self._sizes: dict = {}
         self._prefetched: set = set()
         self._copy_stream = None
+        # two int32 host buffers used in turn, and for each the event of
+        # the last copy out of it
+        self._staging: list = [None, None]
+        self._staging_free: list = [None, None]
+        self._turn = 0
+        self.staging_allocs = 0
         self.resident_bytes = 0
         self.hits = 0
         self.faults = 0
@@ -547,39 +574,82 @@ class DeviceTileCache:
                 pass              # accounting must never fail a gather
 
     # -- staging -------------------------------------------------------------
+    def _staging_buffer(self, n_words: int) -> tuple[int, torch.Tensor]:
+        """The next staging buffer in turn and its slot, int32 [>=
+        n_words], once the last copy out of it has ended; grown by half
+        again at the least, so tiles of slightly different heights do not
+        each allocate."""
+        i = self._turn
+        self._turn = 1 - i
+        if self._staging_free[i] is not None:
+            self._staging_free[i].synchronize()
+            self._staging_free[i] = None
+        buf = self._staging[i]
+        if buf is None or buf.numel() < n_words:
+            grown = 0 if buf is None else buf.numel() * 3 // 2
+            self._staging[i] = buf = None
+            self._staging[i] = buf = torch.empty(
+                max(n_words, grown), dtype=torch.int32,
+                pin_memory=self.device.type == "cuda")
+            self.staging_allocs += 1
+        return i, buf
+
+    def upload(self, shapes: list[tuple[int, ...]], fill,
+               fill_span: str = "tile.host_copy"):
+        """Host data to the cache's device through the staging buffer:
+        ``fill(views)`` writes each part into its view, an int32 numpy
+        array of ``shapes[i]`` in the buffer (inside the range
+        ``repro.<fill_span>``), and one copy takes them all. Returns the
+        parts on the device, each at a 256-byte boundary of one
+        allocation, and the side stream's event (None off CUDA). Under
+        the cache's lock, as the buffers are the cache's."""
+        sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+        offs = np.concatenate([[0], np.cumsum(
+            [-(-n // _ALIGN_WORDS) * _ALIGN_WORDS for n in sizes])])
+        total = max(1, int(offs[-1]))
+        ready = None
+        with self._lock:
+            slot, buf = self._staging_buffer(total)
+            with span(fill_span):
+                host = buf.numpy()
+                fill([host[o:o + n].reshape(s)
+                      for o, n, s in zip(offs, sizes, shapes)])
+            if self.device.type != "cuda":
+                with span("tile.h2d"):
+                    dev = buf[:total].clone().to(self.device)
+            else:
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(device=self.device)
+                with span("tile.h2d"), torch.cuda.stream(self._copy_stream):
+                    dev = buf[:total].to(self.device, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(self._copy_stream)
+                self._staging_free[slot] = ready
+        return [dev[o:o + n].view(s)
+                for o, n, s in zip(offs, sizes, shapes)], ready
+
     def _upload(self, arrays: list[np.ndarray], rows: list[int]):
         """Copy 4-byte host arrays, each zero-padded along axis 0 to
         ``rows[i]``, to the cache's device as int32 tensors. Returns the
         tensors and the side stream's event (None off CUDA)."""
-        if self.device.type != "cuda":
-            with span("tile.host_copy"):
-                host = []
-                for a, n in zip(arrays, rows):
-                    a = np.asarray(a)
-                    t = torch.zeros((n,) + a.shape[1:], dtype=torch.int32)
-                    t.numpy()[:a.shape[0]] = a.view(np.int32)
-                    host.append(t)
-            with span("tile.h2d"):
-                return [t.to(self.device) for t in host], None
-        with span("tile.host_copy"):
-            pinned = []
-            for a, n in zip(arrays, rows):
-                a = np.asarray(a)
-                p = torch.empty((n,) + a.shape[1:], dtype=torch.int32,
-                                pin_memory=True)
-                buf = p.numpy()
-                buf[:a.shape[0]] = a.view(np.int32)
-                buf[a.shape[0]:] = 0
-                pinned.append(p)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(device=self.device)
-        # the pinned buffers may be dropped once the copies are queued:
-        # PyTorch's host allocator does not reuse them until the copies end
-        with span("tile.h2d"), torch.cuda.stream(self._copy_stream):
-            outs = [p.to(self.device, non_blocking=True) for p in pinned]
-            ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
-        return outs, ready
+        arrays = [np.asarray(a) for a in arrays]
+
+        def fill(views):
+            for a, v in zip(arrays, views):
+                v[:a.shape[0]] = a.view(np.int32)
+                v[a.shape[0]:] = 0
+
+        return self.upload([(n,) + a.shape[1:]
+                            for a, n in zip(arrays, rows)], fill)
+
+    def wait(self, tensors, ready) -> None:
+        """Order the current stream after the copy ``ready`` of
+        ``tensors`` (from ``upload``) and tie their memory to it."""
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for t in tensors:
+                t.record_stream(stream)
 
     def _storage_on_device(self) -> bool:
         return (isinstance(self.storage, (DeviceArena, HostArena))
@@ -639,6 +709,39 @@ class DeviceTileCache:
     def has_compressed(self, s: int) -> bool:
         return ("c", s) in self._tiles
 
+    def resident(self, s: int, compressed: bool = False) -> bool:
+        """Whether shard ``s``'s tile (or (dict, refs) pair) is staged."""
+        return (("c", s) if compressed else s) in self._tiles
+
+    def form_nbytes(self, s: int, compressed: bool = False) -> int:
+        """Device bytes shard ``s``'s tile (or (dict, refs) pair) takes
+        once staged, as the cache accounts them."""
+        if not compressed:
+            return self._tile_nbytes(s)
+        dict_rows, refs = self.storage.shard_dict_host(s)
+        return 4 * (_pad_dict_rows(dict_rows.shape[0]) * dict_rows.shape[1]
+                    + (self.pad_rows_to or int(refs.shape[0])))
+
+    def fits(self, nbytes: int) -> bool:
+        """Whether ``nbytes`` more fit beside the resident tiles without
+        evicting one."""
+        return (self.capacity_bytes is None
+                or self.resident_bytes + nbytes <= self.capacity_bytes)
+
+    def warm(self, shards, compressed=lambda s: False) -> list[int]:
+        """Stage, in order, the tiles of ``shards`` that fit beside the
+        resident ones without evicting any (the (dict, refs) pair where
+        ``compressed(s)``), as a deployment warms its cache when its store
+        opens. Each counts as a prefetch; returns the shards staged."""
+        staged = []
+        for s in shards:
+            c = bool(compressed(s))
+            if (not self.resident(s, c)
+                    and self.fits(self.form_nbytes(s, c))):
+                self._prefetch(("c", s) if c else s)
+                staged.append(s)
+        return staged
+
     def _evict_victim(self):
         """The least recently used RAW tile goes first: a dict entry holds
         ratio-times more arena per resident byte. Plain LRU when only dict
@@ -684,12 +787,8 @@ class DeviceTileCache:
     def _hand_out(self, key, tile):
         """Order the current stream after the tile's copy and tie the
         tile's memory to that stream."""
-        ready = self._ready.get(key)
-        if ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(ready)
-            for t in (tile if isinstance(tile, tuple) else (tile,)):
-                t.record_stream(stream)
+        self.wait(tile if isinstance(tile, tuple) else (tile,),
+                  self._ready.get(key))
         return tile
 
     def _get(self, key):

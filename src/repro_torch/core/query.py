@@ -31,7 +31,8 @@ each shard once and sweeps a whole query set against it.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -188,48 +189,64 @@ def select_top_k(scores: np.ndarray, n_terms: int, k: int) -> SearchResult:
     return SearchResult(order.astype(np.int32), top, n_terms, int(top[-1]))
 
 
-def run_paged(tiles: DeviceTileCache, shard_args, fn, *args
-              ) -> list[np.ndarray]:
+def _no_gather(i: int) -> bool:
+    return False
+
+
+def run_paged(tiles: DeviceTileCache, shard_args, fn, *args, route=None,
+              to_host: bool = True) -> list:
     """Call ``fn(tile, offs, widths, *args)`` once per shard, in order.
     After shard i's kernels are launched, shard i+1 is prefetched: its copy
     runs on the tile cache's side stream while shard i is scored. Results
-    come to the host only after every shard has been launched.
-    ``shard_args`` is [(shard, row_offset, block_width)] with the offsets
-    and widths already on the device."""
+    come to the host only after every shard has been launched, or stay on
+    the device with ``to_host=False``. ``shard_args`` is [(shard,
+    row_offset, block_width)] with the offsets and widths already on the
+    device. With ``route`` (a ``RowGatherRoute`` over the same shards) the
+    shards it gathers are scored from the batch's rows read on the host,
+    and neither staged nor prefetched."""
+    gathers = _no_gather if route is None else route.gathers
     parts = []
     with span("launch"):
         for i, (s, offs, widths) in enumerate(shard_args):
-            out = fn(tiles.get(s), offs, widths, *args)
-            if i + 1 < len(shard_args):
+            out = (route.part(i) if gathers(i)
+                   else fn(tiles.get(s), offs, widths, *args))
+            if i + 1 < len(shard_args) and not gathers(i + 1):
                 tiles.prefetch(shard_args[i + 1][0])
             parts.append(out)
+    if not to_host:
+        return parts
     with span("copy"):
         return [p.cpu().numpy() for p in parts]
 
 
 def run_paged_compressed(tiles: DeviceTileCache, shard_args, fn_raw, fn_comp,
-                         *args) -> list[np.ndarray]:
+                         *args, route=None, to_host: bool = True) -> list:
     """``run_paged`` with a per-shard codec dispatch: dict-coded shards
     stage their (dict, refs) pair and go through
     ``fn_comp(dict_rows, refs, offs, widths, *args)``, raw shards through
     ``fn_raw``. The prefetch stages the form the next shard will be
-    scored in."""
+    scored in. ``route`` and ``to_host`` as in ``run_paged``."""
     storage = tiles.storage
     comp = [storage.shard_codec(s) in _codec.DICT_CODECS
             for (s, _, _) in shard_args]
+    gathers = _no_gather if route is None else route.gathers
     parts = []
     with span("launch"):
         for i, (s, offs, widths) in enumerate(shard_args):
-            if comp[i]:
+            if gathers(i):
+                out = route.part(i)
+            elif comp[i]:
                 dict_rows, refs = tiles.get_compressed(s)
                 out = fn_comp(dict_rows, refs, offs, widths, *args)
             else:
                 out = fn_raw(tiles.get(s), offs, widths, *args)
-            if i + 1 < len(shard_args):
+            if i + 1 < len(shard_args) and not gathers(i + 1):
                 nxt = shard_args[i + 1][0]
                 (tiles.prefetch_compressed if comp[i + 1]
                  else tiles.prefetch)(nxt)
             parts.append(out)
+    if not to_host:
+        return parts
     with span("copy"):
         return [p.cpu().numpy() for p in parts]
 
@@ -372,44 +389,287 @@ def dedup_inputs(dp: DedupBatchPlan, n_rows: int, device: torch.device,
 
 def run_paged_dedup(tiles: DeviceTileCache, shard_plans: list[ShardPlan], fn,
                     terms: np.ndarray, n_valid: np.ndarray,
-                    n_hashes: int = 1, fn_comp=None) -> np.ndarray:
+                    n_hashes: int = 1, fn_comp=None, *, route=None,
+                    to_host: bool = True):
     """Dedup-scored batch across shard tiles, the dedup analogue of
     ``run_paged``: per shard, plan the unique rows against the shard's
     rebased addressing, score through ``fn`` (from
     ``make_dedup_score_fn``), prefetch the next tile while the shard's
     kernels run, and concatenate the per-shard slot scores, which come to
-    the host after every shard has been launched.
+    the host after every shard has been launched (or stay on the device
+    with ``to_host=False``).
 
     With ``fn_comp`` (from ``make_comp_dedup_score_fn``) dict-coded shards
     stage their (dict, refs) pair and score through the decoding gather;
-    raw shards keep ``fn``. ``n_hashes`` > 1 plans row-set dedup."""
+    raw shards keep ``fn``. ``n_hashes`` > 1 plans row-set dedup.
+    ``route`` as in ``run_paged``."""
     storage = tiles.storage
     comp = [fn_comp is not None
             and storage.shard_codec(sp.shard) in _codec.DICT_CODECS
             for sp in shard_plans]
+    gathers = _no_gather if route is None else route.gathers
     parts = []
     with span("launch"):
         for i, sp in enumerate(shard_plans):
-            dp = plan_dedup_batch(terms, n_valid, sp.row_offset,
-                                  sp.block_width, n_hashes=n_hashes)
-            what = f"shard {sp.shard}'s tile"
-            if comp[i]:
-                dict_rows, refs = tiles.get_compressed(sp.shard)
-                out = fn_comp(dict_rows, refs,
-                              *dedup_inputs(dp, refs.shape[0], tiles.device,
-                                            what),
-                              range_checked=True)
+            if gathers(i):
+                out = route.part(i)
             else:
-                tile = tiles.get(sp.shard)
-                out = fn(tile, *dedup_inputs(dp, tile.shape[0], tiles.device,
-                                             what), range_checked=True)
-            if i + 1 < len(shard_plans):
+                dp = plan_dedup_batch(terms, n_valid, sp.row_offset,
+                                      sp.block_width, n_hashes=n_hashes)
+                what = f"shard {sp.shard}'s tile"
+                if comp[i]:
+                    dict_rows, refs = tiles.get_compressed(sp.shard)
+                    out = fn_comp(dict_rows, refs,
+                                  *dedup_inputs(dp, refs.shape[0],
+                                                tiles.device, what),
+                                  range_checked=True)
+                else:
+                    tile = tiles.get(sp.shard)
+                    out = fn(tile, *dedup_inputs(dp, tile.shape[0],
+                                                 tiles.device, what),
+                             range_checked=True)
+            if i + 1 < len(shard_plans) and not gathers(i + 1):
                 nxt = shard_plans[i + 1].shard
                 (tiles.prefetch_compressed if comp[i + 1]
                  else tiles.prefetch)(nxt)
             parts.append(out)
+    if not to_host:
+        return torch.cat(parts, dim=1)
     with span("copy"):
         return np.concatenate([p.cpu().numpy() for p in parts], axis=1)
+
+
+# --------------------------------------------------------------------------
+# The row-gather route of the exhaustive paged dispatch
+# --------------------------------------------------------------------------
+#
+# Every batch visits every shard. Through a tile cache smaller than the
+# store, a batch would restage each tile it lacks, although a read touches
+# a few hundred rows of a block of millions. The route reads instead the
+# batch's unique rows of each shard that is not resident out of the mapped
+# store on the host (as COBS's own out-of-core query reads its mmapped
+# index), uploads them through the tile cache's staging buffer in one copy,
+# and scores them with the dedup kernel in one launch, equal to scoring the
+# tiles. A tile is staged instead where it fits beside the resident ones
+# without evicting one, or where the batch's rows of it cost at least
+# ``promote_ratio`` of the tile (the pruned executor's promote rule): a
+# resident tile is never evicted for a batch whose rows cost less.
+
+ROUTES = ("resident", "gathered", "staged")
+
+
+@dataclass
+class GatherStats:
+    """What the row-gather route did (additive across batches)."""
+    rows_gathered: int = 0       # stored rows read on the host
+    bytes_gathered: int = 0      # their bytes
+    gather_s: float = 0.0        # host time of the gathers
+    visits: dict = field(default_factory=lambda: dict.fromkeys(ROUTES, 0))
+
+    def merge(self, other: "GatherStats") -> None:
+        self.rows_gathered += other.rows_gathered
+        self.bytes_gathered += other.bytes_gathered
+        self.gather_s += other.gather_s
+        for r, n in other.visits.items():
+            self.visits[r] = self.visits.get(r, 0) + n
+
+
+def promotes(gathered_bytes: int, tile_bytes: int,
+             promote_ratio: float) -> bool:
+    """The promote rule of both gathering executors: a shard's tile is
+    worth staging once the bytes gathered from it reach ``promote_ratio``
+    of the tile's device bytes."""
+    return gathered_bytes >= promote_ratio * tile_bytes
+
+
+def gather_rows_host(storage, shard: int, uniq: np.ndarray, k: int = 1,
+                     out: np.ndarray | None = None
+                     ) -> tuple[np.ndarray, int]:
+    """A shard's rows read on the host: ``uniq`` [U] shard-local rows, or
+    [U, k] row sets -> (uint32 [U, W], each set's rows ANDed, written
+    into ``out`` when given; the stored rows read: the distinct
+    dictionary rows of a rowdict shard, else U * k). A rowdict shard is
+    read through its (dict, refs) form and never expanded."""
+    flat = np.asarray(uniq, dtype=np.int64).reshape(-1)
+    if storage.shard_codec(shard) in _codec.DICT_CODECS:
+        d_host, r_host = storage.shard_dict_host(shard)
+        _check_rows(flat, r_host.shape[0], f"shard {shard}")
+        src, idx = d_host, np.asarray(r_host)[flat].astype(np.int64)
+        nread = int(np.unique(idx).size)
+    else:
+        src, idx, nread = storage.shard_host(shard), flat, int(flat.size)
+    _check_rows(idx, src.shape[0], f"shard {shard}")
+    W = int(storage.shape[1])
+    U = flat.size // k
+    if out is None:
+        out = np.empty((U, W), dtype=np.uint32)
+    if k == 1:
+        np.take(src, idx, axis=0, out=out, mode="clip")
+    else:
+        np.bitwise_and.reduce(np.take(src, idx, axis=0).reshape(U, k, W),
+                              axis=1, out=out)
+    return out, nread
+
+
+class RowGatherRoute:
+    """How one batch reaches each shard of an exhaustive paged dispatch
+    (``run_paged``, ``run_paged_compressed``, ``run_paged_dedup``):
+    ``resident`` (the tile is on the device), ``staged`` (through the
+    tile cache: it fits without evicting, or the batch's rows cost at
+    least ``promote_ratio`` of the tile) or ``gathered`` (the module
+    notes above). ``terms`` uint32 [Q, L, 2] and ``n_valid`` [Q] are the
+    batch on the host; ``compressed`` says dict-coded shards are staged
+    in their (dict, refs) form; ``single`` gives 1-D parts, as a
+    single-query score function does. The gathered shards' rows are
+    planned (``plan_dedup_batch``, over their blocks at once; or taken
+    from ``dedup_plan``, the batch's plan over every block of the store,
+    whose rows are the storage's, when the caller has one), read and
+    uploaded at the first gathered ``part``. ``stats`` (a ``GatherStats``)
+    receives the batch's visits and gathers."""
+
+    def __init__(self, tiles: DeviceTileCache, shard_plans: list[ShardPlan],
+                 terms: np.ndarray, n_valid: np.ndarray, *,
+                 n_hashes: int = 1, compressed: bool = False,
+                 promote_ratio: float = 1.0, single: bool = False,
+                 dedup_plan: DedupBatchPlan | None = None,
+                 stats: GatherStats | None = None):
+        self.tiles = tiles
+        self.plans = list(shard_plans)
+        self.terms = np.asarray(terms)
+        self.n_valid = np.asarray(n_valid, dtype=np.int32)
+        self.k = int(n_hashes)
+        self.single = single
+        self.stats = stats if stats is not None else GatherStats()
+        storage = tiles.storage
+        self._starts = np.asarray(storage.shard_row_starts, dtype=np.int64)
+        self._dict = [compressed and storage.shard_codec(sp.shard)
+                      in _codec.DICT_CODECS for sp in self.plans]
+        self._parts: dict[int, torch.Tensor] | None = None
+        self._plan = None
+        self._whole = dedup_plan
+        self.routes = self._decide(promote_ratio)
+        for r in self.routes:
+            self.stats.visits[r] += 1
+
+    def gathers(self, i: int) -> bool:
+        return self.routes[i] == "gathered"
+
+    def _decide(self, promote_ratio: float) -> list[str]:
+        tiles = self.tiles
+        free = (None if tiles.capacity_bytes is None
+                else tiles.capacity_bytes - tiles.resident_bytes)
+        routes, need = [], {}
+        for i, sp in enumerate(self.plans):
+            if tiles.resident(sp.shard, self._dict[i]):
+                routes.append("resident")
+                continue
+            need[i] = tiles.form_nbytes(sp.shard, self._dict[i])
+            if free is None or need[i] <= free:
+                routes.append("staged")
+                free = None if free is None else free - need[i]
+            else:
+                routes.append("gathered")
+        rest = [i for i, r in enumerate(routes) if r == "gathered"]
+        if not rest:
+            return routes
+        dp = self._plan_rows(rest)
+        first = (dp.uniq_rows[:dp.n_unique] if self.k == 1
+                 else dp.uniq_rows[:dp.n_unique, 0])
+        W = int(tiles.storage.shape[1])
+        for i in rest:
+            s = self.plans[i].shard
+            lo, hi = np.searchsorted(first, self._starts[s:s + 2])
+            if promotes(int(hi - lo) * self.k * W * 4, need[i],
+                        promote_ratio):
+                routes[i] = "staged"
+        kept = [i for i in rest if routes[i] == "gathered"]
+        self._plan = (kept, dp if kept == rest else
+                      self._plan_rows(kept) if kept else None)
+        return routes
+
+    def _plan_rows(self, idx: list[int]) -> DedupBatchPlan:
+        """The unique rows of the batch in the blocks of shards ``idx``,
+        addressed in the storage's rows (sorted, so grouped by shard)."""
+        if self._whole is not None:
+            return self._slice(self._whole, idx)
+        offs = np.concatenate([self.plans[i].row_offset.astype(np.int64)
+                               + self._starts[self.plans[i].shard]
+                               for i in idx])
+        wids = np.concatenate([self.plans[i].block_width for i in idx])
+        return plan_dedup_batch(self.terms, self.n_valid, offs, wids,
+                                n_hashes=self.k)
+
+    def _slice(self, dp: DedupBatchPlan, idx: list[int]) -> DedupBatchPlan:
+        """The part of a plan over every block that the blocks of shards
+        ``idx`` read: a shard's rows are one stretch of the plan's sorted
+        rows, so its cells' indices move by where that stretch lands."""
+        live = dp.uniq_rows[:dp.n_unique]
+        first = live if self.k == 1 else live[:, 0]
+        rows, indir, mask, base = [], [], [], 0
+        for i in idx:
+            sp = self.plans[i]
+            lo, hi = np.searchsorted(first, self._starts[sp.shard:
+                                                         sp.shard + 2])
+            m = dp.mask[:, sp.block_start:sp.block_end]
+            rows.append(live[lo:hi])
+            indir.append(np.where(m != 0, dp.indir[:, sp.block_start:
+                                                   sp.block_end] - lo + base,
+                                  0))
+            mask.append(m)
+            base += int(hi - lo)
+        mask = np.concatenate(mask, axis=1)
+        return DedupBatchPlan(
+            uniq_rows=np.concatenate(rows), n_unique=base,
+            indir=np.concatenate(indir, axis=1).astype(np.int32), mask=mask,
+            n_gathers=int(np.count_nonzero(mask)))
+
+    def part(self, i: int) -> torch.Tensor:
+        """Shard ``i``'s slot scores from its gathered rows, [Q, cols]
+        (or [cols] when ``single``), on the tile cache's device."""
+        if self._parts is None:
+            self._parts = self._score_gathered()
+        return self._parts[i]
+
+    def _score_gathered(self) -> dict[int, torch.Tensor]:
+        idx, dp = self._plan
+        storage, k = self.tiles.storage, self.k
+        W = int(storage.shape[1])
+        U = dp.n_unique
+        live = dp.uniq_rows[:U]
+        first = live if k == 1 else live[:, 0]
+        st = self.stats
+
+        def fill(views):
+            rows, indir, mask = views
+            rows = rows.view(np.uint32)
+            t0 = time.perf_counter()
+            for i in idx:
+                s = self.plans[i].shard
+                lo, hi = np.searchsorted(first, self._starts[s:s + 2])
+                if hi > lo:
+                    _, nread = gather_rows_host(
+                        storage, s, live[lo:hi] - self._starts[s], k,
+                        out=rows[lo:hi])
+                    st.rows_gathered += nread
+                    st.bytes_gathered += nread * W * 4
+            st.gather_s += time.perf_counter() - t0
+            rows[U:] = 0
+            indir[...] = dp.indir
+            mask[...] = dp.mask
+
+        (rows_d, indir_d, mask_d), ready = self.tiles.upload(
+            [(max(1, U), W), dp.indir.shape, dp.mask.shape], fill,
+            fill_span="tile.gather")
+        self.tiles.wait((rows_d, indir_d, mask_d), ready)
+        # indir indexes the gathered rows by construction
+        out = ops.bitslice_score_dedup(rows_d, indir_d, mask_d,
+                                       range_checked=True)
+        parts, c0 = {}, 0
+        for i in idx:
+            c1 = c0 + int(self.plans[i].row_offset.shape[0]) * W * 32
+            parts[i] = out[0, c0:c1] if self.single else out[:, c0:c1]
+            c0 = c1
+        return parts
 
 
 # --------------------------------------------------------------------------
@@ -620,7 +880,7 @@ def run_paged_pruned(tiles: DeviceTileCache, shard_plans: list[ShardPlan],
                                             device=dev)
             hbm = storage.shard_hbm_nbytes(sp.shard)
             if (not promoted[s] and not prefetch_issued[s]
-                    and gathered[s] >= 0.5 * promote_ratio * hbm):
+                    and promotes(gathered[s], hbm, 0.5 * promote_ratio)):
                 # prefetch the full tile at half the promote threshold, so
                 # its copy overlaps the remaining gather-fed chunks
                 prefetch_issued[s] = True
@@ -628,7 +888,7 @@ def run_paged_pruned(tiles: DeviceTileCache, shard_plans: list[ShardPlan],
                     tiles.prefetch_compressed(sp.shard)
                 else:
                     tiles.prefetch(sp.shard)
-            if not promoted[s] and gathered[s] >= promote_ratio * hbm:
+            if not promoted[s] and promotes(gathered[s], hbm, promote_ratio):
                 promoted[s] = True
                 if dict_coded[s]:
                     resident[s] = tiles.get_compressed(sp.shard)
@@ -662,31 +922,15 @@ def run_paged_pruned(tiles: DeviceTileCache, shard_plans: list[ShardPlan],
                     acc[s], range_checked=True)
             else:
                 uniq, inv = _unique_cells(rows[live], k)
-                if dict_coded[s]:
-                    d_host, r_host = storage.shard_dict_host(sp.shard)
-                    refs = np.asarray(r_host)[uniq]       # [U] or [U, k]
-                    mat = np.asarray(d_host[refs.reshape(-1)],
-                                     dtype=np.uint32)
-                    nread = int(np.unique(refs).size)
-                else:
-                    if (codecs[s] != _codec.CODEC_RAW
-                            and not decode_counted[s]):
-                        # non-dict compressed shards decode whole on touch
-                        decode_counted[s] = True
-                        stats.bytes_gathered += storage.shard_nbytes(sp.shard)
-                    host = storage.shard_host(sp.shard)
-                    mat = np.asarray(host[uniq.reshape(-1)],
-                                     dtype=np.uint32)
-                    nread = int(uniq.reshape(-1).size)
+                if (codecs[s] not in (_codec.CODEC_RAW,) + _codec.DICT_CODECS
+                        and not decode_counted[s]):
+                    # non-dict compressed shards decode whole on touch
+                    decode_counted[s] = True
+                    stats.bytes_gathered += storage.shard_nbytes(sp.shard)
+                mat, nread = gather_rows_host(storage, sp.shard, uniq, k)
                 if codecs[s] == _codec.CODEC_RAW or dict_coded[s]:
                     stats.bytes_gathered += nread * W * 4
-                gathered[s] += mat.shape[0] * W * 4
-                if k > 1:
-                    mat = mat.reshape(-1, k, W)
-                    anded = mat[:, 0]
-                    for i in range(1, k):
-                        anded = anded & mat[:, i]
-                    mat = anded
+                gathered[s] += uniq.size * W * 4
                 u_pad = np.zeros((_pad_unique(mat.shape[0]), W),
                                  dtype=np.uint32)
                 u_pad[: mat.shape[0]] = mat
@@ -972,6 +1216,24 @@ def gather_rows_comp(dict_rows: torch.Tensor, refs: torch.Tensor,
     return gather_rows(dict_rows, refs[rows.long()], valid)
 
 
+def _hash_once(n_hashes: int):
+    """``hashing.hash_terms`` that keeps its last result: a paged dispatch
+    scores one batch's terms against every shard and so hashes them once.
+    The cache holds the last terms tensor itself, so only that same object
+    hits it."""
+    last = None
+
+    def hashed(terms: torch.Tensor) -> torch.Tensor:
+        nonlocal last
+        c = last
+        if c is None or c[0] is not terms:
+            c = (terms, hashing.hash_terms(terms, n_hashes))
+            last = c
+        return c[1]
+
+    return hashed
+
+
 def _check_method(method: str) -> None:
     if method not in ops.METHODS:
         raise ValueError(f"unknown method {method!r}; one of {ops.METHODS}")
@@ -986,10 +1248,11 @@ def make_score_fn(n_hashes: int, method: str = "vertical"):
     ANDs the rows, then scores them with 'unpack', 'vertical' ('lookup'
     with k>1) or the 'ref' oracle."""
     _check_method(method)
+    hash_terms = _hash_once(n_hashes)
 
     def score(arena, row_offset, block_width, terms, n_valid):
         L = terms.shape[0]
-        h = hashing.hash_terms(terms, n_hashes)            # [L, k]
+        h = hash_terms(terms)                              # [L, k]
         rows = plan_rows(h, row_offset, block_width)       # [L, k, nb]
         valid = torch.arange(L, device=terms.device) < int(n_valid)
         if method == "lookup" and n_hashes == 1:
@@ -1018,10 +1281,11 @@ def make_batch_score_fn(n_hashes: int, method: str = "vertical",
     JAX vmaps the single-query scorer ('lookup' with k>1 is 'vertical').
     ``grid_order`` is the autotuner's key, validated by the kernel."""
     _check_method(method)
+    hash_terms = _hash_once(n_hashes)
 
     def score_batch(arena, row_offset, block_width, terms, n_valid):
         Q, L = terms.shape[0], terms.shape[1]
-        h = hashing.hash_terms(terms, n_hashes)            # [Q, L, k]
+        h = hash_terms(terms)                              # [Q, L, k]
         rows = plan_rows(h, row_offset, block_width)       # [Q, L, k, nb]
         valid = (torch.arange(L, device=terms.device)[None, :]
                  < n_valid[:, None])                       # [Q, L]
@@ -1045,10 +1309,11 @@ def make_comp_score_fn(n_hashes: int, method: str = "vertical"):
     case gathers ``dict_rows[refs[rows]]``, ANDs and scores as
     ``make_score_fn`` does."""
     _check_method(method)
+    hash_terms = _hash_once(n_hashes)
 
     def score(dict_rows, refs, row_offset, block_width, terms, n_valid):
         L = terms.shape[0]
-        h = hashing.hash_terms(terms, n_hashes)            # [L, k]
+        h = hash_terms(terms)                              # [L, k]
         rows = plan_rows(h, row_offset, block_width)       # [L, k, nb]
         valid = torch.arange(L, device=terms.device) < int(n_valid)
         if method == "lookup" and n_hashes == 1:
@@ -1071,11 +1336,12 @@ def make_comp_batch_score_fn(n_hashes: int, method: str = "vertical",
     multi-query kernel; the other methods score the double gather with a
     batch axis."""
     _check_method(method)
+    hash_terms = _hash_once(n_hashes)
 
     def score_batch(dict_rows, refs, row_offset, block_width, terms,
                     n_valid):
         Q, L = terms.shape[0], terms.shape[1]
-        h = hashing.hash_terms(terms, n_hashes)            # [Q, L, k]
+        h = hash_terms(terms)                              # [Q, L, k]
         rows = plan_rows(h, row_offset, block_width)       # [Q, L, k, nb]
         valid = (torch.arange(L, device=terms.device)[None, :]
                  < n_valid[:, None])                       # [Q, L]

@@ -80,8 +80,11 @@ def row_popcounts(matrix: np.ndarray, *, rows_per_slab: int = 1 << 16
     out = np.empty(matrix.shape[0], dtype=np.uint32)
     for r0 in range(0, matrix.shape[0], rows_per_slab):
         slab = np.ascontiguousarray(matrix[r0:r0 + rows_per_slab])
-        bits = np.unpackbits(slab.view(np.uint8), axis=1)
-        out[r0:r0 + slab.shape[0]] = bits.sum(axis=1, dtype=np.int64)
+        if hasattr(np, "bitwise_count"):        # numpy 2: a popcount
+            counts = np.bitwise_count(slab.view(np.uint32))
+        else:
+            counts = np.unpackbits(slab.view(np.uint8), axis=1)
+        out[r0:r0 + slab.shape[0]] = counts.sum(axis=1, dtype=np.int64)
     return out
 
 

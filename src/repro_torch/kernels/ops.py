@@ -114,6 +114,17 @@ def bitslice_lookup_score_dedup(arena: torch.Tensor, uniq_rows: torch.Tensor,
     return out.reshape(indir.shape[0], -1)
 
 
+def bitslice_score_dedup(uniq: torch.Tensor, indir: torch.Tensor,
+                         mask: torch.Tensor, *, range_checked: bool = False
+                         ) -> torch.Tensor:
+    """The second half of the dedup pair over rows already gathered:
+    uniq int32 [U, W] (each unique row or ANDed row set), indir / mask
+    int32 [Q, nb, L] -> int32 [Q, nb * W * 32] in (block, word, bit) slot
+    order."""
+    out = _k.dedup_score(uniq, indir, mask, range_checked=range_checked)
+    return out.reshape(indir.shape[0], -1)
+
+
 def bitslice_lookup_score_dedup_comp(dict_rows: torch.Tensor,
                                      refs: torch.Tensor,
                                      uniq_rows: torch.Tensor,

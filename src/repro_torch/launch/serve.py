@@ -766,6 +766,14 @@ def main(argv=None) -> None:
     print(f"mode={args.mode} served {snap.served} queries in {wall:.2f}s "
           f"-> {snap.served / wall:.0f} qps")
     print(snap.report())
+    visits = server.metrics.registry.get("serve_shard_visits_total")
+    if visits is not None:
+        # the port's row-gather route of paged batches
+        v = {labels[0]: c.value for labels, c in visits.children()}
+        rows = server.metrics.registry.get("serve_tile_rows_gathered_total")
+        print(f"shard visits[resident={v.get('resident', 0)} "
+              f"gathered={v.get('gathered', 0)} "
+              f"staged={v.get('staged', 0)}] rows gathered={rows.value}")
     print(f"accuracy vs ground truth: {correct}/{total}")
 
     if args.bulk:

@@ -44,9 +44,18 @@ its flush timer), ``repro.loop.deliver`` (the response callbacks) and,
 between ``start`` and ``stop``, ``repro.gc`` around every garbage
 collection. Each contended acquisition is also observed in the backend's
 ``serve_loop_lock_wait_seconds`` histogram.
+
+The first loop to start in a process moves every object the process holds
+then (the index, the torch modules, the rest of set-up) into the garbage
+collector's permanent generation (``gc.freeze``), as a server does once
+its index is loaded: a full collection while serving then scans what
+serving makes, not set-up's objects, which cost a collection a few
+hundred milliseconds on a card's host. The last loop to stop gives them
+back (``gc.unfreeze``).
 """
 from __future__ import annotations
 
+import gc
 import queue
 import threading
 import time
@@ -63,6 +72,26 @@ from .request import QueryResponse, Status
 # never longer than this defensive bound — a missed wakeup is re-checked
 # at worst one tick later. It is a backstop, not the latency floor.
 DEFAULT_POLL_S = 0.1
+
+
+_running = 0                  # loops started and not stopped
+_running_lock = threading.Lock()
+
+
+def _freeze_setup() -> None:
+    global _running
+    with _running_lock:
+        _running += 1
+        if _running == 1:
+            gc.freeze()
+
+
+def _unfreeze_setup() -> None:
+    global _running
+    with _running_lock:
+        _running -= 1
+        if _running == 0:
+            gc.unfreeze()
 
 
 class LoopClosed(RuntimeError):
@@ -162,6 +191,7 @@ class ServingLoop:
                              daemon=True)
             for i in range(self.n_workers)]
         _trace.watch_gc()
+        _freeze_setup()
         for t in self._threads:
             t.start()
         return self
@@ -183,6 +213,7 @@ class ServingLoop:
             t.join(timeout=timeout_s)
         self._threads = []
         _trace.unwatch_gc()
+        _unfreeze_setup()
         tracer = getattr(self.backend, "tracer", None)
         if tracer is not None:
             tracer.defer_finish = False

@@ -374,7 +374,7 @@ class ServingMetrics:
         """``n`` requests whose hits the device selected (``where`` =
         "card", ``serve_select_card_total``) or the host did
         (``serve_select_host_total``, ``where`` its reason: "top_k",
-        "overflow", "paged", "pruned" or "point"). Registered at the
+        "overflow", "pruned" or "point"). Registered at the
         first selection, so a registry that never selects renders as
         JAX's does."""
         if where == "card":
@@ -386,6 +386,31 @@ class ServingMetrics:
                 "serve_select_host_total",
                 "requests selected on the host, by reason",
                 labels=("reason",)).labels(where).inc(n)
+
+    def record_tile_route(self, stats) -> None:
+        """One paged batch's row-gather route (a ``core.query.GatherStats``):
+        its shard visits by route (``serve_shard_visits_total{route=
+        resident,gathered,staged}``), the stored rows it read on the host
+        and their bytes (``serve_tile_rows_gathered_total``,
+        ``serve_tile_gathered_bytes_total``) and the host time of the
+        reads (``serve_tile_gather_seconds``, one observation a batch; its
+        sum is the summed time). Registered at the first paged batch, so
+        a registry that never pages renders as JAX's does."""
+        r = self.registry
+        visits = r.counter("serve_shard_visits_total",
+                           "shard visits of paged batches, by route",
+                           labels=("route",))
+        for route, n in stats.visits.items():
+            visits.labels(route).inc(n)
+        r.counter("serve_tile_rows_gathered_total",
+                  "stored rows paged batches read on the host").inc(
+                      stats.rows_gathered)
+        r.counter("serve_tile_gathered_bytes_total",
+                  "bytes of the rows paged batches read on the host").inc(
+                      stats.bytes_gathered)
+        r.histogram("serve_tile_gather_seconds",
+                    "host time of a paged batch's row reads",
+                    window=self._window).observe(stats.gather_s)
 
     def record_decode(self, seconds: float) -> None:
         """One host-side compressed shard decode (storage observer)."""

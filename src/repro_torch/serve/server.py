@@ -13,15 +13,29 @@ Life of a request:
    each request's own threshold, and cached.
 3. Responses accumulate until ``pop_responses``.
 
-Selection. A dense dispatch (one launch over the resident arena) selects
-each request's hits on the index's device (``select_scores``: slot order
-to document order, the coverage cutoff, the hits compacted) and copies
-back only the hit lists, through a pinned staging buffer. A request with
-``top_k`` or with more than ``SELECT_CAP`` hits takes its own score row to
-the host instead, and paged, pruned and point queries select on the host
-as before; every path gives ``select_hits``'s / ``select_top_k``'s
-result. ``serve_select_card_total`` and ``serve_select_host_total``
-(by reason) count the requests of each.
+Selection. A dense dispatch (one launch over the resident arena) and a
+paged one (a launch a shard, the per-shard scores concatenated on the
+device) select each request's hits on the index's device
+(``select_scores``: slot order to document order, the coverage cutoff,
+the hits compacted) and copy back only the hit lists, through a pinned
+staging buffer. A request with ``top_k`` or with more than ``SELECT_CAP``
+hits takes its own score row to the host instead, and pruned and point
+queries select on the host as before; every path gives ``select_hits``'s
+/ ``select_top_k``'s result. ``serve_select_card_total`` and
+``serve_select_host_total`` (by reason) count the requests of each.
+
+Out of core. A sharded (mapped) index pages its shards through a
+``DeviceTileCache`` of ``tile_cache_bytes``; ``warm_tiles``, called when
+the store opens, stages tiles up to that budget (otherwise they are
+staged on first use). An exhaustive paged batch reaches each shard by
+``core.query.RowGatherRoute``: a resident tile is scored on the card, a
+shard that is not resident has the batch's unique rows read from the
+mapped store and scored by the dedup kernel, and a tile is staged only
+where it fits without evicting one or the batch's rows cost as much as
+the tile. ``tile_gathers`` (a ``GatherStats``) and the registry
+(``serve_tile_rows_gathered_total``, ``serve_tile_gathered_bytes_total``,
+``serve_tile_gather_seconds``, ``serve_shard_visits_total{route}``)
+count what the route did.
 
 The server is single-threaded and clock-injectable: drivers decide the
 cadence (closed-loop drivers call ``drain``, open-loop ones ``step`` on
@@ -59,11 +73,11 @@ from ..core import codec as _codec
 from ..core import hashing
 from ..core.arena import DeviceTileCache
 from ..core.index import BitSlicedIndex
-from ..core.query import (PruneStats, SearchResult, _to_device,
-                          compile_pattern, coverage_cutoff, dedup_inputs,
-                          plan_dedup_batch, run_paged, run_paged_compressed,
-                          run_paged_dedup, run_paged_pruned, select_hits,
-                          select_top_k)
+from ..core.query import (GatherStats, PruneStats, RowGatherRoute,
+                          SearchResult, _to_device, compile_pattern,
+                          coverage_cutoff, dedup_inputs, plan_dedup_batch,
+                          run_paged, run_paged_compressed, run_paged_dedup,
+                          run_paged_pruned, select_hits, select_top_k)
 from ..device import resolve_device
 from ..kernels.autotune import KernelTuner, TuningCache
 from ..kernels.bitslice_score import select_scores
@@ -230,6 +244,9 @@ class QueryServer(ServingBackend):
             (sp.shard, torch.from_numpy(sp.row_offset).to(index.device),
              torch.from_numpy(sp.block_width).to(index.device))
             for sp in self.planner.shard_plans]
+        # what the row-gather route of paged batches did, over the
+        # server's life
+        self.tile_gathers = GatherStats()
         # -- observability ---------------------------------------------------
         self.events = EventLog(config.trace_log,
                                ring=max(64, config.trace_ring))
@@ -250,6 +267,34 @@ class QueryServer(ServingBackend):
         if hasattr(index.storage, "decode_observer"):
             index.storage.decode_observer = \
                 lambda s, codec, sec: self.metrics.record_decode(sec)
+
+    def warm_tiles(self) -> list[int]:
+        """Stage the shards' tiles, smallest first, that fit in the tile
+        cache's budget without evicting one (every tile of an unbounded
+        cache), as a deployment warms its cache when it opens a store;
+        dict-coded shards in their (dict, refs) form when the server
+        serves compressed. Every batch visits every shard and reads about
+        as many rows of each, so the budget spares the most row gathers
+        when it holds the most tiles. The pages of the shards left on the
+        host are then mapped (``MappedArena.prefault``), so that the
+        row-gather route's first reads do not fault them in one by one.
+        Dense storage stages nothing. Returns the shards staged."""
+        st = self.index.storage
+        if st.n_shards < 2:
+            return []
+        comp = self.planner.compressed_enabled
+
+        def dict_form(s: int) -> bool:
+            return comp and st.shard_codec(s) in _codec.DICT_CODECS
+
+        order = sorted(range(st.n_shards),
+                       key=lambda s: self.tiles.form_nbytes(s, dict_form(s)))
+        staged = self.tiles.warm(order, compressed=dict_form)
+        if hasattr(st, "prefault"):
+            for s in order:
+                if not self.tiles.resident(s, dict_form(s)):
+                    st.prefault(s)
+        return staged
 
     def _on_tile_event(self, shard: int, event: str,
                        seconds: float) -> None:
@@ -401,15 +446,32 @@ class QueryServer(ServingBackend):
                 torch.cuda.current_stream(lists.device).synchronize()
         return _CardHits(scores, host.numpy())
 
+    def _route(self, plan, buf: np.ndarray, n_valid: np.ndarray, *,
+               single: bool = False, dedup_plan=None) -> RowGatherRoute:
+        """How a paged batch (host terms ``buf``, counts ``n_valid``, and
+        its dedup plan over the whole layout when one was made) reaches
+        each shard; its counts go to ``tile_gathers`` and the registry
+        once the batch is scored (``_record_route``)."""
+        return RowGatherRoute(self.tiles, self.planner.shard_plans, buf,
+                              n_valid, n_hashes=self.index.params.n_hashes,
+                              compressed=plan.compressed, single=single,
+                              dedup_plan=dedup_plan)
+
+    def _record_route(self, route: Optional[RowGatherRoute]) -> None:
+        if route is not None:
+            self.tile_gathers.merge(route.stats)
+            self.metrics.record_tile_route(route.stats)
+
     def _run_plan(self, plan, fn, terms_dev, valid_dev, cut_dev,
-                  fn_comp=None, seq: Optional[int] = None):
+                  fn_comp=None, seq: Optional[int] = None, route=None):
         """Dispatch ``fn`` once against the dense arena, or, for a paged
-        plan, once per shard tile (staged through the LRU tile cache),
-        concatenating per-shard slot scores along the slot axis. With
+        plan, once per shard as ``route`` says (a tile staged through the
+        LRU tile cache, or the batch's rows gathered), concatenating
+        per-shard slot scores along the slot axis on the device. With
         ``fn_comp`` (compressed plans) dict-coded shards stage their
         (dict, refs) form and score through the fused-decode kernels.
-        Returns a dense dispatch's hits, selected on the device against
-        ``cut_dev``, or a paged dispatch's scores on the host."""
+        Returns the dispatch's hits, selected on the device against
+        ``cut_dev``."""
         if not plan.paged:
             with span("launch", seq=seq):
                 if (fn_comp is not None and self.index.storage.shard_codec(0)
@@ -423,23 +485,25 @@ class QueryServer(ServingBackend):
                              self.index.block_width, terms_dev, valid_dev)
             return self._card_hits(out, cut_dev, seq)
         if fn_comp is not None:
-            return np.concatenate(
-                run_paged_compressed(self.tiles, self._shard_args, fn,
-                                     fn_comp, terms_dev, valid_dev),
-                axis=-1)
-        return np.concatenate(
-            run_paged(self.tiles, self._shard_args, fn, terms_dev,
-                      valid_dev), axis=-1)
+            parts = run_paged_compressed(self.tiles, self._shard_args, fn,
+                                         fn_comp, terms_dev, valid_dev,
+                                         route=route, to_host=False)
+        else:
+            parts = run_paged(self.tiles, self._shard_args, fn, terms_dev,
+                              valid_dev, route=route, to_host=False)
+        return self._card_hits(torch.cat(parts, dim=-1), cut_dev, seq)
 
     def _score_dedup(self, buf: np.ndarray, n_valid: np.ndarray, plan,
                      cut_dev: Optional[torch.Tensor],
                      marks: Optional[list] = None, seq: Optional[int] = None):
         """Row-dedup dispatch, or None when the batch's dedup rate is
-        below the plan's threshold. The global-layout plan decides; dense
-        execution reuses it (and selects its hits on the device against
-        ``cut_dev``), paged execution re-plans per shard against the
-        rebased addressing. ``marks`` collects (name, start, end, tags)
-        stage timings for tracing."""
+        below the plan's threshold, and the global-layout plan, which
+        decides (and which a paged batch's row-gather route reuses); dense
+        execution reuses it, paged execution re-plans per shard against the
+        rebased addressing (the shards the row-gather route reaches, at
+        once); either selects its hits on the device against ``cut_dev``.
+        ``marks`` collects (name, start, end, tags) stage timings for
+        tracing."""
         layout = self.index.layout
         with span("dedup_plan", marks, clock=self.clock, seq=seq) as sp:
             dp = plan_dedup_batch(buf, n_valid, layout.row_offset,
@@ -448,7 +512,7 @@ class QueryServer(ServingBackend):
                 sp.tags = {"dedup_rate": round(float(dp.dedup_rate), 4),
                            "n_unique": int(dp.n_unique)}
         if dp.dedup_rate < plan.dedup_threshold:
-            return None
+            return None, dp
         fn = self.planner.dedup_score_fn(plan)
         fn_comp = (self.planner.comp_dedup_score_fn(plan)
                    if plan.compressed else None)
@@ -473,13 +537,18 @@ class QueryServer(ServingBackend):
                         out = fn(arena, *args, range_checked=True)
                 slots = self._card_hits(out, cut_dev, seq)
             else:
-                slots = run_paged_dedup(self.tiles, self.planner.shard_plans,
-                                        fn, buf, n_valid, fn_comp=fn_comp)
+                route = self._route(plan, buf, n_valid, dedup_plan=dp)
+                slots = self._card_hits(
+                    run_paged_dedup(self.tiles, self.planner.shard_plans, fn,
+                                    buf, n_valid, fn_comp=fn_comp,
+                                    route=route, to_host=False),
+                    cut_dev, seq)
+                self._record_route(route)
             self._kernel_mark(ks, marks,
                               "dedup_c" if plan.compressed else "dedup",
                               plan, tk0, self.clock(),
                               rows=int(dp.uniq_rows.shape[0]))
-        return slots
+        return slots, dp
 
     def _kernel_mark(self, ks, marks: Optional[list], method: str, plan,
                      t0: float, t1: float, *, rows: int) -> None:
@@ -595,10 +664,13 @@ class QueryServer(ServingBackend):
                 tk0 = self.clock()
                 with span("stage", seq=seq):
                     terms_dev = _to_device(buf, self.index.device)
-                    cut_dev = (None if plan.paged
-                               else self._cutoffs(batch.requests))
+                    cut_dev = self._cutoffs(batch.requests)
+                route = (self._route(plan, buf[None], ells[:1], single=True)
+                         if plan.paged else None)
                 slots = self._run_plan(plan, fn, terms_dev, int(ells[0]),
-                                       cut_dev, fn_comp=fn_comp, seq=seq)
+                                       cut_dev, fn_comp=fn_comp, seq=seq,
+                                       route=route)
+                self._record_route(route)
                 self._kernel_mark(ks, marks, method, plan, tk0, self.clock(),
                                   rows=B * nb)
         else:
@@ -611,12 +683,11 @@ class QueryServer(ServingBackend):
                     buf[i, : r.n_terms] = r.terms
                 n_valid = np.zeros(q_pad, dtype=np.int32)
                 n_valid[:Q] = ells
-                cut_dev = (None if plan.paged
-                           else self._cutoffs(batch.requests))
-            slots = None
+                cut_dev = self._cutoffs(batch.requests)
+            slots = dp = None
             if plan.fused and plan.dedup_threshold is not None:
-                slots = self._score_dedup(buf, n_valid, plan, cut_dev, marks,
-                                          seq)
+                slots, dp = self._score_dedup(buf, n_valid, plan, cut_dev,
+                                              marks, seq)
                 if slots is not None:
                     method = "dedup_c" if plan.compressed else "dedup"
             if slots is None:
@@ -630,8 +701,12 @@ class QueryServer(ServingBackend):
                         terms_dev = _to_device(buf, self.index.device)
                         valid_dev = torch.from_numpy(n_valid).to(
                             self.index.device)
+                    route = (self._route(plan, buf, n_valid, dedup_plan=dp)
+                             if plan.paged else None)
                     slots = self._run_plan(plan, fn, terms_dev, valid_dev,
-                                           cut_dev, fn_comp=fn_comp, seq=seq)
+                                           cut_dev, fn_comp=fn_comp, seq=seq,
+                                           route=route)
+                    self._record_route(route)
                     self._kernel_mark(ks, marks, method, plan, tk0,
                                       self.clock(), rows=q_pad * nb * B)
         # the host tail: each request's result from its hit list, or from
@@ -643,9 +718,8 @@ class QueryServer(ServingBackend):
                         for i, r in enumerate(batch.requests)]
             else:
                 with span("permute", seq=seq):
-                    scores = (slots[None, self._host_slot] if slots.ndim == 1
-                              else slots[:Q][:, self._host_slot])
-                host = ["pruned" if plan.pruned else "paged"] * Q
+                    scores = slots[:Q][:, self._host_slot]
+                host = ["pruned"] * Q
             n_host = Q - host.count(None)
             if n_host < Q:
                 self.metrics.record_select("card", Q - n_host)

@@ -233,6 +233,24 @@ def test_gc_ranges_between_start_and_stop_only(world):
     assert otrace._GC_SPANS not in gc.callbacks
 
 
+def test_set_up_frozen_while_a_loop_runs(world):
+    """The first loop to start freezes what the process holds; a second
+    loop's start and stop leave that be, and the last to stop unfreezes
+    it."""
+    _, idx = world
+    before = gc.get_freeze_count()      # the interpreter's own, at start
+    loop = ServingLoop(_server(idx)).start()
+    try:
+        frozen = gc.get_freeze_count()
+        assert frozen > before
+        other = ServingLoop(_server(idx)).start()
+        other.stop()             # counted: still frozen for `loop`
+        assert gc.get_freeze_count() >= frozen
+    finally:
+        loop.stop()
+    assert gc.get_freeze_count() == 0
+
+
 def test_no_profiler_no_range_entered(world, monkeypatch):
     c, idx = world
 
