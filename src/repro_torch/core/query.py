@@ -296,9 +296,36 @@ class DedupBatchPlan:
     def dedup_rate(self) -> float:
         """Share of the fused path's row reads the dedup path saves:
         1 - unique/total. 0 = fully disjoint batch, ->1 = heavy sharing."""
-        if self.n_gathers == 0:
-            return 0.0
-        return 1.0 - self.n_unique / self.n_gathers
+        return dedup_rate(self.n_unique, self.n_gathers)
+
+
+def dedup_rate(n_unique: int, n_gathers: int) -> float:
+    """``DedupBatchPlan.dedup_rate`` of a plan with these counts."""
+    if n_gathers == 0:
+        return 0.0
+    return 1.0 - n_unique / n_gathers
+
+
+def count_dedup_batch(terms: np.ndarray, n_valid: np.ndarray,
+                      row_offset: np.ndarray, block_width: np.ndarray
+                      ) -> tuple[int, int]:
+    """``plan_dedup_batch``'s ``(n_unique, n_gathers)`` for one hash,
+    counted without sorting the batch's cells or building ``indir``: the
+    blocks own disjoint row ranges, as an ``ArenaLayout``'s do, so a block
+    plans as many unique rows as the batch's distinct hashes leave
+    distinct residues modulo its width."""
+    off = np.asarray(row_offset, dtype=np.int64)
+    wid = np.asarray(block_width, dtype=np.int64)
+    assert (off[:-1] + wid[:-1] <= off[1:]).all(), "blocks overlap"
+    terms = np.asarray(terms)
+    n_valid = np.asarray(n_valid, dtype=np.int32)
+    valid = np.arange(terms.shape[1], dtype=np.int32)[None, :] < \
+        n_valid[:, None]
+    h = np.unique(hashing.hash_terms_np(terms, 1)[..., 0][valid])   # [D]
+    res = np.sort(h[None, :] % wid.astype(np.uint32)[:, None], axis=1)
+    n_unique = int(np.count_nonzero(res[:, 1:] != res[:, :-1])) + (
+        wid.size if h.size else 0)
+    return n_unique, wid.size * int(np.count_nonzero(valid))
 
 
 def plan_dedup_batch(terms: np.ndarray, n_valid: np.ndarray,
@@ -521,9 +548,7 @@ class RowGatherRoute:
     batch on the host; ``compressed`` says dict-coded shards are staged
     in their (dict, refs) form; ``single`` gives 1-D parts, as a
     single-query score function does. The gathered shards' rows are
-    planned (``plan_dedup_batch``, over their blocks at once; or taken
-    from ``dedup_plan``, the batch's plan over every block of the store,
-    whose rows are the storage's, when the caller has one), read and
+    planned (``plan_dedup_batch``, over their blocks at once), read and
     uploaded at the first gathered ``part``. ``stats`` (a ``GatherStats``)
     receives the batch's visits and gathers."""
 
@@ -531,7 +556,6 @@ class RowGatherRoute:
                  terms: np.ndarray, n_valid: np.ndarray, *,
                  n_hashes: int = 1, compressed: bool = False,
                  promote_ratio: float = 1.0, single: bool = False,
-                 dedup_plan: DedupBatchPlan | None = None,
                  stats: GatherStats | None = None):
         self.tiles = tiles
         self.plans = list(shard_plans)
@@ -546,7 +570,6 @@ class RowGatherRoute:
                       in _codec.DICT_CODECS for sp in self.plans]
         self._parts: dict[int, torch.Tensor] | None = None
         self._plan = None
-        self._whole = dedup_plan
         self.routes = self._decide(promote_ratio)
         for r in self.routes:
             self.stats.visits[r] += 1
@@ -590,38 +613,12 @@ class RowGatherRoute:
     def _plan_rows(self, idx: list[int]) -> DedupBatchPlan:
         """The unique rows of the batch in the blocks of shards ``idx``,
         addressed in the storage's rows (sorted, so grouped by shard)."""
-        if self._whole is not None:
-            return self._slice(self._whole, idx)
         offs = np.concatenate([self.plans[i].row_offset.astype(np.int64)
                                + self._starts[self.plans[i].shard]
                                for i in idx])
         wids = np.concatenate([self.plans[i].block_width for i in idx])
         return plan_dedup_batch(self.terms, self.n_valid, offs, wids,
                                 n_hashes=self.k)
-
-    def _slice(self, dp: DedupBatchPlan, idx: list[int]) -> DedupBatchPlan:
-        """The part of a plan over every block that the blocks of shards
-        ``idx`` read: a shard's rows are one stretch of the plan's sorted
-        rows, so its cells' indices move by where that stretch lands."""
-        live = dp.uniq_rows[:dp.n_unique]
-        first = live if self.k == 1 else live[:, 0]
-        rows, indir, mask, base = [], [], [], 0
-        for i in idx:
-            sp = self.plans[i]
-            lo, hi = np.searchsorted(first, self._starts[sp.shard:
-                                                         sp.shard + 2])
-            m = dp.mask[:, sp.block_start:sp.block_end]
-            rows.append(live[lo:hi])
-            indir.append(np.where(m != 0, dp.indir[:, sp.block_start:
-                                                   sp.block_end] - lo + base,
-                                  0))
-            mask.append(m)
-            base += int(hi - lo)
-        mask = np.concatenate(mask, axis=1)
-        return DedupBatchPlan(
-            uniq_rows=np.concatenate(rows), n_unique=base,
-            indir=np.concatenate(indir, axis=1).astype(np.int32), mask=mask,
-            n_gathers=int(np.count_nonzero(mask)))
 
     def part(self, i: int) -> torch.Tensor:
         """Shard ``i``'s slot scores from its gathered rows, [Q, cols]

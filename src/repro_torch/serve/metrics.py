@@ -387,6 +387,19 @@ class ServingMetrics:
                 "requests selected on the host, by reason",
                 labels=("reason",)).labels(where).inc(n)
 
+    def record_dedup_plan(self, built: bool) -> None:
+        """One gated batch's dedup plan: ``built`` (its count cleared the
+        gate, so it plans its rows for the dedup pair) or ``skipped``
+        (its count kept it below the gate without a plan),
+        ``serve_dedup_plan_total{outcome}``. Registered at the first
+        gated batch, so a registry that never gates renders as JAX's
+        does."""
+        self.registry.counter(
+            "serve_dedup_plan_total",
+            "gated batches whose dedup plan was built or skipped",
+            labels=("outcome",)).labels(
+                "built" if built else "skipped").inc()
+
     def record_tile_route(self, stats) -> None:
         """One paged batch's row-gather route (a ``core.query.GatherStats``):
         its shard visits by route (``serve_shard_visits_total{route=

@@ -54,10 +54,15 @@ With ``ServerConfig.autotune`` or ``tuning_cache`` the planner plans from
 a ``KernelTuner``'s costs measured on the server's device and persisted to
 disk (a reopened server plans from the file without re-tuning), and the
 kernel profiler feeds live costs back into it, as in the JAX server. It
-differs from the JAX server in two deliberate ways: its tile cache does not
-pad tiles to a common height (PyTorch runs eagerly, so padding would only
-cost bytes), and it selects a dense batch's hits on the device (the JAX
-server selects in numpy; the answers are equal).
+differs from the JAX server in three deliberate ways: its tile cache does
+not pad tiles to a common height (PyTorch runs eagerly, so padding would
+only cost bytes), it selects a dense batch's hits on the device (the JAX
+server selects in numpy; the answers are equal), and its dedup gate reads
+a batch's rate off an exact count of its unique rows, planning the rows
+only of a batch that takes the dedup pair (the JAX server plans every
+gated batch; the rate, and so the dispatch, is equal).
+``serve_dedup_plan_total{outcome}`` counts the batches planned and
+skipped.
 """
 from __future__ import annotations
 
@@ -74,9 +79,10 @@ from ..core import hashing
 from ..core.arena import DeviceTileCache
 from ..core.index import BitSlicedIndex
 from ..core.query import (GatherStats, PruneStats, RowGatherRoute,
-                          SearchResult, _to_device, compile_pattern,
-                          coverage_cutoff, dedup_inputs, plan_dedup_batch,
-                          run_paged, run_paged_compressed, run_paged_dedup,
+                          SearchResult, _pad_unique, _to_device,
+                          compile_pattern, count_dedup_batch,
+                          coverage_cutoff, dedup_inputs, dedup_rate,
+                          plan_dedup_batch, run_paged, run_paged_compressed, run_paged_dedup,
                           run_paged_pruned, select_hits, select_top_k)
 from ..device import resolve_device
 from ..kernels.autotune import KernelTuner, TuningCache
@@ -447,15 +453,13 @@ class QueryServer(ServingBackend):
         return _CardHits(scores, host.numpy())
 
     def _route(self, plan, buf: np.ndarray, n_valid: np.ndarray, *,
-               single: bool = False, dedup_plan=None) -> RowGatherRoute:
-        """How a paged batch (host terms ``buf``, counts ``n_valid``, and
-        its dedup plan over the whole layout when one was made) reaches
-        each shard; its counts go to ``tile_gathers`` and the registry
+               single: bool = False) -> RowGatherRoute:
+        """How a paged batch (host terms ``buf``, counts ``n_valid``)
+        reaches each shard; its counts go to ``tile_gathers`` and the registry
         once the batch is scored (``_record_route``)."""
         return RowGatherRoute(self.tiles, self.planner.shard_plans, buf,
                               n_valid, n_hashes=self.index.params.n_hashes,
-                              compressed=plan.compressed, single=single,
-                              dedup_plan=dedup_plan)
+                              compressed=plan.compressed, single=single)
 
     def _record_route(self, route: Optional[RowGatherRoute]) -> None:
         if route is not None:
@@ -497,22 +501,28 @@ class QueryServer(ServingBackend):
                      cut_dev: Optional[torch.Tensor],
                      marks: Optional[list] = None, seq: Optional[int] = None):
         """Row-dedup dispatch, or None when the batch's dedup rate is
-        below the plan's threshold, and the global-layout plan, which
-        decides (and which a paged batch's row-gather route reuses); dense
-        execution reuses it, paged execution re-plans per shard against the
-        rebased addressing (the shards the row-gather route reaches, at
-        once); either selects its hits on the device against ``cut_dev``.
-        ``marks`` collects (name, start, end, tags) stage timings for
-        tracing."""
+        below the plan's threshold. The rate is the plan's, counted by
+        ``count_dedup_batch`` without the plan; a dense batch past the
+        gate then plans its rows over the global layout, and a paged one
+        re-plans per shard against the rebased addressing (the shards the
+        row-gather route reaches, at once); either selects its hits on the
+        device against ``cut_dev``. ``marks`` collects (name, start, end,
+        tags) stage timings for tracing."""
         layout = self.index.layout
         with span("dedup_plan", marks, clock=self.clock, seq=seq) as sp:
-            dp = plan_dedup_batch(buf, n_valid, layout.row_offset,
-                                  layout.block_width)
+            n_unique, n_gathers = count_dedup_batch(
+                buf, n_valid, layout.row_offset, layout.block_width)
+            rate = dedup_rate(n_unique, n_gathers)
+            past = rate >= plan.dedup_threshold
+            dp = (plan_dedup_batch(buf, n_valid, layout.row_offset,
+                                   layout.block_width)
+                  if past and not plan.paged else None)
+            self.metrics.record_dedup_plan(past)
             if marks is not None:
-                sp.tags = {"dedup_rate": round(float(dp.dedup_rate), 4),
-                           "n_unique": int(dp.n_unique)}
-        if dp.dedup_rate < plan.dedup_threshold:
-            return None, dp
+                sp.tags = {"dedup_rate": round(float(rate), 4),
+                           "n_unique": n_unique, "built": int(past)}
+        if not past:
+            return None
         fn = self.planner.dedup_score_fn(plan)
         fn_comp = (self.planner.comp_dedup_score_fn(plan)
                    if plan.compressed else None)
@@ -537,7 +547,7 @@ class QueryServer(ServingBackend):
                         out = fn(arena, *args, range_checked=True)
                 slots = self._card_hits(out, cut_dev, seq)
             else:
-                route = self._route(plan, buf, n_valid, dedup_plan=dp)
+                route = self._route(plan, buf, n_valid)
                 slots = self._card_hits(
                     run_paged_dedup(self.tiles, self.planner.shard_plans, fn,
                                     buf, n_valid, fn_comp=fn_comp,
@@ -547,8 +557,8 @@ class QueryServer(ServingBackend):
             self._kernel_mark(ks, marks,
                               "dedup_c" if plan.compressed else "dedup",
                               plan, tk0, self.clock(),
-                              rows=int(dp.uniq_rows.shape[0]))
-        return slots, dp
+                              rows=_pad_unique(n_unique))
+        return slots
 
     def _kernel_mark(self, ks, marks: Optional[list], method: str, plan,
                      t0: float, t1: float, *, rows: int) -> None:
@@ -684,10 +694,10 @@ class QueryServer(ServingBackend):
                 n_valid = np.zeros(q_pad, dtype=np.int32)
                 n_valid[:Q] = ells
                 cut_dev = self._cutoffs(batch.requests)
-            slots = dp = None
+            slots = None
             if plan.fused and plan.dedup_threshold is not None:
-                slots, dp = self._score_dedup(buf, n_valid, plan, cut_dev,
-                                              marks, seq)
+                slots = self._score_dedup(buf, n_valid, plan, cut_dev,
+                                          marks, seq)
                 if slots is not None:
                     method = "dedup_c" if plan.compressed else "dedup"
             if slots is None:
@@ -701,7 +711,7 @@ class QueryServer(ServingBackend):
                         terms_dev = _to_device(buf, self.index.device)
                         valid_dev = torch.from_numpy(n_valid).to(
                             self.index.device)
-                    route = (self._route(plan, buf, n_valid, dedup_plan=dp)
+                    route = (self._route(plan, buf, n_valid)
                              if plan.paged else None)
                     slots = self._run_plan(plan, fn, terms_dev, valid_dev,
                                            cut_dev, fn_comp=fn_comp, seq=seq,

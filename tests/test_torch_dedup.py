@@ -8,7 +8,9 @@
 * ``ops.bitslice_lookup_score_dedup(_comp)`` against the JAX ops (which
   pad the word axis and slice back);
 * ``plan_dedup_batch`` field by field, dense and per shard, one and two
-  hashes, with the server's zero-padded queries;
+  hashes, with the server's zero-padded queries, and the dedup gate's
+  ``count_dedup_batch`` against it (one hash), over narrow and wide
+  blocks and batches around a dedup rate of 0.5;
 * ``run_paged_dedup`` on dense, raw and rowdict stores (and a two-hash
   raw store) against the JAX function: slot scores and tile-cache
   counters, both caches unpadded.
@@ -213,6 +215,10 @@ def _batch(c, params, mode, q_pad=None):
         qs = [doc[s:s + 100] for s in range(0, 240, 30)]
     term_sets = [jq.compile_pattern(p, params) for p in qs]
     buf, ells = jq.pad_term_batch(term_sets, 64)
+    return _pad_queries(buf, ells, q_pad)
+
+
+def _pad_queries(buf, ells, q_pad):
     if q_pad:
         # the server pads the query axis with n_valid = 0 queries
         pb = np.zeros((q_pad,) + buf.shape[1:], buf.dtype)
@@ -223,6 +229,50 @@ def _batch(c, params, mode, q_pad=None):
     return buf, ells
 
 
+# live terms of the batches built around a dedup rate of 0.5, per query
+RATE_ELLS = np.array([40, 33, 50, 40, 37, 40], np.int32)       # 240 cells
+# mode -> how often each distinct term of such a batch appears
+RATE_COPIES = {"rate below": [2] * 119 + [1, 1],               # 121 terms
+               "rate at": [2] * 120,                           # 120 terms
+               "rate above": [2] * 118 + [4]}                  # 119 terms
+
+
+def _rate_batch(mode, q_pad):
+    """Random terms, each repeated as ``RATE_COPIES[mode]`` says and
+    shuffled over the queries' live cells; the dead cells past each
+    query's count hold other random terms, which no plan may read."""
+    rng = np.random.default_rng(len(mode))
+    copies = RATE_COPIES[mode]
+    distinct = rng.integers(0, 2 ** 32, size=(len(copies), 2),
+                            dtype=np.uint32)
+    cells = rng.permutation(np.repeat(distinct, copies, axis=0))
+    buf = rng.integers(0, 2 ** 32, size=(RATE_ELLS.size, 64, 2),
+                       dtype=np.uint32)
+    at = 0
+    for i, n in enumerate(RATE_ELLS):
+        buf[i, :n] = cells[at:at + n]
+        at += n
+    return _pad_queries(buf, RATE_ELLS.copy(), q_pad)
+
+
+def _blocks(mode, lay):
+    """(row_offset, block_width) int32 of a mode's layout: the index's;
+    blocks of 1-7 rows (residues collide in a block), apart by gaps of
+    0-2 rows; 34 blocks of 2-19 M rows (the served cell's scale, about
+    357 M rows)."""
+    rng = np.random.default_rng(5)
+    if mode == "narrow blocks":
+        w = rng.integers(1, 8, size=9)
+        off = np.cumsum(np.concatenate([[0], w[:-1]]) + rng.integers(
+            0, 3, size=9))
+    elif mode in ("cell widths", "empty") or mode in RATE_COPIES:
+        w = rng.integers(2_000_000, 19_000_000, size=34)
+        off = np.concatenate([[0], np.cumsum(w)[:-1]])
+    else:
+        return lay.row_offset, lay.block_width
+    return off.astype(np.int32), w.astype(np.int32)
+
+
 def assert_same_plan(got, want):
     for f in ("uniq_rows", "indir", "mask"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
@@ -231,31 +281,71 @@ def assert_same_plan(got, want):
     assert got.dedup_rate == want.dedup_rate
 
 
+def assert_count_is_plan(buf, ells, off, wid, n_hashes, want):
+    """``count_dedup_batch`` gives ``want``'s counts and rate (the gate
+    runs for one hash alone)."""
+    if n_hashes == 1:
+        got = q.count_dedup_batch(buf, ells, off, wid)
+        assert got == (want.n_unique, want.n_gathers)
+        assert q.dedup_rate(*got) == want.dedup_rate
+
+
+MODES = ["disjoint", "duplicated", "overlapping", "narrow blocks",
+         "cell widths", "empty", *RATE_COPIES]
+
+
 @pytest.mark.parametrize("q_pad", [None, 16])
-@pytest.mark.parametrize("mode", ["disjoint", "duplicated", "overlapping"])
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("n_hashes", [1, 2])
 def test_plan_dedup_batch_equals_reference(dedup_corpus, n_hashes, mode,
                                            q_pad):
+    """The port's plan against JAX's, field by field, and the dedup
+    gate's count against both, over the index's layout and its shards,
+    and over layouts of narrow and wide blocks."""
     c, idx = dedup_corpus
     jidx = idx[n_hashes]
-    buf, ells = _batch(c, jidx.params, mode, q_pad)
     lay = jidx.layout
-    want = jq.plan_dedup_batch(buf, ells, lay.row_offset, lay.block_width,
-                               n_hashes=n_hashes)
-    got = q.plan_dedup_batch(buf, ells, lay.row_offset, lay.block_width,
-                             n_hashes=n_hashes)
+    if mode in RATE_COPIES:
+        buf, ells = _rate_batch(mode, q_pad)
+    else:
+        buf, ells = _batch(c, jidx.params, mode, q_pad)
+        if mode == "empty":
+            ells = np.zeros_like(ells)
+    off, wid = _blocks(mode, lay)
+    want = jq.plan_dedup_batch(buf, ells, off, wid, n_hashes=n_hashes)
+    got = q.plan_dedup_batch(buf, ells, off, wid, n_hashes=n_hashes)
     assert_same_plan(got, want)
-    # per shard: two row ranges of the arena, rebased
-    starts = np.array([0, int(lay.row_offset[1]), lay.total_rows], np.int64)
-    for jsp, tsp in zip(jq.plan_shards(lay, starts),
-                        q.plan_shards(lay, starts)):
-        assert_same_plan(
-            q.plan_dedup_batch(buf, ells, tsp.row_offset, tsp.block_width,
-                               n_hashes=n_hashes),
-            jq.plan_dedup_batch(buf, ells, jsp.row_offset, jsp.block_width,
-                                n_hashes=n_hashes))
+    assert_count_is_plan(buf, ells, off, wid, n_hashes, want)
+    if mode in ("disjoint", "duplicated", "overlapping"):
+        # per shard: two row ranges of the arena, rebased
+        starts = np.array([0, int(lay.row_offset[1]), lay.total_rows],
+                          np.int64)
+        for jsp, tsp in zip(jq.plan_shards(lay, starts),
+                            q.plan_shards(lay, starts)):
+            want_s = jq.plan_dedup_batch(buf, ells, jsp.row_offset,
+                                         jsp.block_width, n_hashes=n_hashes)
+            assert_same_plan(
+                q.plan_dedup_batch(buf, ells, tsp.row_offset,
+                                   tsp.block_width, n_hashes=n_hashes),
+                want_s)
+            assert_count_is_plan(buf, ells, tsp.row_offset, tsp.block_width,
+                                 n_hashes, want_s)
     if mode == "duplicated":
         assert got.dedup_rate > 0.5
+    if mode == "empty":
+        assert (got.n_unique, got.n_gathers, got.dedup_rate) == (0, 0, 0.0)
+    if mode in RATE_COPIES:
+        # wide blocks: each distinct term plans a row of its own in each
+        # block, so the rate is 1 - distinct / live terms
+        n = int(ells.sum())
+        assert got.n_gathers == wid.size * n
+        assert got.n_unique == wid.size * len(RATE_COPIES[mode])
+        assert (got.dedup_rate < 0.5, got.dedup_rate == 0.5) == (
+            mode == "rate below", mode == "rate at")
+    if mode == "narrow blocks":
+        # at most w ** k row sets a block
+        assert got.n_unique <= (wid.astype(np.int64) ** n_hashes).sum()
+        assert got.n_unique < got.n_gathers
 
 
 def test_plan_dedup_batch_empty(dedup_corpus):

@@ -9,7 +9,8 @@ each document's Bloom filter from the document's terms (a murmur3 mix of
 its own, the index's seeds) and counts the query terms whose k bits are
 all set. Besides: a batch over more shards than the cache holds evicts
 nothing and reads exactly the unique rows of the shards that are not
-resident, and faults reuse the staging buffers."""
+resident, a route stages the shards whose rows cost a tile, and faults
+reuse the staging buffers."""
 import math
 
 import numpy as np
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.core import IndexParams, build_compact, load_index_v2
 from repro_torch.core.arena import DeviceTileCache
-from repro_torch.core.query import compile_pattern
+from repro_torch.core.query import RowGatherRoute, compile_pattern
 from repro_torch.core.store import ShardStoreWriter
 from repro_torch.data import make_corpus
 from repro_torch.serve import QueryServer, ServerConfig
@@ -258,3 +259,63 @@ def test_two_faults_reuse_one_staging_buffer(world):
     for s, t in zip(order[:4], tiles):
         np.testing.assert_array_equal(t.numpy().view(np.uint32),
                                       st.shard_host(s))
+
+
+@pytest.mark.parametrize("promote", ["never", "some", "all"])
+@pytest.mark.parametrize("share", ["none", "some"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_a_route_stages_the_shards_whose_rows_cost_a_tile(world, k, share,
+                                                          promote):
+    """A route plans the unique row sets of the shards it does not hold
+    (counted here from the plain hash) and stages a shard whose rows
+    cost ``promote_ratio`` of its tile, gathering the rest: no shard,
+    some or all staged. Its gathered plan holds exactly the kept shards'
+    rows, and its stats count their reads."""
+    c, _, paged, _ = world[k]
+    st, lay = paged.storage, paged.layout
+    pats = _patterns(c, np.random.default_rng(k))[1]
+    terms = [compile_pattern(p, paged.params) for p in pats]
+    buf = np.zeros((16, 128, 2), np.uint32)
+    n_valid = np.zeros(16, np.int32)
+    for i, t in enumerate(terms):
+        buf[i, :t.shape[0]] = t
+        n_valid[i] = t.shape[0]
+    ps = QueryServer(paged, ServerConfig(
+        **NO_CACHE, tile_cache_bytes=_cap(st, share)), device=CPU)
+    ps.warm_tiles()
+    hashes = [np.stack([plain_hash(t, j).numpy() for j in range(k)], axis=1)
+              for t in terms]
+    W = int(st.shape[1])
+    sets, ratio_of = {}, {}
+    for s in range(st.n_shards):          # one block a shard
+        if ps.tiles.resident(s):
+            continue
+        w, r0 = int(lay.block_width[s]), int(lay.row_offset[s])
+        sets[s] = sorted({tuple(int(x) % w + r0 for x in row)
+                          for h in hashes for row in h})
+        ratio_of[s] = len(sets[s]) * k * W * 4 / st.shard_nbytes(s)
+    ratios = sorted(ratio_of.values())
+    ratio = {"never": 2.0, "all": 0.0,
+             "some": (ratios[0] + ratios[-1]) / 2}[promote]
+    route = RowGatherRoute(ps.tiles, ps.planner.shard_plans, buf, n_valid,
+                           n_hashes=k, promote_ratio=ratio)
+    want = ["resident" if s not in sets else
+            "staged" if ratio_of[s] >= ratio else "gathered"
+            for s in range(st.n_shards)]
+    assert route.routes == want
+    staged, kept = want.count("staged"), [s for s in sets
+                                          if want[s] == "gathered"]
+    assert {"never": staged == 0, "some": 0 < staged < len(sets),
+            "all": staged == len(sets)}[promote]
+    if not kept:
+        assert route._plan == ([], None)
+        return
+    idx, dp = route._plan
+    assert [route.plans[i].shard for i in idx] == kept
+    rows = sum((sets[s] for s in kept), [])
+    live = dp.uniq_rows[:dp.n_unique].reshape(dp.n_unique, k)
+    assert live.tolist() == [list(r) for r in rows]
+    for i in idx:
+        route.part(i)
+    assert route.stats.rows_gathered == len(rows) * k
+    assert route.stats.bytes_gathered == len(rows) * k * W * 4

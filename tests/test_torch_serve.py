@@ -199,6 +199,7 @@ def test_batches_equal_reference(world, kind, case):
               + submit_all(_reads(c.documents, 2, 8)))
     ts, resp = assert_same_serving(world, kind, DEDUP_CASES[case], script)
     counts = ts.planner.dispatch_counts
+    plans = _dedup_plan_counts(ts)
     if case == "always":
         assert counts["dedup"] > 0 and "lookup" not in counts
     elif case in ("off", "gate 0.99"):
@@ -206,7 +207,67 @@ def test_batches_equal_reference(world, kind, case):
     else:
         # overlapping reads clear the default rate of 0.5
         assert counts["dedup"] > 0
+    # the gate builds a plan for the batches that take the dedup pair
+    # alone, and skips it for the others
+    if case == "off":
+        assert plans == {}
+    else:
+        assert plans.get("built", 0) == _dedup_batches(ts)
+        assert (plans.get("skipped", 0) > 0) == (case != "always")
     assert all(r[0] == Status.OK.value for r in resp.values())
+
+
+def _dedup_batches(server) -> int:
+    """Batches scored by the dedup pair (one profiler record each)."""
+    return sum(r["method"] in ("dedup", "dedup_c")
+               for r in server.profiler.records())
+
+
+def _dedup_plan_counts(server) -> dict:
+    """{outcome: batches} of ``serve_dedup_plan_total``."""
+    fam = server.metrics.registry.get("serve_dedup_plan_total")
+    return ({} if fam is None else
+            {labels[0]: c.value for labels, c in fam.children()})
+
+
+@pytest.mark.parametrize("case", ["below", "above"])
+def test_dedup_gate_builds_the_plan_only_past_the_gate(world, monkeypatch,
+                                                       case):
+    """A dense batch of reads from many documents stays below the gate
+    of 0.5 without a plan; a batch of overlapping reads of one document
+    clears it and builds the plan once. Both count their outcome."""
+    c = world[0]
+    tidx = world[2]["dense"][1]
+    calls = []
+    real = server_mod.plan_dedup_batch
+
+    def plan(*a, **kw):
+        calls.append(a)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(server_mod, "plan_dedup_batch", plan)
+    ts = QueryServer(tidx, ServerConfig(**NO_CACHE), clock=Clock(),
+                     device=CPU)
+    pats = (_mix(c)[:8] if case == "below"
+            else _reads(c.documents, 1, 8))
+    terms = [compile_pattern(p, tidx.params) for p in pats]
+    reqs = [QueryRequest(i, t, t.shape[0], 0.8, submitted_at=100.0,
+                         bucket=128) for i, t in enumerate(terms)]
+    ts.score_batch(MicroBatch(128, reqs, seq=1))
+    got = ts.pop_responses()
+    want = QueryServer(tidx, ServerConfig(**NO_CACHE, dedup_min_rate=None),
+                       clock=Clock(), device=CPU)
+    want.score_batch(MicroBatch(128, reqs, seq=1))
+    for rid, r in want.pop_responses().items():
+        assert (got[rid].result.doc_ids.tobytes(),
+                got[rid].result.scores.tobytes()) == \
+            (r.result.doc_ids.tobytes(), r.result.scores.tobytes())
+    if case == "below":
+        assert calls == [] and _dedup_plan_counts(ts) == {"skipped": 1}
+        assert {r.method for r in got.values()} == {"lookup"}
+    else:
+        assert len(calls) == 1 and _dedup_plan_counts(ts) == {"built": 1}
+        assert {r.method for r in got.values()} == {"dedup"}
 
 
 @pytest.mark.parametrize("case", ["always", "default", "off"])
@@ -219,8 +280,10 @@ def test_compressed_batches_equal_reference(world, case):
     counts = ts.planner.dispatch_counts
     if case == "off":
         assert "dedup_c" not in counts and counts["lookup_c"] > 0
+        assert _dedup_plan_counts(ts) == {}
     else:
         assert counts["dedup_c"] > 0
+        assert _dedup_plan_counts(ts).get("built") == _dedup_batches(ts)
     assert ts.tiles.raw_bytes_staged == 0 and ts.tiles.comp_bytes_staged
 
 
