@@ -1528,7 +1528,8 @@ def phase_store(rt, torch, corpus, queries, origin, chk: KernelCheck):
     s_big = max(dict_shards, key=cst.shard_nbytes)
     lookup = rt.QueryEngine(comp, method="lookup", compressed=True)
     dict_rows, refs = lookup.tiles.get_compressed(s_big)
-    _, offs, widths = lookup._shard_args[s_big]
+    offs, widths = rt.query.shard_addressing(
+        rt.query.plan_shards(comp.layout, cst.shard_row_starts), DEV)[s_big]
     term_sets = [rt.query.compile_pattern(q, params) for q in queries]
     long_sets = [t for t in term_sets if t.shape[0] > 256][:BATCH]
     singles = [plan_lookup(rt, torch, [t], offs, widths)[:2]
@@ -1934,11 +1935,12 @@ def overlapping_reads(corpus, seed: int, limit: int | None = None):
 
 class DedupPlans:
     """Inside ``with``, keeps (dedup rate, unique rows, gathers) of every
-    batch plan the server makes (``server.plan_dedup_batch`` is looked up
-    at call time). It changes nothing the server computes."""
+    dedup plan the server's batches make, one a shard and one for the
+    rows a route gathers (``core.query.plan_dedup_batch`` is looked up at
+    call time). It changes nothing the server computes."""
 
-    def __init__(self, server_mod):
-        self.mod = server_mod
+    def __init__(self, query_mod):
+        self.mod = query_mod
         self.plans = []
 
     def __enter__(self):
@@ -1981,7 +1983,7 @@ def run_server(rt, torch, index, config, groups, want, what, rec,
         if label == "measured":
             server.reset_metrics(clear_caches=True)
             n0 = server.profiler.count
-            with rec, DedupPlans(rt.server_mod) as plans:
+            with rec, DedupPlans(rt.query) as plans:
                 resp, secs = serve_groups(server, groups)
         else:
             resp, secs = serve_groups(server, groups)

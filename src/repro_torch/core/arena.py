@@ -713,6 +713,11 @@ class DeviceTileCache:
         """Whether shard ``s``'s tile (or (dict, refs) pair) is staged."""
         return (("c", s) if compressed else s) in self._tiles
 
+    def dict_form(self, s: int, compressed: bool) -> bool:
+        """Whether shard ``s`` is scored from its (dict, refs) pair: under
+        compressed serving, where its codec is dict-coded."""
+        return compressed and self.storage.shard_codec(s) in _codec.DICT_CODECS
+
     def form_nbytes(self, s: int, compressed: bool = False) -> int:
         """Device bytes shard ``s``'s tile (or (dict, refs) pair) takes
         once staged, as the cache accounts them."""

@@ -9,17 +9,19 @@ reported. Planning (term compilation, padding, threshold math, hit
 selection) stays in pure numpy functions, with the same stable sorts as the
 reference, so results are bit-identical to the JAX ``QueryEngine``.
 
-Out-of-core indexes (storage of more than one shard, a ``MappedArena``
-over a cobs-jax-v2 store) run paged: ``plan_shards`` rebases each shard's
-block row offsets to the shard's first row, the engine pages one shard at
-a time to the device through a ``DeviceTileCache`` (prefetching the next
-while the current one is scored) and concatenates the per-shard slot
-scores in shard order, which is the global slot order. With
-``compressed=True``, rowdict-coded shards stay in their (dict, refs) form
-on the device and are scored by the fused-decode kernels.
+One loop, ``score_shards``, runs every exhaustive dispatch over a
+store's shards, for the engine and the server alike; dense storage is its
+one-shard case. ``plan_shards`` rebases each shard's block row offsets to
+the shard's first row; the loop takes each shard's tile from a
+``DeviceTileCache`` (prefetching the next while the current one is
+scored), or the batch's rows of it read on the host (``RowGatherRoute``),
+and concatenates the per-shard slot scores in shard order, which is the
+global slot order. With compressed serving, dict-coded shards stay in
+their (dict, refs) form on the device and are scored by the fused-decode
+kernels (``DeviceTileCache.dict_form`` decides, for a shard, which form).
 
 Batches whose queries share rows can run through the row-dedup pair
-(``plan_dedup_batch``, ``run_paged_dedup``): each unique row of the batch is
+(``plan_dedup_batch``, ``run_paged_dedup``): each unique row of a shard is
 gathered once, then every cell is scored through an indirection into those
 rows. The single-host ``QueryServer`` picks it per batch.
 
@@ -193,62 +195,52 @@ def _no_gather(i: int) -> bool:
     return False
 
 
-def run_paged(tiles: DeviceTileCache, shard_args, fn, *args, route=None,
-              to_host: bool = True) -> list:
-    """Call ``fn(tile, offs, widths, *args)`` once per shard, in order.
-    After shard i's kernels are launched, shard i+1 is prefetched: its copy
-    runs on the tile cache's side stream while shard i is scored. Results
-    come to the host only after every shard has been launched, or stay on
-    the device with ``to_host=False``. ``shard_args`` is [(shard,
-    row_offset, block_width)] with the offsets and widths already on the
-    device. With ``route`` (a ``RowGatherRoute`` over the same shards) the
-    shards it gathers are scored from the batch's rows read on the host,
-    and neither staged nor prefetched."""
-    gathers = _no_gather if route is None else route.gathers
-    parts = []
-    with span("launch"):
-        for i, (s, offs, widths) in enumerate(shard_args):
-            out = (route.part(i) if gathers(i)
-                   else fn(tiles.get(s), offs, widths, *args))
-            if i + 1 < len(shard_args) and not gathers(i + 1):
-                tiles.prefetch(shard_args[i + 1][0])
-            parts.append(out)
-    if not to_host:
-        return parts
-    with span("copy"):
-        return [p.cpu().numpy() for p in parts]
+def shard_addressing(shard_plans: list[ShardPlan], device: torch.device
+                     ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Each shard's (row_offset, block_width) on ``device``, staged once:
+    what the fused score functions take beside a shard's tile."""
+    return [(torch.from_numpy(sp.row_offset).to(device),
+             torch.from_numpy(sp.block_width).to(device))
+            for sp in shard_plans]
 
 
-def run_paged_compressed(tiles: DeviceTileCache, shard_args, fn_raw, fn_comp,
-                         *args, route=None, to_host: bool = True) -> list:
-    """``run_paged`` with a per-shard codec dispatch: dict-coded shards
-    stage their (dict, refs) pair and go through
-    ``fn_comp(dict_rows, refs, offs, widths, *args)``, raw shards through
-    ``fn_raw``. The prefetch stages the form the next shard will be
-    scored in. ``route`` and ``to_host`` as in ``run_paged``."""
-    storage = tiles.storage
-    comp = [storage.shard_codec(s) in _codec.DICT_CODECS
-            for (s, _, _) in shard_args]
+def score_shards(tiles: DeviceTileCache, shard_plans: list[ShardPlan],
+                 score, score_dict, inputs, *, route=None,
+                 seq: int | None = None, **kw) -> torch.Tensor:
+    """Every exhaustive dispatch of a batch over a store's shards; dense
+    storage is the one-shard case. For shard i, in order: the route's part
+    where ``route`` (a ``RowGatherRoute`` over the same shards) gathers
+    it; else ``score(tile, *inputs(i, rows), **kw)`` on the shard's tile,
+    or, where ``tiles.dict_form`` says so (never without ``score_dict``),
+    ``score_dict(dict_rows, refs, *inputs(i, rows), **kw)`` on its (dict,
+    refs) pair; ``rows`` is the shard's row count, which planned rows are
+    checked against. Once shard i's kernels are launched, shard i+1 is
+    prefetched in the form it will be scored in, unless the route gathers
+    it: its copy runs on the tile cache's side stream while shard i is
+    scored. Returns the slot scores on the device, concatenated along the
+    last axis in shard order, which is the global slot order: for one
+    shard its part itself, with no copy."""
+    dict_form = [tiles.dict_form(sp.shard, score_dict is not None)
+                 for sp in shard_plans]
     gathers = _no_gather if route is None else route.gathers
     parts = []
-    with span("launch"):
-        for i, (s, offs, widths) in enumerate(shard_args):
+    with span("launch", seq=seq):
+        for i, sp in enumerate(shard_plans):
             if gathers(i):
                 out = route.part(i)
-            elif comp[i]:
-                dict_rows, refs = tiles.get_compressed(s)
-                out = fn_comp(dict_rows, refs, offs, widths, *args)
+            elif dict_form[i]:
+                dict_rows, refs = tiles.get_compressed(sp.shard)
+                out = score_dict(dict_rows, refs,
+                                 *inputs(i, refs.shape[0]), **kw)
             else:
-                out = fn_raw(tiles.get(s), offs, widths, *args)
-            if i + 1 < len(shard_args) and not gathers(i + 1):
-                nxt = shard_args[i + 1][0]
-                (tiles.prefetch_compressed if comp[i + 1]
+                tile = tiles.get(sp.shard)
+                out = score(tile, *inputs(i, tile.shape[0]), **kw)
+            if i + 1 < len(shard_plans) and not gathers(i + 1):
+                nxt = shard_plans[i + 1].shard
+                (tiles.prefetch_compressed if dict_form[i + 1]
                  else tiles.prefetch)(nxt)
             parts.append(out)
-    if not to_host:
-        return parts
-    with span("copy"):
-        return [p.cpu().numpy() for p in parts]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
 # unique-row count -> padded buffer length (a power of two, at least 8):
@@ -417,53 +409,29 @@ def dedup_inputs(dp: DedupBatchPlan, n_rows: int, device: torch.device,
 def run_paged_dedup(tiles: DeviceTileCache, shard_plans: list[ShardPlan], fn,
                     terms: np.ndarray, n_valid: np.ndarray,
                     n_hashes: int = 1, fn_comp=None, *, route=None,
-                    to_host: bool = True):
-    """Dedup-scored batch across shard tiles, the dedup analogue of
-    ``run_paged``: per shard, plan the unique rows against the shard's
-    rebased addressing, score through ``fn`` (from
-    ``make_dedup_score_fn``), prefetch the next tile while the shard's
-    kernels run, and concatenate the per-shard slot scores, which come to
-    the host after every shard has been launched (or stay on the device
-    with ``to_host=False``).
+                    to_host: bool = True, seq: int | None = None):
+    """Dedup-scored batch across shard tiles, through ``score_shards``:
+    each shard's unique rows are planned against its rebased addressing
+    and scored by ``fn`` (from ``make_dedup_score_fn``), or, with
+    ``fn_comp`` (from ``make_comp_dedup_score_fn``), a dict-coded shard's
+    by the decoding gather over its (dict, refs) pair. ``n_hashes`` > 1
+    plans row-set dedup. The slot scores come to the host after every
+    shard has been launched, or stay on the device with
+    ``to_host=False``. ``route`` and ``seq`` as in ``score_shards``."""
 
-    With ``fn_comp`` (from ``make_comp_dedup_score_fn``) dict-coded shards
-    stage their (dict, refs) pair and score through the decoding gather;
-    raw shards keep ``fn``. ``n_hashes`` > 1 plans row-set dedup.
-    ``route`` as in ``run_paged``."""
-    storage = tiles.storage
-    comp = [fn_comp is not None
-            and storage.shard_codec(sp.shard) in _codec.DICT_CODECS
-            for sp in shard_plans]
-    gathers = _no_gather if route is None else route.gathers
-    parts = []
-    with span("launch"):
-        for i, sp in enumerate(shard_plans):
-            if gathers(i):
-                out = route.part(i)
-            else:
-                dp = plan_dedup_batch(terms, n_valid, sp.row_offset,
-                                      sp.block_width, n_hashes=n_hashes)
-                what = f"shard {sp.shard}'s tile"
-                if comp[i]:
-                    dict_rows, refs = tiles.get_compressed(sp.shard)
-                    out = fn_comp(dict_rows, refs,
-                                  *dedup_inputs(dp, refs.shape[0],
-                                                tiles.device, what),
-                                  range_checked=True)
-                else:
-                    tile = tiles.get(sp.shard)
-                    out = fn(tile, *dedup_inputs(dp, tile.shape[0],
-                                                 tiles.device, what),
-                             range_checked=True)
-            if i + 1 < len(shard_plans) and not gathers(i + 1):
-                nxt = shard_plans[i + 1].shard
-                (tiles.prefetch_compressed if comp[i + 1]
-                 else tiles.prefetch)(nxt)
-            parts.append(out)
+    def inputs(i, rows):
+        sp = shard_plans[i]
+        dp = plan_dedup_batch(terms, n_valid, sp.row_offset, sp.block_width,
+                              n_hashes=n_hashes)
+        return dedup_inputs(dp, rows, tiles.device,
+                            f"shard {sp.shard}'s tile")
+
+    out = score_shards(tiles, shard_plans, fn, fn_comp, inputs, route=route,
+                       seq=seq, range_checked=True)
     if not to_host:
-        return torch.cat(parts, dim=1)
+        return out
     with span("copy"):
-        return np.concatenate([p.cpu().numpy() for p in parts], axis=1)
+        return out.cpu().numpy()
 
 
 # --------------------------------------------------------------------------
@@ -518,8 +486,9 @@ def gather_rows_host(storage, shard: int, uniq: np.ndarray, k: int = 1,
     dictionary rows of a rowdict shard, else U * k). A rowdict shard is
     read through its (dict, refs) form and never expanded."""
     flat = np.asarray(uniq, dtype=np.int64).reshape(-1)
-    if storage.shard_codec(shard) in _codec.DICT_CODECS:
-        d_host, r_host = storage.shard_dict_host(shard)
+    pair = storage.shard_dict_host(shard)
+    if pair is not None:
+        d_host, r_host = pair
         _check_rows(flat, r_host.shape[0], f"shard {shard}")
         src, idx = d_host, np.asarray(r_host)[flat].astype(np.int64)
         nread = int(np.unique(idx).size)
@@ -540,7 +509,7 @@ def gather_rows_host(storage, shard: int, uniq: np.ndarray, k: int = 1,
 
 class RowGatherRoute:
     """How one batch reaches each shard of an exhaustive paged dispatch
-    (``run_paged``, ``run_paged_compressed``, ``run_paged_dedup``):
+    (``score_shards``):
     ``resident`` (the tile is on the device), ``staged`` (through the
     tile cache: it fits without evicting, or the batch's rows cost at
     least ``promote_ratio`` of the tile) or ``gathered`` (the module
@@ -566,8 +535,8 @@ class RowGatherRoute:
         self.stats = stats if stats is not None else GatherStats()
         storage = tiles.storage
         self._starts = np.asarray(storage.shard_row_starts, dtype=np.int64)
-        self._dict = [compressed and storage.shard_codec(sp.shard)
-                      in _codec.DICT_CODECS for sp in self.plans]
+        self._dict = [tiles.dict_form(sp.shard, compressed)
+                      for sp in self.plans]
         self._parts: dict[int, torch.Tensor] | None = None
         self._plan = None
         self.routes = self._decide(promote_ratio)
@@ -802,7 +771,7 @@ def run_paged_pruned(tiles: DeviceTileCache, shard_plans: list[ShardPlan],
     (``coverage_cutoff``; 0 for top-k queries) and ``topk`` int32 [Q] the
     per-query k (0 = threshold query; the cutoff then tightens to the
     merged k-th largest running count). Returns int32 [Q, n_slots] slot
-    scores, equal to ``run_paged``'s on every slot that can meet its
+    scores, equal to ``score_shards``'s on every slot that can meet its
     query's cutoff; pruned blocks hold partial sums below it.
 
     ``order`` overrides the term order ([Q, L] permutation, valid first;
@@ -1362,11 +1331,10 @@ class QueryEngine:
     (paper-faithful kernel), 'lookup' (fused gather kernel for k=1
     indexes) or 'ref' (plain oracle).
 
-    Dense storage (one shard) is scored in one device call against its
-    tile. Sharded storage is scored shard by shard through ``tile_cache``
-    (default: an unbounded DeviceTileCache, so every shard stays on the
-    card after its first use) and concatenated; the results are the same
-    either way. ``compressed=True`` keeps dict-coded shards (codec
+    Every search is scored by ``score_shards``, shard by shard through
+    ``tile_cache`` (default: an unbounded DeviceTileCache, so every shard
+    stays on the card after its first use); dense storage is one shard,
+    its resident arena. ``compressed=True`` keeps dict-coded shards (codec
     'rowdict' / 'rowdict+rle') in their (dict, refs) form on the device
     and scores them through the fused-decode kernels; raw shards are
     unaffected, and the flag stays off when no shard is dict-coded.
@@ -1394,20 +1362,14 @@ class QueryEngine:
         n_hashes = index.params.n_hashes
         self._score = make_score_fn(n_hashes, method)
         self._score_batch = make_batch_score_fn(n_hashes, method)
-        self._paged = index.storage.n_shards > 1
         self.tiles = (tile_cache if tile_cache is not None
                       else DeviceTileCache(index.storage))
         self._shard_plans = plan_shards(index.layout,
                                         index.storage.shard_row_starts)
-        # per-shard addressing on the device, staged once
-        self._shard_args = [
-            (sp.shard, torch.from_numpy(sp.row_offset).to(index.device),
-             torch.from_numpy(sp.block_width).to(index.device))
-            for sp in self._shard_plans]
+        self._addressing = shard_addressing(self._shard_plans, index.device)
         self._host_slot = np.asarray(index.layout.doc_slot)
-        self.compressed = bool(compressed) and any(
-            index.storage.shard_codec(s) in _codec.DICT_CODECS
-            for s in range(index.storage.n_shards))
+        self.compressed = any(self.tiles.dict_form(s, bool(compressed))
+                              for s in range(index.storage.n_shards))
         self._score_comp = self._score_batch_comp = None
         if self.compressed:
             self._score_comp = make_comp_score_fn(n_hashes, method)
@@ -1419,30 +1381,19 @@ class QueryEngine:
                           self.index.device)
 
     # -- scoring -------------------------------------------------------------
-    def _slots(self, fn, fn_comp, axis: int, *args) -> np.ndarray:
+    def _slots(self, fn, fn_comp, *args) -> np.ndarray:
         """Slot scores of ``fn`` (or ``fn_comp`` on dict-coded shards)
-        over every shard, concatenated along ``axis``."""
-        if not self._paged:
-            if self.compressed:
-                dict_rows, refs = self.tiles.get_compressed(0)
-                out = fn_comp(dict_rows, refs, self.index.row_offset,
-                              self.index.block_width, *args)
-            else:
-                out = fn(self.tiles.get(0), self.index.row_offset,
-                         self.index.block_width, *args)
+        over every shard, on the host."""
+        out = score_shards(self.tiles, self._shard_plans, fn, fn_comp,
+                           lambda i, rows: (*self._addressing[i], *args))
+        with span("copy"):
             return out.cpu().numpy()
-        if self.compressed:
-            parts = run_paged_compressed(self.tiles, self._shard_args, fn,
-                                         fn_comp, *args)
-        else:
-            parts = run_paged(self.tiles, self._shard_args, fn, *args)
-        return np.concatenate(parts, axis=axis)
 
     def score_terms(self, terms: np.ndarray) -> np.ndarray:
         """Distinct packed terms [L, 2] -> int32 scores [n_docs] (original
         document order)."""
         padded, L = pad_terms(terms, self.term_pad)
-        slots = self._slots(self._score, self._score_comp, 0,
+        slots = self._slots(self._score, self._score_comp,
                             self._terms(padded), L)
         return slots[self._host_slot]
 
@@ -1451,7 +1402,7 @@ class QueryEngine:
         """terms [Q, L, 2], n_valid [Q] -> scores [Q, n_docs]."""
         n_valid = torch.from_numpy(
             np.asarray(n_valid, dtype=np.int32)).to(self.index.device)
-        slots = self._slots(self._score_batch, self._score_batch_comp, 1,
+        slots = self._slots(self._score_batch, self._score_batch_comp,
                             self._terms(terms), n_valid)
         return slots[:, self._host_slot]
 

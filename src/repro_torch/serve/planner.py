@@ -32,11 +32,11 @@ heuristics below apply. Given the same tuning entries and the same
 (bucket, batch, threshold), the port makes the JAX planner's plan.
 
 A plan is a pure function of (bucket, batch size, threshold) and the
-tuner's entries; score functions are built lazily per (method, tile
-config) and memoised. When the storage is sharded the plan is marked
-``paged`` and carries the per-shard addressing (``plan_shards``): the
-server then dispatches once per shard tile in the device tile cache and
-concatenates slot scores.
+tuner's entries; score functions are built lazily per (kind, method,
+tile config) and memoised, a raw function and its dict twin together.
+The planner keeps the per-shard addressing (``plan_shards``; dense storage
+is one shard) that the server's one shard loop (``score_shards``)
+dispatches over; a plan over sharded storage is marked ``paged``.
 """
 from __future__ import annotations
 
@@ -190,12 +190,7 @@ class QueryPlanner:
         else:
             self.density = float(index.params.fpr)
         self._k = index.params.n_hashes
-        self._single_fns: dict[tuple, object] = {}
-        self._batch_fns: dict[tuple, object] = {}
-        self._dedup_fns: dict[Optional[int], object] = {}
-        self._comp_single_fns: dict[tuple, object] = {}
-        self._comp_batch_fns: dict[tuple, object] = {}
-        self._comp_dedup_fns: dict[Optional[int], object] = {}
+        self._score_fns: dict[tuple, tuple] = {}
         self.dispatch_counts: Counter[str] = Counter()
         self.n_shards = index.storage.n_shards
         self.shard_plans: list[ShardPlan] = plan_shards(
@@ -291,62 +286,30 @@ class QueryPlanner:
             predicted_prune=predicted)
 
     # -- score-function cache ---------------------------------------------
-    def batch_score_fn(self, plan: QueryPlan):
-        """score(arena, row_offset, block_width, terms [Q, L, 2], n_valid
-        [Q]) -> [Q, n_slots] for this plan's method."""
-        key = (plan.method, plan.word_block, plan.term_block,
+    def score_fns(self, plan: QueryPlan, kind: str):
+        """``plan``'s (raw, dict) score functions of ``kind``: "single"
+        (terms [L, 2] -> [n_slots]), "batch" (terms [Q, L, 2], n_valid [Q]
+        -> [Q, n_slots]) or "dedup" (the row-dedup pair over a shard's
+        unique rows). The dict twin takes a shard's (dict, refs) pair in
+        place of its tile and is None unless the plan is compressed (raw
+        shards of a mixed-codec store keep the raw function). Built on
+        first use and kept, a pair per kind and plan knobs."""
+        key = (kind, plan.method, plan.word_block, plan.term_block,
                plan.grid_order)
-        fn = self._batch_fns.get(key)
-        if fn is None:
-            fn = make_batch_score_fn(self._k, plan.method,
-                                     grid_order=plan.grid_order)
-            self._batch_fns[key] = fn
-        return fn
-
-    def dedup_score_fn(self, plan: QueryPlan):
-        """score(arena, uniq_rows, indir, mask) -> [Q, n_slots]: the
-        row-dedup pair."""
-        fn = self._dedup_fns.get(plan.word_block)
-        if fn is None:
-            fn = make_dedup_score_fn(word_block=plan.word_block)
-            self._dedup_fns[plan.word_block] = fn
-        return fn
-
-    def single_score_fn(self, plan: QueryPlan):
-        key = (plan.method, plan.word_block, plan.term_block)
-        fn = self._single_fns.get(key)
-        if fn is None:
-            fn = make_score_fn(self._k, plan.method)
-            self._single_fns[key] = fn
-        return fn
-
-    # -- compressed (fused-decode) twins: same keys, (dict, refs) leading
-    # arguments instead of the arena. A compressed plan needs both forms:
-    # raw shards in a mixed-codec store keep the raw fn.
-    def comp_batch_score_fn(self, plan: QueryPlan):
-        key = (plan.method, plan.word_block, plan.term_block,
-               plan.grid_order)
-        fn = self._comp_batch_fns.get(key)
-        if fn is None:
-            fn = make_comp_batch_score_fn(self._k, plan.method,
-                                          grid_order=plan.grid_order)
-            self._comp_batch_fns[key] = fn
-        return fn
-
-    def comp_dedup_score_fn(self, plan: QueryPlan):
-        fn = self._comp_dedup_fns.get(plan.word_block)
-        if fn is None:
-            fn = make_comp_dedup_score_fn(word_block=plan.word_block)
-            self._comp_dedup_fns[plan.word_block] = fn
-        return fn
-
-    def comp_single_score_fn(self, plan: QueryPlan):
-        key = (plan.method, plan.word_block, plan.term_block)
-        fn = self._comp_single_fns.get(key)
-        if fn is None:
-            fn = make_comp_score_fn(self._k, plan.method)
-            self._comp_single_fns[key] = fn
-        return fn
+        fns = self._score_fns.get(key)
+        if fns is None:
+            k, m, wb, go = (self._k, plan.method, plan.word_block,
+                            plan.grid_order)
+            fns = self._score_fns[key] = {
+                "single": lambda: (make_score_fn(k, m),
+                                   make_comp_score_fn(k, m)),
+                "batch": lambda: (
+                    make_batch_score_fn(k, m, grid_order=go),
+                    make_comp_batch_score_fn(k, m, grid_order=go)),
+                "dedup": lambda: (make_dedup_score_fn(word_block=wb),
+                                  make_comp_dedup_score_fn(word_block=wb)),
+            }[kind]()
+        return fns if plan.compressed else (fns[0], None)
 
     def record(self, plan: QueryPlan, method: Optional[str] = None) -> None:
         """Count a dispatch; ``method`` overrides the plan's label (the

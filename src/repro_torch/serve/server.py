@@ -13,26 +13,29 @@ Life of a request:
    each request's own threshold, and cached.
 3. Responses accumulate until ``pop_responses``.
 
-Selection. A dense dispatch (one launch over the resident arena) and a
-paged one (a launch a shard, the per-shard scores concatenated on the
-device) select each request's hits on the index's device
-(``select_scores``: slot order to document order, the coverage cutoff,
-the hits compacted) and copy back only the hit lists, through a pinned
-staging buffer. A request with ``top_k`` or with more than ``SELECT_CAP``
-hits takes its own score row to the host instead, and pruned and point
-queries select on the host as before; every path gives ``select_hits``'s
-/ ``select_top_k``'s result. ``serve_select_card_total`` and
-``serve_select_host_total`` (by reason) count the requests of each.
+Dispatch. Every exhaustive batch, fused or dedup, runs one loop over the
+store's shards (``core.query.score_shards``): a launch a shard, the
+per-shard scores concatenated on the device, and dense storage the
+one-shard case, whose one part is the dispatch's scores as they are.
+
+Selection. An exhaustive dispatch selects each request's hits on the
+index's device (``select_scores``: slot order to document order, the
+coverage cutoff, the hits compacted) and copies back only the hit lists,
+through a pinned staging buffer. A request with ``top_k`` or with more
+than ``SELECT_CAP`` hits takes its own score row to the host instead, and
+pruned and point queries select on the host as before; every path gives
+``select_hits``'s / ``select_top_k``'s result. ``serve_select_card_total``
+and ``serve_select_host_total`` (by reason) count the requests of each.
 
 Out of core. A sharded (mapped) index pages its shards through a
 ``DeviceTileCache`` of ``tile_cache_bytes``; ``warm_tiles``, called when
 the store opens, stages tiles up to that budget (otherwise they are
-staged on first use). An exhaustive paged batch reaches each shard by
-``core.query.RowGatherRoute``: a resident tile is scored on the card, a
-shard that is not resident has the batch's unique rows read from the
-mapped store and scored by the dedup kernel, and a tile is staged only
-where it fits without evicting one or the batch's rows cost as much as
-the tile. ``tile_gathers`` (a ``GatherStats``) and the registry
+staged on first use). The shard loop of a paged batch reaches each shard
+as ``core.query.RowGatherRoute`` says: a resident tile is scored on the
+card, a shard that is not resident has the batch's unique rows read from
+the mapped store and scored by the dedup kernel, and a tile is staged
+only where it fits without evicting one or the batch's rows cost as much
+as the tile. ``tile_gathers`` (a ``GatherStats``) and the registry
 (``serve_tile_rows_gathered_total``, ``serve_tile_gathered_bytes_total``,
 ``serve_tile_gather_seconds``, ``serve_shard_visits_total{route}``)
 count what the route did.
@@ -40,8 +43,8 @@ count what the route did.
 The server is single-threaded and clock-injectable: drivers decide the
 cadence (closed-loop drivers call ``drain``, open-loop ones ``step`` on
 arrival timestamps), and tests run on a virtual clock. Every kernel span
-ends after the scores (for a dense dispatch, the hits selected from them)
-are on the host, so the kernel profiler's times are host times from the
+ends after the scores (for an exhaustive dispatch, the hits selected from
+them) are on the host, so the kernel profiler's times are host times from the
 terms' upload through that copy, not launch times and not the kernels'
 device time alone. ``obs.trace.span`` times
 each stage: into the traced requests' marks, and into ``repro.<stage>``
@@ -56,12 +59,12 @@ disk (a reopened server plans from the file without re-tuning), and the
 kernel profiler feeds live costs back into it, as in the JAX server. It
 differs from the JAX server in three deliberate ways: its tile cache does
 not pad tiles to a common height (PyTorch runs eagerly, so padding would
-only cost bytes), it selects a dense batch's hits on the device (the JAX
-server selects in numpy; the answers are equal), and its dedup gate reads
-a batch's rate off an exact count of its unique rows, planning the rows
-only of a batch that takes the dedup pair (the JAX server plans every
-gated batch; the rate, and so the dispatch, is equal).
-``serve_dedup_plan_total{outcome}`` counts the batches planned and
+only cost bytes), it selects an exhaustive batch's hits on the device
+(the JAX server selects in numpy; the answers are equal), and its dedup
+gate reads a batch's rate off an exact count of its unique rows, planning
+the rows, shard by shard, only of a batch that takes the dedup pair (the
+JAX server plans every gated batch; the rate, and so the dispatch, is
+equal). ``serve_dedup_plan_total{outcome}`` counts the batches planned and
 skipped.
 """
 from __future__ import annotations
@@ -74,16 +77,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core import codec as _codec
 from ..core import hashing
 from ..core.arena import DeviceTileCache
 from ..core.index import BitSlicedIndex
 from ..core.query import (GatherStats, PruneStats, RowGatherRoute,
                           SearchResult, _pad_unique, _to_device,
                           compile_pattern, count_dedup_batch,
-                          coverage_cutoff, dedup_inputs, dedup_rate,
-                          plan_dedup_batch, run_paged, run_paged_compressed, run_paged_dedup,
-                          run_paged_pruned, select_hits, select_top_k)
+                          coverage_cutoff, dedup_rate, run_paged_dedup,
+                          run_paged_pruned, score_shards, select_hits,
+                          select_top_k, shard_addressing)
 from ..device import resolve_device
 from ..kernels.autotune import KernelTuner, TuningCache
 from ..kernels.bitslice_score import select_scores
@@ -160,8 +162,8 @@ class ServerConfig:
     profile_kernels: bool = True
 
 
-# Most hits a request's list brings back from a dense dispatch. The lists
-# of a batch come back whole (Q * (1 + 2 * SELECT_CAP) int32: 262 KB at
+# Most hits a request's list brings back from an exhaustive dispatch. The
+# lists of a batch come back whole (Q * (1 + 2 * SELECT_CAP) int32: 262 KB at
 # 32 requests); a request with more hits copies its own score row.
 SELECT_CAP = 1024
 # the cutoff of a request the device does not select for (top-k, no terms)
@@ -174,8 +176,8 @@ def _next_pow2(n: int) -> int:
 
 @dataclasses.dataclass
 class _CardHits:
-    """A dense dispatch's selection: its scores [>= Q, n_slots] in slot
-    order, left on the index's device for the requests that take the host
+    """An exhaustive dispatch's selection: its scores [>= Q, n_slots] in
+    slot order, left on the index's device for the requests that take the host
     path, and each live request's hit list as ``select_scores`` wrote it
     ([Q, 1 + 2 * cap]), on the host in the server's staging buffer."""
     scores: torch.Tensor
@@ -245,11 +247,8 @@ class QueryServer(ServingBackend):
         # dense storage is one "shard", the resident arena.
         self.tiles = DeviceTileCache(index.storage,
                                      capacity_bytes=config.tile_cache_bytes)
-        # per-shard addressing on the index's device, staged once
-        self._shard_args = [
-            (sp.shard, torch.from_numpy(sp.row_offset).to(index.device),
-             torch.from_numpy(sp.block_width).to(index.device))
-            for sp in self.planner.shard_plans]
+        self._addressing = shard_addressing(self.planner.shard_plans,
+                                            index.device)
         # what the row-gather route of paged batches did, over the
         # server's life
         self.tile_gathers = GatherStats()
@@ -291,7 +290,7 @@ class QueryServer(ServingBackend):
         comp = self.planner.compressed_enabled
 
         def dict_form(s: int) -> bool:
-            return comp and st.shard_codec(s) in _codec.DICT_CODECS
+            return self.tiles.dict_form(s, comp)
 
         order = sorted(range(st.n_shards),
                        key=lambda s: self.tiles.form_nbytes(s, dict_form(s)))
@@ -437,9 +436,10 @@ class QueryServer(ServingBackend):
 
     def _card_hits(self, out: torch.Tensor, cut_dev: torch.Tensor,
                    seq: Optional[int]) -> _CardHits:
-        """The tail of a dense dispatch: the live requests' hits selected
-        from ``out`` on the index's device, then their lists copied, the
-        batch's one copy to the host, into the staging buffer."""
+        """The tail of an exhaustive dispatch: the live requests' hits
+        selected from ``out`` on the index's device, then their lists
+        copied, the batch's one copy to the host, into the staging
+        buffer."""
         scores = out.view(1, -1) if out.dim() == 1 else out
         with span("launch", seq=seq):
             lists = select_scores(scores, self.index.doc_slot, cut_dev,
@@ -466,94 +466,51 @@ class QueryServer(ServingBackend):
             self.tile_gathers.merge(route.stats)
             self.metrics.record_tile_route(route.stats)
 
-    def _run_plan(self, plan, fn, terms_dev, valid_dev, cut_dev,
-                  fn_comp=None, seq: Optional[int] = None, route=None):
-        """Dispatch ``fn`` once against the dense arena, or, for a paged
-        plan, once per shard as ``route`` says (a tile staged through the
-        LRU tile cache, or the batch's rows gathered), concatenating
-        per-shard slot scores along the slot axis on the device. With
-        ``fn_comp`` (compressed plans) dict-coded shards stage their
-        (dict, refs) form and score through the fused-decode kernels.
-        Returns the dispatch's hits, selected on the device against
-        ``cut_dev``."""
-        if not plan.paged:
-            with span("launch", seq=seq):
-                if (fn_comp is not None and self.index.storage.shard_codec(0)
-                        in _codec.DICT_CODECS):
-                    dict_rows, refs = self.tiles.get_compressed(0)
-                    out = fn_comp(dict_rows, refs, self.index.row_offset,
-                                  self.index.block_width, terms_dev,
-                                  valid_dev)
-                else:
-                    out = fn(self.tiles.get(0), self.index.row_offset,
-                             self.index.block_width, terms_dev, valid_dev)
-            return self._card_hits(out, cut_dev, seq)
-        if fn_comp is not None:
-            parts = run_paged_compressed(self.tiles, self._shard_args, fn,
-                                         fn_comp, terms_dev, valid_dev,
-                                         route=route, to_host=False)
-        else:
-            parts = run_paged(self.tiles, self._shard_args, fn, terms_dev,
-                              valid_dev, route=route, to_host=False)
-        return self._card_hits(torch.cat(parts, dim=-1), cut_dev, seq)
+    def _run_plan(self, fns, terms_dev, valid_dev, cut_dev, *,
+                  seq: Optional[int], route=None):
+        """Dispatch the (raw, dict) score functions ``fns`` over every
+        shard (``score_shards``; dense storage is one shard), as ``route``
+        says for a paged plan. Returns the dispatch's hits, selected on
+        the device against ``cut_dev``."""
+        out = score_shards(
+            self.tiles, self.planner.shard_plans, *fns,
+            lambda i, rows: (*self._addressing[i], terms_dev, valid_dev),
+            route=route, seq=seq)
+        return self._card_hits(out, cut_dev, seq)
 
     def _score_dedup(self, buf: np.ndarray, n_valid: np.ndarray, plan,
                      cut_dev: Optional[torch.Tensor],
                      marks: Optional[list] = None, seq: Optional[int] = None):
         """Row-dedup dispatch, or None when the batch's dedup rate is
         below the plan's threshold. The rate is the plan's, counted by
-        ``count_dedup_batch`` without the plan; a dense batch past the
-        gate then plans its rows over the global layout, and a paged one
-        re-plans per shard against the rebased addressing (the shards the
-        row-gather route reaches, at once); either selects its hits on the
-        device against ``cut_dev``. ``marks`` collects (name, start, end,
-        tags) stage timings for tracing."""
+        ``count_dedup_batch`` without the plan; a batch past the gate is
+        then planned per shard against the rebased addressing
+        (``run_paged_dedup``; the shards the row-gather route reaches, at
+        once), and selects its hits on the device against ``cut_dev``.
+        ``marks`` collects (name, start, end, tags) stage timings for
+        tracing."""
         layout = self.index.layout
         with span("dedup_plan", marks, clock=self.clock, seq=seq) as sp:
             n_unique, n_gathers = count_dedup_batch(
                 buf, n_valid, layout.row_offset, layout.block_width)
             rate = dedup_rate(n_unique, n_gathers)
             past = rate >= plan.dedup_threshold
-            dp = (plan_dedup_batch(buf, n_valid, layout.row_offset,
-                                   layout.block_width)
-                  if past and not plan.paged else None)
             self.metrics.record_dedup_plan(past)
             if marks is not None:
                 sp.tags = {"dedup_rate": round(float(rate), 4),
                            "n_unique": n_unique, "built": int(past)}
         if not past:
             return None
-        fn = self.planner.dedup_score_fn(plan)
-        fn_comp = (self.planner.comp_dedup_score_fn(plan)
-                   if plan.compressed else None)
+        fn, fn_dict = self.planner.score_fns(plan, "dedup")
         with span("kernel_score", marks, clock=self.clock, seq=seq) as ks:
             tk0 = self.clock()
-            if not plan.paged:
-                dev = self.index.device
-                if (fn_comp is not None and self.index.storage.shard_codec(0)
-                        in _codec.DICT_CODECS):
-                    dict_rows, refs = self.tiles.get_compressed(0)
-                    with span("stage", seq=seq):
-                        args = dedup_inputs(dp, refs.shape[0], dev, "refs")
-                    with span("launch", seq=seq):
-                        out = fn_comp(dict_rows, refs, *args,
-                                      range_checked=True)
-                else:
-                    arena = self.tiles.get(0)
-                    with span("stage", seq=seq):
-                        args = dedup_inputs(dp, arena.shape[0], dev,
-                                            "the arena")
-                    with span("launch", seq=seq):
-                        out = fn(arena, *args, range_checked=True)
-                slots = self._card_hits(out, cut_dev, seq)
-            else:
-                route = self._route(plan, buf, n_valid)
-                slots = self._card_hits(
-                    run_paged_dedup(self.tiles, self.planner.shard_plans, fn,
-                                    buf, n_valid, fn_comp=fn_comp,
-                                    route=route, to_host=False),
-                    cut_dev, seq)
-                self._record_route(route)
+            route = self._route(plan, buf, n_valid) if plan.paged else None
+            slots = self._card_hits(
+                run_paged_dedup(self.tiles, self.planner.shard_plans, fn,
+                                buf, n_valid, fn_comp=fn_dict, route=route,
+                                to_host=False, seq=seq),
+                cut_dev, seq)
+            self._record_route(route)
             self._kernel_mark(ks, marks,
                               "dedup_c" if plan.compressed else "dedup",
                               plan, tk0, self.clock(),
@@ -666,9 +623,6 @@ class QueryServer(ServingBackend):
             with span("stage", seq=seq):
                 buf = np.zeros((B, 2), dtype=np.uint32)
                 buf[: ells[0]] = batch.requests[0].terms
-            fn = self.planner.single_score_fn(plan)
-            fn_comp = (self.planner.comp_single_score_fn(plan)
-                       if plan.compressed else None)
             with span("kernel_score", marks, clock=self.clock,
                       seq=seq) as ks:
                 tk0 = self.clock()
@@ -677,9 +631,9 @@ class QueryServer(ServingBackend):
                     cut_dev = self._cutoffs(batch.requests)
                 route = (self._route(plan, buf[None], ells[:1], single=True)
                          if plan.paged else None)
-                slots = self._run_plan(plan, fn, terms_dev, int(ells[0]),
-                                       cut_dev, fn_comp=fn_comp, seq=seq,
-                                       route=route)
+                slots = self._run_plan(
+                    self.planner.score_fns(plan, "single"), terms_dev,
+                    int(ells[0]), cut_dev, seq=seq, route=route)
                 self._record_route(route)
                 self._kernel_mark(ks, marks, method, plan, tk0, self.clock(),
                                   rows=B * nb)
@@ -701,9 +655,6 @@ class QueryServer(ServingBackend):
                 if slots is not None:
                     method = "dedup_c" if plan.compressed else "dedup"
             if slots is None:
-                fn = self.planner.batch_score_fn(plan)
-                fn_comp = (self.planner.comp_batch_score_fn(plan)
-                           if plan.compressed else None)
                 with span("kernel_score", marks, clock=self.clock,
                           seq=seq) as ks:
                     tk0 = self.clock()
@@ -713,9 +664,9 @@ class QueryServer(ServingBackend):
                             self.index.device)
                     route = (self._route(plan, buf, n_valid)
                              if plan.paged else None)
-                    slots = self._run_plan(plan, fn, terms_dev, valid_dev,
-                                           cut_dev, fn_comp=fn_comp, seq=seq,
-                                           route=route)
+                    slots = self._run_plan(
+                        self.planner.score_fns(plan, "batch"), terms_dev,
+                        valid_dev, cut_dev, seq=seq, route=route)
                     self._record_route(route)
                     self._kernel_mark(ks, marks, method, plan, tk0,
                                       self.clock(), rows=q_pad * nb * B)

@@ -274,6 +274,21 @@ def stores(tmp_path_factory):
     return c, root, idx_c, idx_r, stats
 
 
+@pytest.fixture(scope="module")
+def comp_dense(tmp_path_factory):
+    """The redundant corpus as a rowdict store of one shard (both blocks
+    in it): the shard loop's one-shard case."""
+    _, terms = _redundant()
+    root = tmp_path_factory.mktemp("comp_dense")
+    idx, _ = build_compact_streaming(terms, root / "comp",
+                                     IndexParams(1, 0.03, 15),
+                                     block_docs=128, blocks_per_shard=2,
+                                     codec="rowdict", device=CPU)
+    assert idx.storage.n_shards == 1
+    assert idx.storage.shard_codec(0) == "rowdict"
+    return root, idx
+
+
 def test_compressed_store_is_compressed(stores):
     _, root, idx_c, idx_r, stats = stores
     assert idx_c.storage.n_shards == 2 == stats.n_compressed_shards
@@ -286,9 +301,18 @@ def test_compressed_store_is_compressed(stores):
     assert not QueryEngine(idx_c, device=CPU).compressed
 
 
-@pytest.mark.parametrize("method", METHODS)
-def test_compressed_engine_equals_reference(stores, method):
+# case -> (method, store): the paged rowdict store of ``stores`` or the
+# one-shard store of ``comp_dense``
+ENGINE_CASES = {**{m: (m, "paged") for m in METHODS},
+                **{f"{m} dense": (m, "dense") for m in METHODS}}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_compressed_engine_equals_reference(stores, comp_dense, case):
     c, root, idx_c, idx_r, _ = stores
+    method, shards = ENGINE_CASES[case]
+    if shards == "dense":
+        root, idx_c = comp_dense
     jidx = jax_store.load_index_v2(root / "comp")
     # the JAX engine's default cache pads tiles to the tallest shard (one
     # compiled kernel for all); the port's does not, so give both the same
@@ -341,8 +365,8 @@ def test_compressed_engine_k2_equals_reference(tmp_path):
 
 
 def test_mixed_codec_store_equals_reference(stores, tmp_path):
-    """rowdict and raw shards in one store: both branches of
-    run_paged_compressed, with codec-aware prefetch."""
+    """rowdict and raw shards in one store: both forms of the shard loop
+    (``score_shards``), with codec-aware prefetch."""
     c, root, idx_c, idx_r, _ = stores
     store.merge_stores(root / "comp", root / "raw", tmp_path / "mixed")
     idx = store.load_index_v2(tmp_path / "mixed", device=CPU)

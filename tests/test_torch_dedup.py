@@ -11,9 +11,9 @@
   hashes, with the server's zero-padded queries, and the dedup gate's
   ``count_dedup_batch`` against it (one hash), over narrow and wide
   blocks and batches around a dedup rate of 0.5;
-* ``run_paged_dedup`` on dense, raw and rowdict stores (and a two-hash
-  raw store) against the JAX function: slot scores and tile-cache
-  counters, both caches unpadded.
+* ``run_paged_dedup`` on raw and rowdict stores, sharded and of one
+  shard (and a two-hash raw store) against the JAX function: slot scores
+  and tile-cache counters, both caches unpadded.
 
 Every comparison is exact (``np.testing.assert_array_equal``).
 """
@@ -376,6 +376,8 @@ def stores(tmp_path_factory):
                             codec="rowdict")),
           "dense": (p1, dict(block_docs=32, blocks_per_shard=64,
                              codec="raw")),
+          "comp dense": (p1, dict(block_docs=128, blocks_per_shard=64,
+                                  codec="rowdict")),
           "raw k=2": (p2, dict(block_docs=32, blocks_per_shard=1,
                                codec="raw"))}
     out = {}
@@ -387,6 +389,8 @@ def stores(tmp_path_factory):
     assert all(st.shard_codec(s) == "rowdict" for s in range(st.n_shards))
     assert out["raw"][1].storage.n_shards > 2
     assert out["dense"][1].storage.n_shards == 1
+    st = out["comp dense"][1].storage
+    assert st.n_shards == 1 and st.shard_codec(0) == "rowdict"
     return c, out
 
 
@@ -396,7 +400,8 @@ CACHE_COUNTERS = ("hits", "faults", "prefetched", "prefetch_hits",
 
 
 @pytest.mark.parametrize("bounded", [False, True])
-@pytest.mark.parametrize("kind", ["raw", "comp", "dense", "raw k=2"])
+@pytest.mark.parametrize("kind", ["raw", "comp", "dense", "raw k=2",
+                                  "comp dense"])
 def test_run_paged_dedup_equals_reference(stores, kind, bounded):
     c, out = stores
     jidx, tidx, n_hashes = out[kind]
@@ -409,7 +414,7 @@ def test_run_paged_dedup_equals_reference(stores, kind, bounded):
            if bounded else None)
     jtiles = JaxCache(jidx.storage, capacity_bytes=cap)
     ttiles = DeviceTileCache(st, capacity_bytes=cap)
-    comp = kind == "comp"
+    comp = kind.startswith("comp")
     for _ in range(2):                     # a second batch: cache hits
         want = jq.run_paged_dedup(
             jtiles, jq.plan_shards(jidx.layout, jidx.storage.shard_row_starts),

@@ -216,7 +216,7 @@ def test_engine_refuses_what_is_not_ported(jax_indexes):
     sharded = BitSlicedIndex(layout, MappedArena(
         [words[:32], words[32:]], [0, 32, 64], 1, device=CPU))
     engine = QueryEngine(sharded, method="lookup", device=CPU)
-    assert engine._paged
+    assert engine.index.storage.n_shards == 2
     got = engine.score_terms(np.array([[1, 2], [3, 4]], np.uint32))
     np.testing.assert_array_equal(got, [2, 0])
     assert engine.tiles.faults == 2 and engine.tiles.prefetch_hits == 1

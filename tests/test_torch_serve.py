@@ -36,6 +36,7 @@ from repro.serve import ServerConfig as JaxConfig
 from repro.serve.planner import QueryPlanner as JaxPlanner
 
 from repro_torch.core import index_from_numpy, load_index_v2
+from repro_torch.core import query as query_mod
 from repro_torch.core.query import compile_pattern, select_hits
 from repro_torch.core.store import tuning_path
 from repro_torch.kernels import autotune as tat
@@ -75,14 +76,23 @@ def world(tmp_path_factory):
                             root / "comp", JaxParams(1, 0.03, 15),
                             block_docs=128, blocks_per_shard=1,
                             codec="rowdict")
+    comp1, _ = jax_streaming([rc.doc_terms[i % 24] for i in range(144)],
+                             root / "comp dense", JaxParams(1, 0.03, 15),
+                             block_docs=128, blocks_per_shard=2,
+                             codec="rowdict")
     out = {"dense": (dense, carry(dense)),
            "raw": (jax_load_v2(root / "raw"),
                    load_index_v2(root / "raw", device=CPU)),
            "comp": (comp, load_index_v2(root / "comp", device=CPU)),
+           "comp dense": (comp1, load_index_v2(root / "comp dense",
+                                               device=CPU)),
            "k=2": (two, carry(two))}
     assert out["raw"][1].storage.n_shards > 1
     st = out["comp"][1].storage
     assert all(st.shard_codec(s) == "rowdict" for s in range(st.n_shards))
+    assert st.dict_ratio() >= 1.25
+    st = out["comp dense"][1].storage
+    assert st.n_shards == 1 and st.shard_codec(0) == "rowdict"
     assert st.dict_ratio() >= 1.25
     return c, rc, out, root
 
@@ -235,17 +245,18 @@ def test_dedup_gate_builds_the_plan_only_past_the_gate(world, monkeypatch,
                                                        case):
     """A dense batch of reads from many documents stays below the gate
     of 0.5 without a plan; a batch of overlapping reads of one document
-    clears it and builds the plan once. Both count their outcome."""
+    clears it and builds the plan once, in the shard loop over the dense
+    store's one shard. Both count their outcome."""
     c = world[0]
     tidx = world[2]["dense"][1]
     calls = []
-    real = server_mod.plan_dedup_batch
+    real = query_mod.plan_dedup_batch
 
     def plan(*a, **kw):
         calls.append(a)
         return real(*a, **kw)
 
-    monkeypatch.setattr(server_mod, "plan_dedup_batch", plan)
+    monkeypatch.setattr(query_mod, "plan_dedup_batch", plan)
     ts = QueryServer(tidx, ServerConfig(**NO_CACHE), clock=Clock(),
                      device=CPU)
     pats = (_mix(c)[:8] if case == "below"
@@ -270,13 +281,20 @@ def test_dedup_gate_builds_the_plan_only_past_the_gate(world, monkeypatch,
         assert {r.method for r in got.values()} == {"dedup"}
 
 
-@pytest.mark.parametrize("case", ["always", "default", "off"])
+# case -> (store, dedup case): the paged rowdict store, or the rowdict
+# store of one shard, the shard loop's one-shard case
+COMP_CASES = {**{c: ("comp", c) for c in ("always", "default", "off")},
+              **{f"dense {c}": ("comp dense", c) for c in ("always", "off")}}
+
+
+@pytest.mark.parametrize("case", list(COMP_CASES))
 def test_compressed_batches_equal_reference(world, case):
     rc = world[1]
+    kind, case = COMP_CASES[case]
     cfg = dict(DEDUP_CASES[case], compressed=True)
     script = (submit_all([d[10:130] for d in rc.documents[:6]])
               + submit_all(_reads(rc.documents, 2, 6)))
-    ts, _ = assert_same_serving(world, "comp", cfg, script)
+    ts, _ = assert_same_serving(world, kind, cfg, script)
     counts = ts.planner.dispatch_counts
     if case == "off":
         assert "dedup_c" not in counts and counts["lookup_c"] > 0
@@ -452,12 +470,11 @@ def test_card_selection_equals_select_hits_on_random_scores(world, case):
         scores[i] = rng.integers(int(lo * e), int(hi * e) + 1, size=width)
     ts = QueryServer(tidx, ServerConfig(**NO_CACHE, dedup_min_rate=None),
                      clock=Clock(), device=CPU)
-    ts.planner.batch_score_fn = lambda plan: (
-        lambda arena, offs, widths, terms, n_valid: torch.from_numpy(
-            scores[: terms.shape[0]]))
-    ts.planner.single_score_fn = lambda plan: (
-        lambda arena, offs, widths, terms, n_valid: torch.from_numpy(
-            scores[0]))
+    ts.planner.score_fns = lambda plan, kind: ({
+        "batch": lambda arena, offs, widths, terms, n_valid:
+            torch.from_numpy(scores[: terms.shape[0]]),
+        "single": lambda arena, offs, widths, terms, n_valid:
+            torch.from_numpy(scores[0])}[kind], None)
     ids = [ts.submit(p, threshold=thr) for p in patterns]
     ts.drain()
     got = ts.pop_responses()
