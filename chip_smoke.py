@@ -28,7 +28,12 @@ Run from a checkout of the repository on a machine with one CUDA card. It
    documents, once with read-like scores and once forced past the hit
    lists' cap, beside the copy of the lists to pinned memory and
    ``index_select`` + ``>=`` + ``nonzero`` as a library yardstick
-   ("[select]");
+   ("[select]"); and holds the grouped lookup (``lookup_score_grouped``)
+   against the per-shard fused lookup and its plain version bit for bit
+   at the paged cell's resident tiles (23 and 34 blocks of 32 words, each
+   a tile of its own, 1 and 32 reads of 120 terms), timed as a graph of 64
+   launches beside the 23 per-shard lookups it replaces and, on the
+   host's clock, a batch through either ("[grouped]");
 4. runs the main path with every launch counter at 0: 128 queries of the
    serving traffic mix (40/80/160/320 bp, half true positives, half
    verified negatives) through ``search``, ``search_batch`` (batches of 32)
@@ -227,7 +232,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12       # the data sheet's 32-bit rate outside tensor cores
 SOURCE = "src/repro_torch/kernels/csrc/bitslice_score.cu"
 PALLAS = "src/repro/kernels/bitslice_score.py"
-# wrapper -> (its line in PALLAS, the Pallas kernel body, the CUDA kernel)
+# wrapper -> (its line in PALLAS, the Pallas kernel body, the CUDA kernel);
+# None for a kernel the Pallas port lacks
 KERNELS = {
     "unpack_score": (65, "_unpack_kernel", "unpack_kernel"),
     "vertical_score": (126, "_vertical_kernel", "vertical_kernel"),
@@ -247,6 +253,8 @@ KERNELS = {
     "dedup_score": (426, "_dedup_score_kernel", "dedup_kernel"),
     "gather_rows_compressed": (486, "kernel (inside gather_rows_compressed)",
                                "gather_comp_kernel"),
+    # no Pallas counterpart: the JAX engine launches a lookup a shard
+    "lookup_score_grouped": (None, None, "grouped::lookup_kernel"),
 }
 # the kernels the tuner's measurements launch
 TUNE_KERNELS = ("lookup_score_multi", "lookup_score_multi_compressed",
@@ -255,7 +263,7 @@ TUNE_KERNELS = ("lookup_score_multi", "lookup_score_multi_compressed",
 CHUNK_KERNELS = ("chunk_dedup_score", "chunk_lookup_score_multi",
                  "chunk_lookup_score_multi_compressed")
 MAIN_KERNELS = ("unpack_score", "vertical_score", "lookup_score_blocks",
-                "lookup_score_multi", "lookup_score")
+                "lookup_score_grouped", "lookup_score")
 DEDUP_KERNELS = ("gather_rows", "gather_rows_compressed", "dedup_score")
 # the wrappers [long] holds at 70,144 terms, each in one launch
 LONG_WRAPPERS = ("lookup_score_blocks_compressed",
@@ -609,6 +617,207 @@ def phase_select(rt, torch) -> dict:
         f"index_select + >= + nonzero {library_us:.2f} us, with its copy "
         f"to the host {library_host_us:.1f} us")
     return out
+
+
+# [grouped]: the paged cell's resident tiles (23 of 34 blocks of W = 32
+# words, each its own tile) and the dense cell's one arena (34 blocks at
+# their row offsets in one tile, its 356,782,080 rows scaled down to
+# GROUPED_DENSE_ROWS), at a read batch of the served bucket (a read of 150
+# bases is 120 31-mers, a multiple of the batcher's quantum of 8)
+GROUPED_BLOCKS, GROUPED_ALL, GROUPED_ROWS = 23, 34, 1 << 20
+GROUPED_Q, GROUPED_L, GROUPED_W = 32, 120, 32
+GROUPED_DENSE_ROWS = 1 << 23
+
+
+def dense_blocks(g, torch, n_blocks: int, total: int):
+    """A dense arena's block layout of ``n_blocks`` blocks over about
+    ``total`` rows: widths that grow along the arena (as blocks of
+    documents sorted by size do, by a factor of about 8 end to end), each
+    block at the row where the one before ends, so every offset but the
+    first is nonzero. Returns (row_offset, block_width), int64 numpy."""
+    ramp = np.geomspace(1.0, 8.0, n_blocks)
+    jitter = 1.0 + 0.1 * torch.rand(n_blocks, generator=g).numpy()
+    width = np.maximum(1, (ramp * jitter * total
+                           / (ramp * jitter).sum()).astype(np.int64))
+    return np.concatenate([[0], np.cumsum(width)[:-1]]), width
+
+
+def phase_grouped(rt, torch) -> dict:
+    """[grouped]: ``lookup_score_grouped`` (``grouped::lookup_kernel``)
+    against the per-shard fused lookup (``lookup_score_multi``, the
+    indexed ``lookup_kernel``, on rows planned from ``hash_terms``) and
+    its plain version (``query.lookup_grouped_plain``), bit for bit: the
+    paged case, GROUPED_BLOCKS and GROUPED_ALL blocks, each a tile of its
+    own allocation of about GROUPED_ROWS rows; and the dense case, one
+    arena tile of GROUPED_DENSE_ROWS rows holding GROUPED_ALL blocks at
+    their row offsets (``dense_blocks``), as the dense store's one shard
+    is; each for 1 and GROUPED_Q reads of GROUPED_L terms (n_valid of 0,
+    some and all of L). Times at 23 paged blocks: the kernel (a CUDA graph
+    of 64 launches) and its byte bound (the terms read once, one row a
+    live (query, block, term), the counts written once, at 3.35 TB/s); the
+    23 per-shard lookups of one batch on precomputed rows (a graph of 23
+    launches: the kernels the grouped launch replaces); the plain version
+    (events around one call); and, on the host's clock and synchronised, a
+    batch through the engine's per-shard score function and through its
+    grouped form (``query.grouped_lookup``, its table kept), at Q = 32 and
+    at one request."""
+    k, q_mod = rt.kernels, rt.query
+    g = torch.Generator().manual_seed(SEED)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int64).to(torch.int32)
+
+    W, L = GROUPED_W, GROUPED_L
+    tiles, plans = [], []
+    for b in range(GROUPED_ALL):
+        R = GROUPED_ROWS - int(ints(0, 4096, 1))
+        tiles.append(ints(-2 ** 31, 2 ** 31, R, W).to(DEV))
+        plans.append(q_mod.ShardPlan(b, b, b + 1, np.zeros(1, np.int32),
+                                     np.array([R], np.int32)))
+    terms = ints(-2 ** 31, 2 ** 31, GROUPED_Q, L, 2).to(DEV)
+    n_valid = ints(L - 20, L + 1, GROUPED_Q)
+    n_valid[1], n_valid[2] = 0, 7
+    n_valid = n_valid.to(DEV)
+    h = rt.hashing.hash_terms(terms, 1)
+    mask = (torch.arange(L, device=DEV)[None, :] < n_valid[:, None]).to(
+        torch.int32)[:, None, :].contiguous()
+
+    def planned(off, width):
+        return q_mod.plan_rows(
+            h, torch.tensor([int(off)], dtype=torch.int32, device=DEV),
+            torch.tensor([int(width)], dtype=torch.int32, device=DEV))[
+            :, :, 0, 0][:, None, :].contiguous()
+
+    def held(what, table, tiles_, idx_of):
+        """The table's launch against the per-shard lookup of each of its
+        blocks and against the plain version, at Q = 1 and GROUPED_Q."""
+        nb = table.n_blocks
+        for Q in (1, GROUPED_Q):
+            got = torch.full((Q, nb, W, 32), -1, dtype=torch.int32,
+                             device=DEV)
+            before = k.launches["lookup_score_grouped"]
+            k.lookup_score_grouped(table, tiles_, terms[:Q], n_valid[:Q],
+                                   got)
+            check(k.launches["lookup_score_grouped"] == before + 1,
+                  "lookup_score_grouped launched once a call")
+            for e in range(len(table)):
+                want = k.lookup_score_multi(
+                    tiles_[int(table.tile_of[e])], idx_of(e)[:Q], mask[:Q])
+                check(torch.equal(got[:, int(table.slot[e])], want[:, 0]),
+                      f"[grouped] {what}: block {e} of {nb}, Q = {Q} != "
+                      f"the per-shard lookup")
+            plain = torch.full_like(got, -1)
+            q_mod.lookup_grouped_plain(table, tiles_, terms[:Q],
+                                       n_valid[:Q], plain)
+            check(torch.equal(plain, got),
+                  f"[grouped] {what}: {nb} blocks, Q = {Q} != "
+                  "lookup_grouped_plain")
+
+    idx = [planned(0, t.shape[0]) for t in tiles]
+    out = {"shape": f"terms [{GROUPED_Q}, {L}, 2], {GROUPED_BLOCKS} blocks "
+                    f"of W = {W}, tiles of ~{GROUPED_ROWS} rows"}
+    for nb in (GROUPED_BLOCKS, GROUPED_ALL):
+        slots = torch.randperm(nb, generator=g).tolist()
+        table = k.BlockTable(tiles[:nb], np.zeros(nb), [t.shape[0] for t in
+                                                        tiles[:nb]],
+                             slots, nb)
+        held(f"paged, {nb} tiles", table, tiles[:nb], lambda e: idx[e])
+    # the dense store: one arena tile, its blocks at their row offsets
+    offs, wids = dense_blocks(g, torch, GROUPED_ALL, GROUPED_DENSE_ROWS)
+    arena = ints(-2 ** 31, 2 ** 31, int(offs[-1] + wids[-1]), W).to(DEV)
+    dense = k.BlockTable([arena], offs, wids, np.arange(GROUPED_ALL),
+                         GROUPED_ALL, tile_of=np.zeros(GROUPED_ALL))
+    dense_idx = [planned(o, w) for o, w in zip(offs, wids)]
+    held("dense, one arena", dense, [arena], lambda e: dense_idx[e])
+    out["dense_shape"] = (f"one arena of {arena.shape[0]} rows, "
+                          f"{GROUPED_ALL} blocks at offsets up to "
+                          f"{int(offs[-1])}")
+    del arena, dense, dense_idx
+    nb = GROUPED_BLOCKS
+    table = k.BlockTable(tiles[:nb], np.zeros(nb),
+                         [t.shape[0] for t in tiles[:nb]], list(range(nb)),
+                         nb)
+    res = torch.empty((GROUPED_Q, nb, W, 32), dtype=torch.int32, device=DEV)
+    lib = rt.build.library()
+    dev, stream = torch.cuda.current_device(), None
+    outs = [torch.empty((GROUPED_Q, 1, W, 32), dtype=torch.int32,
+                        device=DEV) for _ in range(nb)]
+    with on_side_stream(torch):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel_us = 1e3 * graph_ms(torch, [lambda: k.lookup_score_grouped(
+            table, tiles[:nb], terms, n_valid, res)])
+        chain = [(lambda b=b: lib.cobs_lookup(
+            tiles[b].data_ptr(), idx[b].data_ptr(), mask.data_ptr(),
+            outs[b].data_ptr(), GROUPED_Q, L, W, k.CLUSTER_AUTO, dev,
+            stream)) for b in range(nb)]
+        per_shard_us = 1e3 * nb * graph_ms(torch, chain, n=nb * 3)
+    plain_us = 1e3 * event_ms(
+        torch, lambda: q_mod.lookup_grouped_plain(table, tiles[:nb], terms,
+                                                  n_valid, res), 3)
+    live = int(n_valid.sum())
+    nbytes = (terms.numel() * 4 + n_valid.numel() * 4
+              + live * nb * W * 4 + res.numel() * 4)
+    bound_us = 1e6 * nbytes / HBM_BYTES_PER_S
+    # the host's side of one batch: the per-shard score function over the
+    # 23 tiles (hash, plan, range check, launch a tile, the parts' cat)
+    # against the grouped form (its table kept), each synchronised
+    addr = [(torch.zeros(1, dtype=torch.int32, device=DEV),
+             torch.tensor([t.shape[0]], dtype=torch.int32, device=DEV))
+            for t in tiles[:nb]]
+    host_us = {}
+    for form, Q in (("batch", GROUPED_Q), ("single", 1)):
+        fn = (q_mod.make_batch_score_fn(1, "lookup") if form == "batch"
+              else q_mod.make_score_fn(1, "lookup"))
+        t_in = terms if form == "batch" else terms[0]
+        nv = n_valid if form == "batch" else int(n_valid[0])
+        runs = {
+            "per_shard": lambda: torch.cat(
+                [fn(t, *a, t_in, nv) for t, a in zip(tiles[:nb], addr)],
+                dim=-1),
+            "grouped": lambda: q_mod.grouped_lookup(table, tiles[:nb],
+                                                    t_in, nv)}
+        check(torch.equal(runs["per_shard"](), runs["grouped"]()),
+              f"[grouped] the {form} form's grouped scores != per shard")
+        for name, run in runs.items():
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(64):
+                run()
+            torch.cuda.synchronize()
+            host_us[f"{form}_{name}"] = 1e6 * (time.perf_counter() - t0) / 64
+    out.update(kernel_us=kernel_us, per_shard_kernels_us=per_shard_us,
+               plain_us=plain_us, bound_us=bound_us, bytes=nbytes,
+               host_us=host_us)
+    log(f"[grouped] {out['shape']}; {out['dense_shape']}: equal to the "
+        f"per-shard lookup and the plain version at {GROUPED_BLOCKS} and "
+        f"{GROUPED_ALL} tiles and the dense arena, Q = 1 and {GROUPED_Q}; "
+        f"kernel {kernel_us:.2f} us (a graph of 64 "
+        f"launches; bound {bound_us:.3f} us, {nbytes} bytes), the "
+        f"{nb} per-shard lookups it replaces {per_shard_us:.2f} us; plain "
+        f"{plain_us:.1f} us; a batch on the host's clock: " + ", ".join(
+            f"{n} {v:.1f} us" for n, v in host_us.items()))
+    del tiles, res, outs
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_grouped_calls(rt, torch, chk, calls: list, what: str,
+                        n: int = 4) -> None:
+    """The first ``n`` recorded ``lookup_score_grouped`` calls of a path
+    (at least one) launched again and held against the plain version on
+    the same table, tiles, terms and n_valid (the arguments hold the
+    tiles the table points at)."""
+    check(len(calls) > 0, f"[{what}] recorded no lookup_score_grouped call")
+    for table, tiles, terms, n_valid, out in calls[:n]:
+        got = torch.full_like(out, -1)
+        rt.kernels.lookup_score_grouped(table, tiles, terms, n_valid, got)
+        want = torch.full_like(out, -1)
+        rt.query.lookup_grouped_plain(table, tiles, terms, n_valid, want)
+        chk.compare("lookup_score_grouped", got, want,
+                    f"{what}, terms {list(terms.shape)}, {len(table)} "
+                    f"blocks over {len(tiles)} tiles")
 
 
 def unpack_rows_plain(k, rows):
@@ -1035,9 +1244,10 @@ def check_positives(results, origin, what: str, limit: int | None = None):
     return n
 
 
-def phase_main_path(rt, torch, corpus, index):
+def phase_main_path(rt, torch, corpus, index, chk):
     """The main path, launch counters from 0: every method on the compact
-    index, then the classic and two-hash indexes. Returns the record, the
+    index, then the classic and two-hash indexes; the first grouped
+    lookups held against their plain version. Returns the record, the
     queries, their origin documents and the classic index."""
     k = rt.kernels
     t0 = time.perf_counter()
@@ -1051,10 +1261,12 @@ def phase_main_path(rt, torch, corpus, index):
     out = {"methods": {}}
     k.reset_launches()
     base = None
+    grouped = ChunkRecorder(k, ("lookup_score_grouped",), keep=4)
     for method in METHODS:
         before = dict(k.launches)
-        singles, batched, tops, lat, batch_s = run_method(
-            rt, index, method, queries)
+        with grouped:
+            singles, batched, tops, lat, batch_s = run_method(
+                rt, index, method, queries)
         delta = {n: k.launches[n] - before[n] for n in k.launches}
         check(same_results(singles, batched),
               f"{method}: search and search_batch differ")
@@ -1076,12 +1288,14 @@ def phase_main_path(rt, torch, corpus, index):
             f"{m['p99_search_ms']:.3f} ms per search; batch "
             f"{m['batch_queries_per_s']:.1f} queries/s; {m['hits']} hits; "
             f"{n_pos} positives all found; launches {delta}")
-    want = {"lookup": ("lookup_score_blocks", "lookup_score_multi"),
+    want = {"lookup": ("lookup_score_blocks", "lookup_score_grouped"),
             "vertical": ("vertical_score",), "unpack": ("unpack_score",)}
     for method, names in want.items():
         for name in names:
             check(out["methods"][method]["launches"][name] > 0,
                   f"{method} phase launched no {name}")
+    check_grouped_calls(rt, torch, chk, grouped.calls["lookup_score_grouped"],
+                        "main")
 
     # a classic index (one block: lookup_score) and a two-hash compact
     # index (the AND path through vertical and unpack)
@@ -2258,7 +2472,8 @@ def phase_serve(rt, torch, corpus, index, stores, queries, origin, chk):
         ("comp", comp, rt.ServerConfig(compressed=True),
          read_groups(comp_reads), comp_want))
     for what, idx, cfg, groups, want in cases:
-        recs[what] = ChunkRecorder(k, DEDUP_KERNELS)
+        recs[what] = ChunkRecorder(k, DEDUP_KERNELS
+                                   + ("lookup_score_grouped",))
         server, resp, m, _ = run_server(rt, torch, idx, cfg, groups, want,
                                         what, recs[what])
         out[what] = m
@@ -2280,15 +2495,19 @@ def phase_serve(rt, torch, corpus, index, stores, queries, origin, chk):
               f"{method}")
     launches = dict(k.launches)             # the serving path ends here
     out["launches"] = launches
-    for name in DEDUP_KERNELS + ("lookup_score_multi",):
+    for name in DEDUP_KERNELS + ("lookup_score_grouped",):
         check(launches[name] > 0, f"the serving path never launched {name}")
     log(f"[serve] launches {launches}")
     for what, rec in recs.items():
-        check_dedup_calls(k, chk, rec.calls, f"serve {what}")
+        check_dedup_calls(k, chk, {n: rec.calls[n] for n in DEDUP_KERNELS},
+                          f"serve {what}")
     check_dedup_ragged(torch, k, chk)
+    check_grouped_calls(rt, torch, chk, [
+        c for rec in recs.values() for c in rec.calls["lookup_score_grouped"]],
+        "serve")
     log("[serve:kernels] every gather_rows, gather_rows_compressed and "
         "dedup_score call of the serving path equals its plain version, "
-        "and so do the ragged shapes")
+        "and so do the ragged shapes and the first grouped lookups")
     out["trace"] = trace_serve(torch, rt, index, mix_groups[0],
                                read_groups(reads)[0])
     dense_calls = recs["dense reads"].calls
@@ -2410,7 +2629,7 @@ def phase_tune(rt, torch, stores, traffic, untuned, chk):
 
 NET_CLIENTS = 8          # interactive wire clients of (a) and (e)
 NET_READERS = 2          # interactive clients beside the sweep of (c)
-NET_KERNELS = ("lookup_score_multi", "gather_rows", "dedup_score",
+NET_KERNELS = ("lookup_score_grouped", "gather_rows", "dedup_score",
                "chunk_lookup_score_multi", "chunk_dedup_score",
                "chunk_lookup_score_multi_compressed")
 NET_TIMEOUT = 300.0
@@ -2595,11 +2814,13 @@ def phase_net(rt, torch, stores, queries, traffic, untuned, chk):
     for args in rec.calls["lookup_score_multi"][:2]:
         chk.compare("lookup_score_multi", k.lookup_score_multi(*args),
                     k.lookup_plain(*args), f"net, idx {list(args[1].shape)}")
+    check_grouped_calls(rt, torch, chk, rec.calls["lookup_score_grouped"],
+                        "net")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[net] launches {launches}; by thread "
         f"{ {t: sum(c.values()) for t, c in by_thread.items()} }; each "
-        f"equals its wrappers' calls; the first calls of the chunk, dedup "
-        f"and lookup kernels equal their plain versions; "
+        f"equals its wrappers' calls; the first calls of the chunk, dedup, "
+        f"lookup and grouped lookup kernels equal their plain versions; "
         f"{out['seconds']:.1f} s")
     return out, launches
 
@@ -3010,8 +3231,13 @@ def phase_multihost(rt, torch, stores, queries, traffic, untuned, chk):
             by_thread[role][name] += 1
     out["launches_by_thread"] = by_thread
     t0 = time.perf_counter()
-    out["plain_checks"] = check_every_call(
-        k, chk, {n: c for n, c in rec.calls.items() if c}, "multihost")
+    calls = {n: c for n, c in rec.calls.items() if c}
+    grouped = calls.pop("lookup_score_grouped", [])
+    out["plain_checks"] = check_every_call(k, chk, calls, "multihost")
+    if grouped:
+        check_grouped_calls(rt, torch, chk, grouped, "multihost",
+                            n=len(grouped))
+        out["plain_checks"]["lookup_score_grouped"] = len(grouped)
     out["plain_check_s"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[multihost] launches { {n: c for n, c in launches.items() if c} };"
@@ -5372,9 +5598,10 @@ def main() -> int:
         chk = KernelCheck(torch)
         phase_kernels_vs_plain(rt, torch, index, chk)
         record["select"] = phase_select(rt, torch)
+        record["grouped"] = phase_grouped(rt, torch)
         record["long_query"] = phase_long_query(rt, torch, chk)
         main_path, queries, origin, extra, base = phase_main_path(
-            rt, torch, corpus, index)
+            rt, torch, corpus, index, chk)
         record["main_path"] = main_path
         record["multi"] = phase_multi(rt, torch, index, extra["classic k=1"],
                                       queries, origin)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import ops
 from ..obs.trace import span
 from . import codec as _codec
 
@@ -523,6 +524,12 @@ class DeviceTileCache:
     and ``repro.tile.h2d``. ``upload`` sends other host data (the rows a
     batch gathers from a shard that is not resident) the same way.
 
+    ``generation`` counts residency changes (a tile staged or evicted, the
+    cache cleared). ``block_table`` keeps one grouped lookup's block table
+    over resident tiles (``ops.BlockTable``) and builds it anew once the
+    generation moves; the table holds no tile, so an evicted tile's memory
+    goes back as soon as the dispatch that got it drops it.
+
     Counters (hits, faults, prefetched, prefetch_hits, evictions, the
     per-shard dicts, resident and staged bytes) equal the JAX cache's for
     the same access sequence. ``observer(shard, event, seconds)`` sees
@@ -564,6 +571,8 @@ class DeviceTileCache:
         self.shard_hits: dict[int, int] = {}
         self.shard_faults: dict[int, int] = {}
         self.shard_evictions: dict[int, int] = {}
+        self.generation = 0
+        self._table = None      # (generation, base, n_blocks, plans, table)
         self.observer = None
 
     def _notify(self, s: int, event: str, seconds: float = 0.0) -> None:
@@ -781,8 +790,10 @@ class DeviceTileCache:
                 self.shard_evictions[old_s] = \
                     self.shard_evictions.get(old_s, 0) + 1
                 self.evictions += 1
+                self.generation += 1
                 self._notify(old_s, "eviction")
         self._tiles[key] = tile
+        self.generation += 1
         if ready is not None:
             self._ready[key] = ready
         self._sizes[key] = need
@@ -847,6 +858,32 @@ class DeviceTileCache:
         """``prefetch`` for the dict form (see ``get_compressed``)."""
         return self._prefetch(("c", s))
 
+    def block_table(self, plans, tiles: list[torch.Tensor], base: int,
+                    n_blocks: int) -> ops.BlockTable:
+        """The block table of a grouped lookup over ``plans``' blocks
+        (``core.query.ShardPlan``s of raw shards resident now; ``tiles``
+        their tiles, as ``get`` handed them out) in a dispatch over blocks
+        [base, base + n_blocks): a plan's block b is an entry of its rows
+        (its row offset and width) in the plan's tile, at slot b - base. Kept
+        while the generation, the plans and the span stay, and built anew
+        otherwise: a block whose rows pass its tile raises then. The
+        entries' tile pointers hold while the generation does."""
+        with self._lock:
+            kept = self._table
+            if (kept is None or kept[:3] != (self.generation, base, n_blocks)
+                    or len(kept[3]) != len(plans)
+                    or any(a is not b for a, b in zip(kept[3], plans))):
+                table = ops.BlockTable(
+                    tiles, np.concatenate([sp.row_offset for sp in plans]),
+                    np.concatenate([sp.block_width for sp in plans]),
+                    np.concatenate([np.arange(sp.block_start, sp.block_end)
+                                    - base for sp in plans]), n_blocks,
+                    tile_of=np.repeat(np.arange(len(plans)), [
+                        sp.block_end - sp.block_start for sp in plans]))
+                self._table = kept = (self.generation, base, n_blocks,
+                                      list(plans), table)
+            return kept[4]
+
     def clear(self) -> None:
         with self._lock:
             self._tiles.clear()
@@ -854,3 +891,4 @@ class DeviceTileCache:
             self._sizes.clear()
             self._prefetched.clear()
             self.resident_bytes = 0
+            self.generation += 1

@@ -15,10 +15,15 @@ one-shard case. ``plan_shards`` rebases each shard's block row offsets to
 the shard's first row; the loop takes each shard's tile from a
 ``DeviceTileCache`` (prefetching the next while the current one is
 scored), or the batch's rows of it read on the host (``RowGatherRoute``),
-and concatenates the per-shard slot scores in shard order, which is the
-global slot order. With compressed serving, dict-coded shards stay in
-their (dict, refs) form on the device and are scored by the fused-decode
-kernels (``DeviceTileCache.dict_form`` decides, for a shard, which form).
+and writes each shard's slot scores into its columns of the dispatch's
+one buffer, in the global slot order. With compressed serving, dict-coded
+shards stay in their (dict, refs) form on the device and are scored by the
+fused-decode kernels (``DeviceTileCache.dict_form`` decides, for a shard,
+which form).
+A k = 1 lookup dispatch scores the raw shards resident at its start in
+one grouped launch over a block table of their tiles (``score_shards``,
+``grouped_lookup``), where the JAX engine loops over them; the answers
+are equal.
 
 Batches whose queries share rows can run through the row-dedup pair
 (``plan_dedup_batch``, ``run_paged_dedup``): each unique row of a shard is
@@ -41,6 +46,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..kernels.bitslice_score import lookup_plain
 from ..obs.trace import span
 from . import codec as _codec
 from . import dna, hashing
@@ -206,41 +212,80 @@ def shard_addressing(shard_plans: list[ShardPlan], device: torch.device
 
 def score_shards(tiles: DeviceTileCache, shard_plans: list[ShardPlan],
                  score, score_dict, inputs, *, route=None,
-                 seq: int | None = None, **kw) -> torch.Tensor:
+                 seq: int | None = None, grouped: bool = False,
+                 **kw) -> torch.Tensor:
     """Every exhaustive dispatch of a batch over a store's shards; dense
-    storage is the one-shard case. For shard i, in order: the route's part
-    where ``route`` (a ``RowGatherRoute`` over the same shards) gathers
-    it; else ``score(tile, *inputs(i, rows), **kw)`` on the shard's tile,
-    or, where ``tiles.dict_form`` says so (never without ``score_dict``),
+    storage is the one-shard case. For shard i, in order, unless ``route``
+    (a ``RowGatherRoute`` over the same shards) gathers it:
+    ``score(tile, *inputs(i, rows), **kw)`` on the shard's tile, or, where
+    ``tiles.dict_form`` says so (never without ``score_dict``),
     ``score_dict(dict_rows, refs, *inputs(i, rows), **kw)`` on its (dict,
     refs) pair; ``rows`` is the shard's row count, which planned rows are
-    checked against. Once shard i's kernels are launched, shard i+1 is
-    prefetched in the form it will be scored in, unless the route gathers
-    it: its copy runs on the tile cache's side stream while shard i is
-    scored. Returns the slot scores on the device, concatenated along the
-    last axis in shard order, which is the global slot order: for one
-    shard its part itself, with no copy."""
+    checked against. Once shard i's kernels are launched, the next shard
+    scored on its own is prefetched in the form it will be scored in: its
+    copy runs on the tile cache's side stream while shard i is scored.
+
+    ``grouped`` (the k = 1 lookup's score functions, whose ``inputs`` end
+    with (terms, n_valid)): every raw shard resident at the start and not
+    gathered is scored in one launch before the loop (``grouped_lookup``
+    over the tile cache's ``block_table``; the first shard left to stage
+    prefetched first), and the loop scores the others. The route's stats
+    count the grouped shards (``GatherStats.grouped``) and the ``launch``
+    range carries their number (``grouped``).
+
+    Returns the slot scores on the device, in the global slot order: one
+    [Q, n_slots] buffer (or [n_slots] for a single-query score function)
+    that the grouped launch writes, each part is copied into, and the
+    route's gathered shards land in (``RowGatherRoute.scatter``); a store
+    of one shard scored on its own returns its part itself."""
     dict_form = [tiles.dict_form(sp.shard, score_dict is not None)
                  for sp in shard_plans]
     gathers = _no_gather if route is None else route.gathers
-    parts = []
-    with span("launch", seq=seq):
-        for i, sp in enumerate(shard_plans):
-            if gathers(i):
-                out = route.part(i)
-            elif dict_form[i]:
+    group = [i for i, sp in enumerate(shard_plans)
+             if grouped and not (gathers(i) or dict_form[i])
+             and tiles.resident(sp.shard)]
+    alone = [i for i in range(len(shard_plans))
+             if not gathers(i) and i not in group]
+    if route is not None:
+        route.stats.grouped += len(group)
+    base = shard_plans[0].block_start
+    n_blocks = shard_plans[-1].block_end - base
+    cols = int(tiles.storage.shape[1]) * 32           # slots a block
+
+    def prefetch(i: int) -> None:
+        (tiles.prefetch_compressed if dict_form[i]
+         else tiles.prefetch)(shard_plans[i].shard)
+
+    out = None
+    with span("launch", seq=seq, grouped=len(group)):
+        if group:
+            plans = [shard_plans[i] for i in group]
+            got = [tiles.get(sp.shard) for sp in plans]
+            table = tiles.block_table(plans, got, base, n_blocks)
+            if alone:
+                prefetch(alone[0])
+            *_, terms, n_valid = inputs(group[0], got[0].shape[0])
+            out = grouped_lookup(table, got, terms, n_valid)
+        for n, i in enumerate(alone):
+            sp = shard_plans[i]
+            if dict_form[i]:
                 dict_rows, refs = tiles.get_compressed(sp.shard)
-                out = score_dict(dict_rows, refs,
-                                 *inputs(i, refs.shape[0]), **kw)
+                part = score_dict(dict_rows, refs,
+                                  *inputs(i, refs.shape[0]), **kw)
             else:
                 tile = tiles.get(sp.shard)
-                out = score(tile, *inputs(i, tile.shape[0]), **kw)
-            if i + 1 < len(shard_plans) and not gathers(i + 1):
-                nxt = shard_plans[i + 1].shard
-                (tiles.prefetch_compressed if dict_form[i + 1]
-                 else tiles.prefetch)(nxt)
-            parts.append(out)
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+                part = score(tile, *inputs(i, tile.shape[0]), **kw)
+            if n + 1 < len(alone):
+                prefetch(alone[n + 1])
+            if len(shard_plans) == 1:
+                return part
+            if out is None:
+                out = part.new_empty(part.shape[:-1] + (n_blocks * cols,))
+            out[..., (sp.block_start - base) * cols:
+                (sp.block_end - base) * cols].copy_(part)
+        if route is not None:
+            out = route.scatter(out)
+    return out
 
 
 # unique-row count -> padded buffer length (a power of two, at least 8):
@@ -460,11 +505,13 @@ class GatherStats:
     bytes_gathered: int = 0      # their bytes
     gather_s: float = 0.0        # host time of the gathers
     visits: dict = field(default_factory=lambda: dict.fromkeys(ROUTES, 0))
+    grouped: int = 0             # resident visits scored in a grouped launch
 
     def merge(self, other: "GatherStats") -> None:
         self.rows_gathered += other.rows_gathered
         self.bytes_gathered += other.bytes_gathered
         self.gather_s += other.gather_s
+        self.grouped += other.grouped
         for r, n in other.visits.items():
             self.visits[r] = self.visits.get(r, 0) + n
 
@@ -515,11 +562,11 @@ class RowGatherRoute:
     least ``promote_ratio`` of the tile) or ``gathered`` (the module
     notes above). ``terms`` uint32 [Q, L, 2] and ``n_valid`` [Q] are the
     batch on the host; ``compressed`` says dict-coded shards are staged
-    in their (dict, refs) form; ``single`` gives 1-D parts, as a
+    in their (dict, refs) form; ``single`` gives 1-D scores, as a
     single-query score function does. The gathered shards' rows are
-    planned (``plan_dedup_batch``, over their blocks at once), read and
-    uploaded at the first gathered ``part``. ``stats`` (a ``GatherStats``)
-    receives the batch's visits and gathers."""
+    planned (``plan_dedup_batch``, over their blocks at once), read,
+    uploaded and scored by one dedup launch at ``scatter``. ``stats`` (a
+    ``GatherStats``) receives the batch's visits and gathers."""
 
     def __init__(self, tiles: DeviceTileCache, shard_plans: list[ShardPlan],
                  terms: np.ndarray, n_valid: np.ndarray, *,
@@ -537,7 +584,6 @@ class RowGatherRoute:
         self._starts = np.asarray(storage.shard_row_starts, dtype=np.int64)
         self._dict = [tiles.dict_form(sp.shard, compressed)
                       for sp in self.plans]
-        self._parts: dict[int, torch.Tensor] | None = None
         self._plan = None
         self.routes = self._decide(promote_ratio)
         for r in self.routes:
@@ -589,14 +635,28 @@ class RowGatherRoute:
         return plan_dedup_batch(self.terms, self.n_valid, offs, wids,
                                 n_hashes=self.k)
 
-    def part(self, i: int) -> torch.Tensor:
-        """Shard ``i``'s slot scores from its gathered rows, [Q, cols]
-        (or [cols] when ``single``), on the tile cache's device."""
-        if self._parts is None:
-            self._parts = self._score_gathered()
-        return self._parts[i]
+    def scatter(self, scores: torch.Tensor | None) -> torch.Tensor:
+        """Every gathered shard's slot scores written into its columns of
+        ``scores``, a dispatch's whole slot scores over these shards
+        ([Q, n_slots], or [n_slots] when ``single``; None: allocated here,
+        for a dispatch whose every shard is gathered), by one
+        ``index_copy_`` along the block axis; nothing when no shard is
+        gathered. Returns ``scores``."""
+        if self._plan is None or self._plan[1] is None:
+            return scores
+        out, blocks = self._score_gathered()
+        q, cols = out.shape[0], int(self.tiles.storage.shape[1]) * 32
+        if scores is None:
+            n = (self.plans[-1].block_end - self.plans[0].block_start) * cols
+            scores = out.new_empty((n,) if self.single else (q, n))
+        scores.view(q, -1, cols).index_copy_(1, blocks, out.view(q, -1, cols))
+        return scores
 
-    def _score_gathered(self) -> dict[int, torch.Tensor]:
+    def _score_gathered(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The gathered shards' rows read, uploaded and scored by the
+        dedup kernel: (their slot scores [Q, cols] in shard order, each
+        column block's place on the dispatch's block axis, int64 on the
+        device, uploaded with the rows)."""
         idx, dp = self._plan
         storage, k = self.tiles.storage, self.k
         W = int(storage.shape[1])
@@ -604,9 +664,13 @@ class RowGatherRoute:
         live = dp.uniq_rows[:U]
         first = live if k == 1 else live[:, 0]
         st = self.stats
+        base = self.plans[0].block_start
+        blocks = np.concatenate([
+            np.arange(self.plans[i].block_start, self.plans[i].block_end,
+                      dtype=np.int64) - base for i in idx])
 
         def fill(views):
-            rows, indir, mask = views
+            rows, indir, mask, at = views
             rows = rows.view(np.uint32)
             t0 = time.perf_counter()
             for i in idx:
@@ -622,20 +686,16 @@ class RowGatherRoute:
             rows[U:] = 0
             indir[...] = dp.indir
             mask[...] = dp.mask
+            at[...] = blocks.view(np.int32).reshape(at.shape)
 
-        (rows_d, indir_d, mask_d), ready = self.tiles.upload(
-            [(max(1, U), W), dp.indir.shape, dp.mask.shape], fill,
-            fill_span="tile.gather")
-        self.tiles.wait((rows_d, indir_d, mask_d), ready)
+        (rows_d, indir_d, mask_d, at_d), ready = self.tiles.upload(
+            [(max(1, U), W), dp.indir.shape, dp.mask.shape,
+             (blocks.size, 2)], fill, fill_span="tile.gather")
+        self.tiles.wait((rows_d, indir_d, mask_d, at_d), ready)
         # indir indexes the gathered rows by construction
         out = ops.bitslice_score_dedup(rows_d, indir_d, mask_d,
                                        range_checked=True)
-        parts, c0 = {}, 0
-        for i in idx:
-            c1 = c0 + int(self.plans[i].row_offset.shape[0]) * W * 32
-            parts[i] = out[0, c0:c1] if self.single else out[:, c0:c1]
-            c0 = c1
-        return parts
+        return out, at_d.view(torch.int64).view(-1)
 
 
 # --------------------------------------------------------------------------
@@ -1200,6 +1260,57 @@ def _hash_once(n_hashes: int):
     return hashed
 
 
+def grouped_form(n_hashes: int, method: str) -> bool:
+    """Whether the score functions of (``n_hashes``, ``method``) score a
+    dispatch's resident raw shards in one grouped launch
+    (``score_shards``'s ``grouped``): the k = 1 fused lookup's."""
+    return method == "lookup" and n_hashes == 1
+
+
+def lookup_grouped_plain(table: ops.BlockTable, tiles: list[torch.Tensor],
+                         terms: torch.Tensor, n_valid: torch.Tensor | None,
+                         out: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``ops.bitslice_lookup_score_grouped`` (out
+    [Q, n_blocks * W * 32]), on any device: for each entry of ``table``, each term's row (``hash_terms`` with one hash,
+    modulo the block's width, plus its offset), masked from ``n_valid`` on,
+    then ``lookup_plain`` on the entry's tile, written at the entry's
+    slot."""
+    table.check_tiles(tiles)
+    h = hashing.as_unsigned(hashing.hash_terms(terms, 1)[..., 0])  # [Q, L]
+    Q, L = h.shape
+    live = torch.arange(L, device=terms.device)[None, :]
+    mask = (live < (L if n_valid is None else n_valid[:, None])).to(
+        torch.int32)
+    blocks = out.view(Q, table.n_blocks, table.W, 32)
+    for e in range(len(table)):
+        rows = (h % int(table.width[e]) + int(table.row_offset[e])).to(
+            torch.int32)
+        blocks[:, int(table.slot[e])] = lookup_plain(
+            tiles[int(table.tile_of[e])], rows, mask)
+    return out
+
+
+def grouped_lookup(table: ops.BlockTable, tiles: list[torch.Tensor],
+                   terms: torch.Tensor, n_valid) -> torch.Tensor:
+    """The k = 1 lookup of every block of ``table`` (over ``tiles``) in one
+    launch: a dispatch's slot scores, int32 [Q, n_blocks * W * 32] for
+    terms [Q, L, 2] and n_valid int32 [Q], or [n_blocks * W * 32] for
+    terms [L, 2] and an int n_valid, with each term's row hashed and
+    planned in the kernel as ``plan_rows`` plans it; the columns of blocks
+    outside the table are left for the caller to fill. On the CPU, the
+    plain version."""
+    single = terms.dim() == 2
+    if single:         # every term of the first n_valid counts
+        terms, n_valid = terms[None, :int(n_valid)], None
+    out = torch.empty((terms.shape[0], table.n_blocks * table.W * 32),
+                      dtype=torch.int32, device=terms.device)
+    if out.is_cuda:
+        ops.bitslice_lookup_score_grouped(table, tiles, terms, n_valid, out)
+    else:
+        lookup_grouped_plain(table, tiles, terms, n_valid, out)
+    return out[0] if single else out
+
+
 def _check_method(method: str) -> None:
     if method not in ops.METHODS:
         raise ValueError(f"unknown method {method!r}; one of {ops.METHODS}")
@@ -1362,6 +1473,7 @@ class QueryEngine:
         n_hashes = index.params.n_hashes
         self._score = make_score_fn(n_hashes, method)
         self._score_batch = make_batch_score_fn(n_hashes, method)
+        self._grouped = grouped_form(n_hashes, method)
         self.tiles = (tile_cache if tile_cache is not None
                       else DeviceTileCache(index.storage))
         self._shard_plans = plan_shards(index.layout,
@@ -1385,7 +1497,8 @@ class QueryEngine:
         """Slot scores of ``fn`` (or ``fn_comp`` on dict-coded shards)
         over every shard, on the host."""
         out = score_shards(self.tiles, self._shard_plans, fn, fn_comp,
-                           lambda i, rows: (*self._addressing[i], *args))
+                           lambda i, rows: (*self._addressing[i], *args),
+                           grouped=self._grouped)
         with span("copy"):
             return out.cpu().numpy()
 

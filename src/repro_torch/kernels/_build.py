@@ -34,6 +34,9 @@ _SIGNATURES = {
     "cobs_lookup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # dict, refs, idx, mask, out, cells, L, W, cluster, device, stream
     "cobs_lookup_comp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # table, entries, terms, n_valid (or null), out, Q, blocks, L, W,
+    # cluster, device, stream
+    "cobs_lookup_grouped": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # kernel name (one of SPLIT_KERNELS), cells, L, W, Wp, cluster, device,
     # int[9] out
     "cobs_split_info": (ctypes.c_char_p, _I, _I, _I, _I, _I, _I, _P),

@@ -21,15 +21,21 @@ points of ``repro.kernels.bitslice_score``:
   gathered once, then every cell scored through an indirection into
   those rows.
 
-An eleventh kernel has no Pallas counterpart: ``select_scores``, the
-server's selection of a dense batch's hits (slot order to document
-order, the coverage cutoff, the hits compacted), which the JAX server
-makes on the host.
+Two kernels have no Pallas counterpart: ``select_scores``, the server's
+selection of a dense batch's hits (slot order to document order, the
+coverage cutoff, the hits compacted), which the JAX server makes on the
+host; and ``lookup_score_grouped``, the fused lookup's grouped form,
+which scores every block of a ``BlockTable`` (blocks of resident tiles)
+for a batch in one launch, hashing and planning each term's row in the
+kernel, where the JAX engine launches a lookup a shard.
 
 Each wrapper checks device, dtype (int32 words), shape and contiguity.
 For a CPU tensor it calls the plain version; for a CUDA tensor it launches
-the kernel on the current stream, or raises. ``launches[name]`` counts the
-kernel launches of each wrapper and nothing else.
+the kernel on the current stream, or raises. ``lookup_score_grouped``
+launches only: its plain version hashes terms, and lives beside the hash
+in the query engine (``core.query.lookup_grouped_plain``).
+``launches[name]`` counts the kernel launches of each wrapper and nothing
+else.
 
 No wrapper limits the number of terms. ``vertical_score``, the three fused
 lookups, the two fused-decode lookups, the three chunk wrappers and
@@ -42,6 +48,7 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 from . import _build
@@ -55,6 +62,7 @@ GRID_ORDERS = ("wq", "qw")
 launches: dict[str, int] = {"unpack_score": 0, "vertical_score": 0,
                             "lookup_score": 0, "lookup_score_blocks": 0,
                             "lookup_score_multi": 0,
+                            "lookup_score_grouped": 0,
                             "lookup_score_blocks_compressed": 0,
                             "lookup_score_multi_compressed": 0,
                             "chunk_lookup_score_multi": 0,
@@ -286,6 +294,128 @@ def lookup_score_multi(arena: torch.Tensor, rows_idx: torch.Tensor,
         raise ValueError(f"unknown grid_order {grid_order!r}; "
                          f"one of {GRID_ORDERS}")
     return _lookup("lookup_score_multi", arena, rows_idx, mask, 3)
+
+
+# --------------------------------------------------------------------------
+# grouped lookup: the blocks of a block table, from the batch's packed
+# terms, hashed and planned in the kernel -> out [Q, n_blocks, W, 32]
+# --------------------------------------------------------------------------
+
+# an entry of the kernel's table (csrc/bitslice_score.cu: LookupBlock)
+_BLOCK_ENTRY = np.dtype([("rows", "<u8"), ("row_offset", "<i4"),
+                         ("width", "<i4"), ("slot", "<i4"), ("pad", "<i4")])
+
+
+class BlockTable:
+    """The blocks one grouped lookup (``lookup_score_grouped``) scores:
+    entry e is the block of rows [row_offset[e], row_offset[e] + width[e])
+    of ``tiles[tile_of[e]]`` (int32 [R, W]; ``width`` is the hash's
+    modulus; ``tile_of`` None: tile e), and its counts go to ``slot[e]``
+    on the output's block axis of ``n_blocks``. Built once on the host: a
+    block whose rows pass its tile raises ``IndexError`` here, so the
+    kernel reads only rows in range with no check a launch. On a CUDA device the entries are uploaded once,
+    as the kernel's 24-byte structs. The table keeps no tile, only the
+    tiles' data pointers (``ptrs``): a launch is given the tiles
+    themselves, which hold the memory the entries point at."""
+
+    def __init__(self, tiles: list[torch.Tensor], row_offset, width, slot,
+                 n_blocks: int, tile_of=None):
+        self.row_offset = np.asarray(row_offset, dtype=np.int64)
+        self.width = np.asarray(width, dtype=np.int64)
+        self.slot = np.asarray(slot, dtype=np.int64)
+        self.n_blocks = int(n_blocks)
+        n = self.row_offset.shape[0]
+        self.tile_of = (np.arange(len(tiles)) if tile_of is None
+                        else np.asarray(tile_of, dtype=np.int64))
+        if not n or any(a.shape != (n,) for a in
+                        (self.width, self.slot, self.tile_of)):
+            raise ValueError("a block table needs one tile, row offset, "
+                             "width and slot for each of its (>= 1) entries")
+        if ((self.tile_of < 0) | (self.tile_of >= len(tiles))).any():
+            raise ValueError(f"an entry's tile is not one of {len(tiles)}")
+        for t in tiles:
+            _check("tile", t, (2,))
+        self.W = int(tiles[0].shape[1])
+        self.device = tiles[0].device
+        if any(t.shape[1] != self.W for t in tiles):
+            raise ValueError("the tiles of a block table differ in width")
+        _on_cuda(*tiles)
+        heights = np.array([t.shape[0] for t in tiles],
+                           dtype=np.int64)[self.tile_of]
+        bad = np.nonzero((self.row_offset < 0) | (self.width < 1)
+                         | (self.row_offset + self.width > heights))[0]
+        if bad.size:
+            e = int(bad[0])
+            raise IndexError(
+                f"block {e}'s rows [{self.row_offset[e]}, "
+                f"{self.row_offset[e] + self.width[e]}) outside its tile's "
+                f"{heights[e]} rows")
+        if ((self.slot < 0) | (self.slot >= self.n_blocks)).any() or \
+                np.unique(self.slot).size != n:
+            raise ValueError(f"block slots must be distinct and in "
+                             f"[0, {self.n_blocks})")
+        self.ptrs = tuple(t.data_ptr() for t in tiles)
+        self.entries = None
+        if self.device.type == "cuda":
+            host = np.zeros(n, dtype=_BLOCK_ENTRY)
+            host["rows"] = np.asarray(self.ptrs, dtype=np.uint64)[
+                self.tile_of]
+            host["row_offset"] = self.row_offset
+            host["width"] = self.width
+            host["slot"] = self.slot
+            self.entries = torch.from_numpy(host.view(np.uint8)).to(
+                self.device)
+
+    def __len__(self) -> int:
+        return self.row_offset.shape[0]
+
+    def check_tiles(self, tiles: list[torch.Tensor]) -> None:
+        """Raises unless ``tiles`` are the table's, tile for tile (the
+        same data pointers): those its entries point at."""
+        if tuple(t.data_ptr() for t in tiles) != self.ptrs:
+            raise ValueError("the tiles given are not the block table's")
+
+
+def lookup_score_grouped(table: BlockTable, tiles: list[torch.Tensor],
+                         terms: torch.Tensor, n_valid: torch.Tensor | None,
+                         out: torch.Tensor) -> torch.Tensor:
+    """Grouped fused lookup, on CUDA tensors only: ``tiles`` the table's
+    (held by the caller until the launch is ordered), terms int32
+    [Q, L, 2] (packed lo, hi words), n_valid int32 [Q] (a query's terms
+    from n_valid[q] on count nothing; None: every term counts), out int32
+    [Q, n_blocks, W, 32]. Writes the counts of every block of ``table``
+    for every query into out at the block's slot, one launch for any L,
+    and leaves out's other blocks as they are; returns out. Each term's
+    row is the term's hash (``core.hashing.hash_terms``, one hash) modulo
+    the block's width plus its offset, computed in the kernel, as the
+    query engine plans a k = 1 lookup's rows; its plain version, which
+    hashes on the host side, is ``core.query.lookup_grouped_plain``. No
+    Pallas counterpart (the JAX engine launches a lookup a shard)."""
+    _check("terms", terms, (3,))
+    _check("out", out, (4,))
+    Q, L, two = terms.shape
+    if two != 2:
+        raise ValueError(f"terms must be [Q, L, 2], got {tuple(terms.shape)}")
+    if out.shape != (Q, table.n_blocks, table.W, 32):
+        raise ValueError(f"out shape {tuple(out.shape)} != [{Q}, "
+                         f"{table.n_blocks}, {table.W}, 32]")
+    if n_valid is not None:
+        _check("n_valid", n_valid, (1,))
+        if n_valid.shape[0] != Q:
+            raise ValueError(f"{n_valid.shape[0]} counts for {Q} queries")
+    table.check_tiles(tiles)
+    if not _on_cuda(tiles[0], terms, out,
+                    *(() if n_valid is None else (n_valid,))):
+        raise ValueError("the grouped lookup launches on a CUDA device; on "
+                         "the CPU its plain version scores")
+    dev = out.device
+    _build.launch("cobs_lookup_grouped", table.entries.data_ptr(),
+                  len(table), terms.data_ptr(),
+                  None if n_valid is None else n_valid.data_ptr(),
+                  out.data_ptr(), Q, table.n_blocks, L, table.W,
+                  CLUSTER_AUTO, dev.index or 0, _stream(dev))
+    _count("lookup_score_grouped")
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -30,6 +30,10 @@
 //   gather_comp_kernel <- the kernel of gather_rows_compressed; gather_body
 //   dedup_kernel       <- _dedup_score_kernel (dedup_score);
 //                         split_body<kUniq, false>
+//   grouped::lookup_kernel <- none (lookup_score_grouped): every resident
+//                         block of a batch in one launch, each term's row
+//                         hashed and planned in the kernel;
+//                         split_body<kHashed, false>
 //   select_kernel      <- none (select_scores): the server's selection of a
 //                         dense batch's hits, which the JAX server makes on
 //                         the host in numpy
@@ -330,6 +334,92 @@ __device__ __forceinline__ void split_decode(
   }
 }
 
+// The term hash of core/hashing.py: hash_terms for one hash (seed 0): a
+// murmur3 mix of the packed term's (lo, hi) words and murmur3's fmix32.
+constexpr uint32_t kHashC1 = 0xCC9E2D51u, kHashC2 = 0x1B873593u;
+constexpr uint32_t kHashF1 = 0x85EBCA6Bu, kHashF2 = 0xC2B2AE35u;
+constexpr uint32_t kHashSeed0 = 0x2545F491u;  // (0 * 0x9E3779B9) ^ 0x2545F491
+constexpr uint32_t kHashAdd = 0xE6546B64u;
+
+__device__ __forceinline__ uint32_t hash_mix(uint32_t h, uint32_t word) {
+  const uint32_t k0 = word * kHashC1;
+  const uint32_t k = __funnelshift_l(k0, k0, 15) * kHashC2;
+  const uint32_t x = h ^ k;
+  return __funnelshift_l(x, x, 13) * 5u + kHashAdd;
+}
+
+__device__ __forceinline__ uint32_t term_hash(uint32_t lo, uint32_t hi) {
+  uint32_t h = hash_mix(hash_mix(kHashSeed0, lo), hi) ^ 8u;
+  h ^= h >> 16;
+  h *= kHashF1;
+  h ^= h >> 13;
+  h *= kHashF2;
+  return h ^ (h >> 16);
+}
+
+// One block of a grouped lookup's block table (24 bytes, as
+// kernels/bitslice_score.py: BlockTable packs it): the tile that holds the
+// block's rows, the block's first row in it and its width (the hash's
+// modulus; row_offset + width never passes the tile's rows, checked once
+// when the table is built), and the block's place on the output's block
+// axis.
+struct LookupBlock {
+  const uint32_t* rows;
+  int row_offset;
+  int width;
+  int slot;
+  int pad;
+};
+static_assert(sizeof(LookupBlock) == 24, "BlockTable packs 24-byte entries");
+
+// A grouped lookup's batch: the block table, the queries' packed terms
+// [queries, L, 2] and live term counts [queries] (null: every term of L),
+// and the output's block count (out is [queries, blocks, W, 32]).
+struct HashedBatch {
+  const LookupBlock* table;
+  const int32_t* terms;
+  const int32_t* n_valid;
+  int queries;
+  int blocks;
+};
+
+// kHashed's stage: n terms of a query, from term `start`, each computed
+// here into stage `buf`: a live term (below nv) gets its row, the block's
+// row_offset + term_hash % width, and mask 1; a term past nv row 0 and
+// mask 0. Thread t takes terms t, t + 256, ... of the stage and loads all
+// of their words before it hashes any: the loads depend on nothing the
+// block loads first (every term of the stage lies below L), so they are in
+// flight with the table entry's and n_valid's, one memory round trip a
+// stage as cp.async's is. Plain stores, visible to the block after the
+// body's barrier; the empty commit group keeps the body's one group a
+// stage.
+__device__ __forceinline__ void split_stage_hashed(
+    int32_t (*s_idx)[kStageTerms], int32_t (*s_mask)[kStageTerms], int buf,
+    const int32_t* terms, int nv, const LookupBlock& blk, int start, int n) {
+  constexpr int kPer = kStageTerms / kSplitThreads;
+  int32_t lo[kPer], hi[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kSplitThreads;
+    lo[k] = i < n ? terms[2 * (start + i)] : 0;
+    hi[k] = i < n ? terms[2 * (start + i) + 1] : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kSplitThreads;
+    if (i < n) {
+      const bool live = start + i < nv;
+      const uint32_t h = term_hash(static_cast<uint32_t>(lo[k]),
+                                   static_cast<uint32_t>(hi[k]));
+      s_idx[buf][i] = live ? blk.row_offset + static_cast<int32_t>(
+                                 h % static_cast<uint32_t>(blk.width))
+                           : 0;
+      s_mask[buf][i] = live ? 1 : 0;
+    }
+  }
+  cp_async_commit();
+}
+
 // Where a split block reads its rows: the cell's contiguous [L, W] block
 // (vertical), the arena row of each staged index (lookup, and the chunk
 // dedup over uniq), or the dictionary row of each staged index's refs
@@ -339,8 +429,10 @@ __device__ __forceinline__ void split_decode(
 // kernel is an instantiation of its own: dedup_kernel sharing
 // lookup_kernel's (and with it the body's function-scope shared arrays)
 // changed lookup_kernel's SASS and slowed it by up to 2% (PERF.md
-// section 6).
-enum SplitSource { kRows, kIndexed, kDecoded, kUniq, kTile };
+// section 6). kHashed (the grouped lookup over a block table) loads as
+// kIndexed does from indices it computes itself from the query's terms
+// (split_stage_hashed); its cell is a (table entry, query) pair.
+enum SplitSource { kRows, kIndexed, kDecoded, kUniq, kTile, kHashed };
 
 // Block b of the grid: cluster rank b % cs, (cell, tile) pair b / cs. The
 // block counts terms [lo, hi) of its cell (a cluster's ranks split the
@@ -351,14 +443,18 @@ enum SplitSource { kRows, kIndexed, kDecoded, kUniq, kTile };
 // indices and masks through s_idx and s_mask (two stages of kStageTerms).
 // With kAcc each stored count adds the acc element of the same place,
 // read once, by the thread that stores it: before the term loop without a
-// cluster, at the store with one (acc and out do not overlap).
+// cluster, at the store with one (acc and out do not overlap). With
+// kHashed the cell is (entry e, query q) = (cell / queries, cell % queries)
+// of `hb`: rows are entry e's tile, the indices and masks are computed from
+// query q's terms, and the counts land at out[((q * blocks + slot) * W +
+// w0) * 32 ...].
 template <SplitSource kSrc, bool kAcc>
 __device__ __forceinline__ void split_body(
     const uint32_t* __restrict__ rows, const int32_t* __restrict__ refs,
     const int32_t* __restrict__ idx, const int32_t* __restrict__ mask,
     const int32_t* __restrict__ acc, int32_t* __restrict__ out, int L,
     int W, int Wp, int cs, int32_t (*s_idx)[kStageTerms],
-    int32_t (*s_mask)[kStageTerms]) {
+    int32_t (*s_mask)[kStageTerms], HashedBatch hb = {}) {
   constexpr bool kStaged = kSrc != kRows;
   __shared__ uint32_t s_planes[kMaxPlanes * kSplitThreads];
   __shared__ int32_t s_red[kWordTile * 32];
@@ -392,6 +488,18 @@ __device__ __forceinline__ void split_body(
   const int lo = static_cast<int>(lo_ll), hi = static_cast<int>(hi_ll);
   const int np = planes_for((hi - lo + S - 1) / S);
   const bool counting = s < S && w < wc;
+  long long oc = cell;              // the cell's place in out
+  LookupBlock blk = {};
+  const int32_t* terms = nullptr;
+  int nv = 0;
+  if constexpr (kSrc == kHashed) {
+    const long long q = cell % hb.queries;
+    blk = hb.table[cell / hb.queries];
+    rows = blk.rows;
+    oc = q * hb.blocks + blk.slot;
+    terms = hb.terms + q * 2LL * L;
+    nv = hb.n_valid != nullptr ? hb.n_valid[q] : L;
+  }
   const uint32_t* col = kStaged ? rows + w0 + w
                                 : rows + cell * L * W + w0 + w;
   const int32_t* ci = kStaged ? idx + cell * L : nullptr;
@@ -404,7 +512,12 @@ __device__ __forceinline__ void split_body(
 #pragma unroll
   for (int k = 0; k < kOwn; ++k) own[k] = 0;
 
-  if constexpr (kStaged) {
+  if constexpr (kSrc == kHashed) {
+    if (lo < hi) {
+      split_stage_hashed(s_idx, s_mask, 0, terms, nv, blk, lo,
+                         hi - lo < kStageTerms ? hi - lo : kStageTerms);
+    }
+  } else if constexpr (kStaged) {
     if (lo < hi) {
       split_stage(s_idx, s_mask, 0, ci, cm, lo,
                   hi - lo < kStageTerms ? hi - lo : kStageTerms);
@@ -428,8 +541,14 @@ __device__ __forceinline__ void split_body(
     if constexpr (kStaged) {
       const int next = st + kStageTerms;
       if (next < hi) {
-        split_stage(s_idx, s_mask, buf ^ 1, ci, cm, next,
-                    hi - next < kStageTerms ? hi - next : kStageTerms);
+        if constexpr (kSrc == kHashed) {
+          split_stage_hashed(s_idx, s_mask, buf ^ 1, terms, nv, blk, next,
+                             hi - next < kStageTerms ? hi - next
+                                                     : kStageTerms);
+        } else {
+          split_stage(s_idx, s_mask, buf ^ 1, ci, cm, next,
+                      hi - next < kStageTerms ? hi - next : kStageTerms);
+        }
       } else {
         cp_async_commit();
       }
@@ -464,7 +583,7 @@ __device__ __forceinline__ void split_body(
   }
   split_flush(p, own, s_planes, np, S, wt, wn);
 
-  int32_t* out_tile = out + (cell * Wo + w0) * 32;
+  int32_t* out_tile = out + (oc * Wo + w0) * 32;
   if (cs == 1) {
 #pragma unroll
     for (int k = 0; k < kOwn; ++k) {
@@ -678,6 +797,32 @@ dedup_kernel(const uint32_t* __restrict__ uniq,
   split_body<kUniq, false>(uniq, nullptr, indir, mask, nullptr, out, L, W, W,
                            cs, s_idx, s_mask);
 }
+
+// Replaces no Pallas kernel: lookup_kernel's grouped form
+// (lookup_score_grouped), which scores every block of a block table for
+// every query of a batch in one launch, where the JAX engine runs one
+// lookup a shard after hashing and planning on the host side of the
+// launch. Each entry of the table is a block of some resident tile (its
+// rows pointer, row offset, width and slot); each (entry, query, word
+// tile) is a block of threads of the split body in kHashed mode, which
+// computes each term's row as it stages the query's terms (term_hash,
+// modulo the block's width, plus its offset; mask l < n_valid[q], 0 or 1)
+// and writes the counts into the batch's [Q, blocks, W, 32] buffer at the
+// entry's slot. Bound: bytes (the terms read once a cell, one row per live
+// term, the counts written) and, in practice, the chain table entry ->
+// terms -> row of dependent loads. It keeps the name lookup_kernel, in a
+// namespace of its own (so that the indexed form's name stays one
+// function), and with it the profiler's scoring-kernel pattern.
+namespace grouped {
+__global__ void __launch_bounds__(kSplitThreads)
+lookup_kernel(HashedBatch hb, int32_t* __restrict__ out, int L, int W,
+              int cs) {
+  __shared__ int32_t s_idx[2][kStageTerms];
+  __shared__ int32_t s_mask[2][kStageTerms];
+  split_body<kHashed, false>(nullptr, nullptr, nullptr, nullptr, nullptr,
+                             out, L, W, W, cs, s_idx, s_mask, hb);
+}
+}  // namespace grouped
 
 // Replaces _unpack_kernel (unpack_score): rows [B, L, W] -> [B, W, 32], each
 // count an int32 that adds (word >> bit) & 1 over the L rows (the TPU
@@ -1190,6 +1335,30 @@ extern "C" int cobs_lookup_comp(const void* dict, const void* refs,
                       static_cast<const int32_t*>(idx),
                       static_cast<const int32_t*>(mask),
                       static_cast<int32_t*>(out), L, W);
+}
+
+// The grouped lookup: table [n_entries] LookupBlock entries on the device,
+// terms [Q, L, 2], n_valid [Q] (null: every term of L counts), out
+// [Q, n_blocks, W, 32]; writes the table's blocks of out and no other, one
+// launch for the n_entries * Q cells at any L, at the cluster size the
+// entry point picks (as cobs_lookup's). The table's rows are in range by
+// construction (row_offset + width never passes a tile's rows).
+extern "C" int cobs_lookup_grouped(const void* table, int n_entries,
+                                   const void* terms, const void* n_valid,
+                                   void* out, int Q, int n_blocks, int L,
+                                   int W, int cluster, int device,
+                                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_entries < 1 || Q < 1 || n_blocks < 1 || L < 0 || W < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const HashedBatch hb = {static_cast<const LookupBlock*>(table),
+                          static_cast<const int32_t*>(terms),
+                          static_cast<const int32_t*>(n_valid), Q, n_blocks};
+  return launch_split(grouped::lookup_kernel,
+                      static_cast<long long>(n_entries) * Q, L, W, cluster,
+                      device, stream, hb, static_cast<int32_t*>(out), L, W);
 }
 
 // What a split launch of `cells` cells of L terms over W words (a chunk

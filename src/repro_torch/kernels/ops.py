@@ -67,6 +67,25 @@ def bitslice_lookup_score_multi(arena: torch.Tensor, rows_idx: torch.Tensor,
     return out.reshape(rows_idx.shape[0], -1)
 
 
+BlockTable = _k.BlockTable
+
+
+def bitslice_lookup_score_grouped(table: BlockTable,
+                                  tiles: list[torch.Tensor],
+                                  terms: torch.Tensor,
+                                  n_valid: torch.Tensor | None,
+                                  out: torch.Tensor) -> torch.Tensor:
+    """Grouped fused gather + score on CUDA: every block of ``table`` (over
+    ``tiles``) for every query of terms int32 [Q, L, 2] (n_valid int32
+    [Q], or None: every term counts), written into out int32
+    [Q, n_blocks * W * 32] at the block's slot, in (block, word, bit) slot
+    order; out's other blocks are left as they are. Returns out."""
+    _k.lookup_score_grouped(
+        table, tiles, terms, n_valid,
+        out.view(out.shape[0], table.n_blocks, table.W, 32))
+    return out
+
+
 def bitslice_lookup_score_blocks_comp(dict_rows: torch.Tensor,
                                       refs: torch.Tensor,
                                       rows_idx: torch.Tensor,

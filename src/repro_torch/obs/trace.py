@@ -224,22 +224,22 @@ _OFF = contextlib.nullcontext()       # what ``span`` returns with nothing to do
 
 
 class _Span:
-    __slots__ = ("name", "marks", "tags", "clock", "seq", "start", "_range")
+    __slots__ = ("name", "marks", "tags", "clock", "args", "start",
+                 "_range")
 
     def __init__(self, name: str, marks: Optional[list],
-                 clock: Callable[[], float], seq: Optional[int]):
+                 clock: Callable[[], float], args: Optional[str]):
         self.name = name
         self.marks = marks
         self.tags = None
         self.clock = clock
-        self.seq = seq
+        self.args = args
         self._range = None
 
     def __enter__(self) -> "_Span":
         if _autograd_profiler._is_profiler_enabled:
             self._range = _autograd_profiler.record_function(
-                PREFIX + self.name,
-                None if self.seq is None else f"seq={self.seq}")
+                PREFIX + self.name, self.args)
             self._range.__enter__()
         if self.marks is not None:
             self.start = self.clock()
@@ -256,7 +256,7 @@ class _Span:
 
 def span(name: str, marks: Optional[list] = None, *,
          clock: Callable[[], float] = time.monotonic,
-         seq: Optional[int] = None):
+         seq: Optional[int] = None, **counts: int):
     """Context manager timing one stage.
 
     With ``marks`` (a list; a batch whose requests are traced) it appends
@@ -264,11 +264,15 @@ def span(name: str, marks: Optional[list] = None, *,
     being what the block set on the returned object (None if nothing).
     While a profiler session is open it also opens the range
     ``repro.<name>``, with ``seq=<seq>`` as its args when the stage
-    belongs to a batch, so a batch's ranges can be joined across threads.
-    With neither, the cost is one test of a flag."""
+    belongs to a batch, so a batch's ranges can be joined across threads,
+    and ``<key>=<value>`` for each of ``counts`` after it (the ``launch``
+    range's ``grouped``), each separated by a space. With neither, the
+    cost is one test of a flag."""
     if marks is None and not _autograd_profiler._is_profiler_enabled:
         return _OFF
-    return _Span(name, marks, clock, seq)
+    args = " ".join([*(() if seq is None else (f"seq={seq}",)),
+                     *(f"{k}={v}" for k, v in counts.items())])
+    return _Span(name, marks, clock, args or None)
 
 
 class _GcSpans:

@@ -403,8 +403,11 @@ class ServingMetrics:
     def record_tile_route(self, stats) -> None:
         """One paged batch's row-gather route (a ``core.query.GatherStats``):
         its shard visits by route (``serve_shard_visits_total{route=
-        resident,gathered,staged}``), the stored rows it read on the host
-        and their bytes (``serve_tile_rows_gathered_total``,
+        resident,gathered,staged}``), the resident ones scored in the
+        batch's grouped launch (``serve_grouped_shards_total``; over the
+        resident visits, the grouped launch's engagement), the stored rows
+        it read on the host and their bytes
+        (``serve_tile_rows_gathered_total``,
         ``serve_tile_gathered_bytes_total``) and the host time of the
         reads (``serve_tile_gather_seconds``, one observation a batch; its
         sum is the summed time). Registered at the first paged batch, so
@@ -415,6 +418,9 @@ class ServingMetrics:
                            labels=("route",))
         for route, n in stats.visits.items():
             visits.labels(route).inc(n)
+        r.counter("serve_grouped_shards_total",
+                  "resident shard visits scored in a grouped launch").inc(
+                      stats.grouped)
         r.counter("serve_tile_rows_gathered_total",
                   "stored rows paged batches read on the host").inc(
                       stats.rows_gathered)

@@ -14,9 +14,13 @@ Life of a request:
 3. Responses accumulate until ``pop_responses``.
 
 Dispatch. Every exhaustive batch, fused or dedup, runs one loop over the
-store's shards (``core.query.score_shards``): a launch a shard, the
-per-shard scores concatenated on the device, and dense storage the
-one-shard case, whose one part is the dispatch's scores as they are.
+store's shards (``core.query.score_shards``): a launch a shard, each
+shard's scores copied into its columns of the dispatch's one buffer on
+the device, and dense storage the one-shard case, whose one part is the
+dispatch's scores as they are. A k = 1 lookup dispatch scores every raw
+shard resident at its start in one grouped launch (each term's row hashed
+and planned in the kernel, over the tile cache's block table, kept while
+residency stays) into that buffer.
 
 Selection. An exhaustive dispatch selects each request's hits on the
 index's device (``select_scores``: slot order to document order, the
@@ -83,9 +87,9 @@ from ..core.index import BitSlicedIndex
 from ..core.query import (GatherStats, PruneStats, RowGatherRoute,
                           SearchResult, _pad_unique, _to_device,
                           compile_pattern, count_dedup_batch,
-                          coverage_cutoff, dedup_rate, run_paged_dedup,
-                          run_paged_pruned, score_shards, select_hits,
-                          select_top_k, shard_addressing)
+                          coverage_cutoff, dedup_rate, grouped_form,
+                          run_paged_dedup, run_paged_pruned, score_shards,
+                          select_hits, select_top_k, shard_addressing)
 from ..device import resolve_device
 from ..kernels.autotune import KernelTuner, TuningCache
 from ..kernels.bitslice_score import select_scores
@@ -466,16 +470,19 @@ class QueryServer(ServingBackend):
             self.tile_gathers.merge(route.stats)
             self.metrics.record_tile_route(route.stats)
 
-    def _run_plan(self, fns, terms_dev, valid_dev, cut_dev, *,
+    def _run_plan(self, plan, kind: str, terms_dev, valid_dev, cut_dev, *,
                   seq: Optional[int], route=None):
-        """Dispatch the (raw, dict) score functions ``fns`` over every
-        shard (``score_shards``; dense storage is one shard), as ``route``
-        says for a paged plan. Returns the dispatch's hits, selected on
-        the device against ``cut_dev``."""
+        """Dispatch ``plan``'s (raw, dict) score functions of ``kind`` over
+        every shard (``score_shards``; dense storage is one shard, and a
+        k = 1 lookup groups the resident raw shards), as ``route`` says
+        for a paged plan. Returns the dispatch's hits, selected on the
+        device against ``cut_dev``."""
         out = score_shards(
-            self.tiles, self.planner.shard_plans, *fns,
+            self.tiles, self.planner.shard_plans,
+            *self.planner.score_fns(plan, kind),
             lambda i, rows: (*self._addressing[i], terms_dev, valid_dev),
-            route=route, seq=seq)
+            route=route, seq=seq,
+            grouped=grouped_form(self.index.params.n_hashes, plan.method))
         return self._card_hits(out, cut_dev, seq)
 
     def _score_dedup(self, buf: np.ndarray, n_valid: np.ndarray, plan,
@@ -631,9 +638,9 @@ class QueryServer(ServingBackend):
                     cut_dev = self._cutoffs(batch.requests)
                 route = (self._route(plan, buf[None], ells[:1], single=True)
                          if plan.paged else None)
-                slots = self._run_plan(
-                    self.planner.score_fns(plan, "single"), terms_dev,
-                    int(ells[0]), cut_dev, seq=seq, route=route)
+                slots = self._run_plan(plan, "single", terms_dev,
+                                       int(ells[0]), cut_dev, seq=seq,
+                                       route=route)
                 self._record_route(route)
                 self._kernel_mark(ks, marks, method, plan, tk0, self.clock(),
                                   rows=B * nb)
@@ -664,9 +671,9 @@ class QueryServer(ServingBackend):
                             self.index.device)
                     route = (self._route(plan, buf, n_valid)
                              if plan.paged else None)
-                    slots = self._run_plan(
-                        self.planner.score_fns(plan, "batch"), terms_dev,
-                        valid_dev, cut_dev, seq=seq, route=route)
+                    slots = self._run_plan(plan, "batch", terms_dev,
+                                           valid_dev, cut_dev, seq=seq,
+                                           route=route)
                     self._record_route(route)
                     self._kernel_mark(ks, marks, method, plan, tk0,
                                       self.clock(), rows=q_pad * nb * B)

@@ -10,18 +10,30 @@ its own, the index's seeds) and counts the query terms whose k bits are
 all set. Besides: a batch over more shards than the cache holds evicts
 nothing and reads exactly the unique rows of the shards that are not
 resident, a route stages the shards whose rows cost a tile, and faults
-reuse the staging buffers."""
+reuse the staging buffers. The grouped launch (every resident raw shard of
+a k = 1 lookup dispatch in one launch over a block table): its slot scores
+equal the JAX engine's over the same store, in both forms and with padded
+queries, its table follows the tile cache's residency, refuses a block
+whose rows pass its tile, and the server counts the shards it scored."""
+import gc
 import math
+import weakref
 
 import numpy as np
 import pytest
 import torch
 
+from repro.core import QueryEngine as JaxEngine
+from repro.core import store as jax_store
+
 from repro_torch.core import IndexParams, build_compact, load_index_v2
+from repro_torch.core import query as q
 from repro_torch.core.arena import DeviceTileCache
 from repro_torch.core.query import RowGatherRoute, compile_pattern
 from repro_torch.core.store import ShardStoreWriter
 from repro_torch.data import make_corpus
+from repro_torch.kernels import bitslice_score as kb
+from repro_torch.kernels import ops
 from repro_torch.serve import QueryServer, ServerConfig
 
 torch.set_num_threads(2)
@@ -108,10 +120,10 @@ def _write_store(index, path):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """n_hashes -> (corpus, resident index, paged index over its store,
-    the documents' plain filters)."""
+    the documents' plain filters); "root" -> the stores' directory."""
     root = tmp_path_factory.mktemp("paged-route")
     c = make_corpus(160, k=K, mean_length=1500, sigma=0.5, seed=11)
-    out = {}
+    out = {"root": root}
     for k in (1, 2):
         dense = build_compact(c.doc_terms, IndexParams(n_hashes=k, fpr=0.3,
                                                        kmer=K),
@@ -121,6 +133,12 @@ def world(tmp_path_factory):
         out[k] = (c, dense, paged,
                   plain_filters(c.doc_terms, paged.layout, k))
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_paged(world):
+    """The JAX package's index over the k = 1 store's files."""
+    return jax_store.load_index_v2(world["root"] / "k1")
 
 
 def _cap(storage, share: str):
@@ -315,7 +333,173 @@ def test_a_route_stages_the_shards_whose_rows_cost_a_tile(world, k, share,
     rows = sum((sets[s] for s in kept), [])
     live = dp.uniq_rows[:dp.n_unique].reshape(dp.n_unique, k)
     assert live.tolist() == [list(r) for r in rows]
-    for i in idx:
-        route.part(i)
+    route.scatter(None)
     assert route.stats.rows_gathered == len(rows) * k
     assert route.stats.bytes_gathered == len(rows) * k * W * 4
+
+
+# -- the grouped launch ----------------------------------------------------------
+
+def _read_batch(c, q_pad: int):
+    """Reads of the corpus as a padded batch: terms uint32 [q_pad, 128, 2]
+    and n_valid [q_pad], the rows past the reads padding (n_valid 0)."""
+    pats = [d[30:110] for d in c.documents[:q_pad - 3]]
+    buf = np.zeros((q_pad, 128, 2), np.uint32)
+    n_valid = np.zeros(q_pad, np.int32)
+    for i, p in enumerate(pats):
+        t = compile_pattern(p, IndexParams(1, 0.3, K))
+        buf[i, :t.shape[0]] = t
+        n_valid[i] = t.shape[0]
+    return buf, n_valid
+
+
+class _CountedTable(kb.BlockTable):
+    built = 0
+
+    def __init__(self, *args, **kw):
+        type(self).built += 1
+        super().__init__(*args, **kw)
+
+
+def _dispatch(ps, buf, n_valid, single: bool):
+    """One k = 1 lookup dispatch of the server's shard loop over the batch
+    (the one-request form: its first query alone), with its row-gather
+    route; returns (document scores [Q, n_docs], the route)."""
+    plan = ps.planner.plan(buf.shape[1], 1 if single else buf.shape[0])
+    assert plan.method == "lookup" and plan.paged
+    fn, _ = ps.planner.score_fns(plan, "single" if single else "batch")
+    dev_terms = q._to_device(buf[0] if single else buf, ps.index.device)
+    nv = int(n_valid[0]) if single else torch.from_numpy(n_valid)
+    route = RowGatherRoute(ps.tiles, ps.planner.shard_plans,
+                           buf[:1] if single else buf,
+                           n_valid[:1] if single else n_valid,
+                           single=single)
+    out = q.score_shards(
+        ps.tiles, ps.planner.shard_plans, fn, None,
+        lambda i, rows: (*ps._addressing[i], dev_terms, nv),
+        route=route, grouped=True)
+    slots = out.reshape(1 if single else buf.shape[0], -1).numpy()
+    return slots[:, np.asarray(ps.index.layout.doc_slot)], route
+
+
+@pytest.mark.parametrize("form", ["batch", "single"])
+@pytest.mark.parametrize("share", ["some", "all"])
+def test_grouped_dispatch_equals_jax_engine(world, jax_paged, share, form):
+    """Resident shards in one grouped launch, the others gathered: the
+    dispatch's scores equal the JAX engine's over the store's files, for
+    a batch with padded queries and for one request."""
+    c, _, paged, _ = world[1]
+    ps = QueryServer(paged, ServerConfig(
+        **NO_CACHE, tile_cache_bytes=_cap(paged.storage, share)), device=CPU)
+    ps.warm_tiles()
+    buf, n_valid = _read_batch(c, 16)
+    single = form == "single"
+    got, route = _dispatch(ps, buf, n_valid, single)
+    want = JaxEngine(jax_paged, method="lookup").score_terms_batch(
+        buf[:1] if single else buf, n_valid[:1] if single else n_valid)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    resident = {"some": 2, "all": 5}[share]
+    assert route.stats.visits["resident"] == route.stats.grouped == resident
+    assert (got[n_valid[:got.shape[0]] == 0] == 0).all()
+
+
+def test_block_table_follows_residency(world, jax_paged, monkeypatch):
+    """The table is built once while residency stays, and anew after an
+    eviction and after a tile is staged; the scores stay the JAX
+    engine's."""
+    c, _, paged, _ = world[1]
+    st = paged.storage
+    monkeypatch.setattr(ops, "BlockTable", _CountedTable)
+    monkeypatch.setattr(_CountedTable, "built", 0)
+    ps = QueryServer(paged, ServerConfig(
+        **NO_CACHE, tile_cache_bytes=_cap(st, "some")), device=CPU)
+    ps.warm_tiles()
+    buf, n_valid = _read_batch(c, 8)
+    want = np.asarray(JaxEngine(jax_paged, method="lookup")
+                      .score_terms_batch(buf, n_valid))
+    for _ in range(2):
+        got, _ = _dispatch(ps, buf, n_valid, single=False)
+        np.testing.assert_array_equal(got, want)
+    assert _CountedTable.built == 1
+    before = set(ps.tiles.resident_shards)
+    other = next(s for s in range(st.n_shards) if s not in before)
+    ps.tiles.get(other)                   # stages it and evicts
+    evictions = ps.tiles.evictions
+    assert evictions > 0
+    got, route = _dispatch(ps, buf, n_valid, single=False)
+    np.testing.assert_array_equal(got, want)
+    assert _CountedTable.built == 2
+    assert route.stats.grouped == len(ps.tiles) == route.stats.visits[
+        "resident"]
+    # room for every tile: one staged here, the route stages the rest in
+    # its dispatch, scored one by one beside the grouped launch
+    ps.tiles.capacity_bytes = None
+    ps.tiles.prefetch(next(s for s in range(st.n_shards)
+                           if not ps.tiles.resident(s)))
+    resident = len(ps.tiles)
+    got, route = _dispatch(ps, buf, n_valid, single=False)
+    np.testing.assert_array_equal(got, want)
+    assert _CountedTable.built == 3 and ps.tiles.evictions == evictions
+    assert route.stats.grouped == resident == route.stats.visits["resident"]
+    assert route.stats.visits["staged"] == st.n_shards - resident > 0
+    got, route = _dispatch(ps, buf, n_valid, single=False)
+    np.testing.assert_array_equal(got, want)
+    assert _CountedTable.built == 4 and route.stats.grouped == st.n_shards
+
+
+def test_evicted_tiles_are_released(world):
+    """The block table keeps no tile: a tile the cache evicts is freed once
+    the dispatch that got it is done, while the one-request form, which
+    grouped those tiles first, stays idle and batches stage and evict."""
+    c, _, paged, _ = world[1]
+    st = paged.storage
+    ps = QueryServer(paged, ServerConfig(
+        **NO_CACHE, tile_cache_bytes=_cap(st, "some")), device=CPU)
+    ps.warm_tiles()
+    buf, n_valid = _read_batch(c, 8)
+    _, route = _dispatch(ps, buf, n_valid, single=True)
+    assert route.stats.grouped == len(ps.tiles) > 0
+    first = {s: weakref.ref(ps.tiles.get(s))
+             for s in ps.tiles.resident_shards}
+    for s in range(st.n_shards):
+        if not ps.tiles.resident(s):
+            ps.tiles.get(s)                   # stages it and evicts
+        _, route = _dispatch(ps, buf, n_valid, single=False)
+        assert route.stats.grouped > 0
+    gone = [s for s in first if not ps.tiles.resident(s)]
+    assert gone and ps.tiles.evictions >= len(gone)
+    gc.collect()
+    assert [s for s in gone if first[s]() is not None] == []
+
+
+@pytest.mark.parametrize("row_offset,width", [(0, 0), (-1, 4), (3, 30),
+                                              (0, 31)])
+def test_block_table_refuses_rows_past_its_tile(row_offset, width):
+    """A block whose rows [offset, offset + width) do not lie in its tile
+    (of 30 rows) is refused when the table is built."""
+    tile = torch.zeros((30, 2), dtype=torch.int32)
+    ok = kb.BlockTable([tile, tile], [0, 10], [10, 20], [1, 0], 2)
+    assert len(ok) == 2
+    with pytest.raises(IndexError, match="outside its tile's 30 rows"):
+        kb.BlockTable([tile, tile], [0, row_offset], [10, width], [0, 1], 2)
+
+
+@pytest.mark.parametrize("share", ["some", "all"])
+def test_grouped_shards_counted(world, share):
+    """Every resident visit of a lookup dispatch is scored in its grouped
+    launch: ``serve_grouped_shards_total`` equals the resident visits."""
+    c, _, paged, _ = world[1]
+    ps = QueryServer(paged, ServerConfig(
+        **NO_CACHE, tile_cache_bytes=_cap(paged.storage, share),
+        dedup_min_rate=None), device=CPU)
+    ps.warm_tiles()
+    pats = _patterns(c, np.random.default_rng(5))
+    _serve(ps, pats, 0.8)
+    assert set(ps.planner.dispatch_counts) == {"lookup"}
+    reg = ps.metrics.registry
+    visits = {lab[0]: ch.value for lab, ch in
+              reg.get("serve_shard_visits_total").children()}
+    grouped = reg.get("serve_grouped_shards_total").value
+    assert grouped == visits["resident"] == ps.tile_gathers.grouped > 0
+    assert visits["resident"] == {"some": 2, "all": 5}[share] * \
+        ps.metrics.n_batches

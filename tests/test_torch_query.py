@@ -23,7 +23,7 @@ from repro.data import make_queries as jax_make_queries
 from repro_torch.core import (IndexParams, MappedArena, QueryEngine, hashing,
                               index_from_numpy)
 from repro_torch.core import query as q
-from repro_torch.core.arena import ArenaLayout
+from repro_torch.core.arena import ArenaLayout, DeviceTileCache
 from repro_torch.core.index import BitSlicedIndex
 
 torch.set_num_threads(2)
@@ -184,6 +184,56 @@ def test_score_fns_equal_reference(jax_indexes, method):
     single = q.make_score_fn(1, method)(
         *targs, torch.from_numpy(terms[1].view(np.int32)), 17)
     np.testing.assert_array_equal(single.numpy(), want[1])
+
+
+@pytest.mark.parametrize("tiles", ["one tile", "a tile a block"])
+@pytest.mark.parametrize("form", ["batch", "single"])
+def test_grouped_form_equals_reference(jax_indexes, form, tiles):
+    """The k = 1 lookup's grouped form (every block of a tile cache's block
+    table in one launch, each term's row hashed and planned by the
+    kernel's plain version) gives the JAX scoring functions' slot scores:
+    over the index's one arena, and over each block copied into a tile of its own
+    (row offsets 0); terms with zero and all-ones words, and n_valid of 0,
+    part and all of L."""
+    jax_index = jax_indexes[("compact", 1)]
+    index = carry(jax_index)
+    lay = index.layout
+    rng = np.random.default_rng(6)
+    terms = rng.integers(0, 2 ** 32, size=(4, 64, 2), dtype=np.uint32)
+    terms[:, 0] = 0
+    terms[:, 1] = 0xFFFFFFFF
+    terms[:, 2] = [0, 0xFFFFFFFF]
+    n_valid = np.array([64, 17, 0, 3], np.int32)
+    want = np.asarray(jax_query.make_batch_score_fn(1, "lookup")(
+        jax_index.arena, jax_index.row_offset, jax_index.block_width,
+        jnp.asarray(terms), jnp.asarray(n_valid)))
+    nb = lay.n_blocks
+    if tiles == "one tile":
+        pairs = [(index.arena, q.ShardPlan(0, 0, nb, lay.row_offset,
+                                           lay.block_width))]
+    else:
+        pairs = [(index.arena[int(o):int(o) + int(w)].clone(),
+                  q.ShardPlan(b, b, b + 1, np.zeros(1, np.int32),
+                              lay.block_width[b:b + 1]))
+                 for b, (o, w) in enumerate(zip(lay.row_offset,
+                                                lay.block_width))][::-1]
+    tiles_ = [t for t, _ in pairs]
+    table = DeviceTileCache(index.storage).block_table(
+        [sp for _, sp in pairs], tiles_, 0, nb)
+    t = torch.from_numpy(terms.view(np.int32))
+    if form == "batch":
+        got = q.grouped_lookup(table, tiles_, t, torch.from_numpy(n_valid))
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        for i, n in enumerate(n_valid):
+            got = q.grouped_lookup(table, tiles_, t[i], int(n))
+            np.testing.assert_array_equal(got.numpy(), want[i])
+    with pytest.raises(ValueError, match="not the block table's"):
+        q.grouped_lookup(table, [x.clone() for x in tiles_], t,
+                         torch.from_numpy(n_valid))
+    assert q.grouped_form(1, "lookup")
+    assert not q.grouped_form(1, "vertical")
+    assert not q.grouped_form(2, "lookup")
 
 
 def test_hash_mirror_feeds_plan_rows():

@@ -308,6 +308,40 @@ def test_span_marks_on_the_given_clock():
     assert [r[0] for r in _ranges(prof)] == ["repro.copy"]
 
 
+def test_launch_range_carries_the_grouped_shards(world, monkeypatch):
+    """A range's args are ``seq=<seq>`` and then each count as
+    ``<key>=<value>``: the ``launch`` range of a k = 1 lookup batch names
+    the shards its grouped launch scored (the dense index's one, once its
+    tile is resident; none for the first batch, which stages it)."""
+    c, idx = world
+    args = []
+    real = otrace._autograd_profiler.record_function
+
+    def recorded(name, a=None):
+        args.append((name, a))
+        return real(name, a)
+
+    monkeypatch.setattr(otrace._autograd_profiler, "record_function",
+                        recorded)
+    with profile(activities=CPU):
+        with otrace.span("copy", seq=7, grouped=3):
+            pass
+        with otrace.span("copy", grouped=0):
+            pass
+        s = _server(idx, dedup_min_rate=None)
+        reads = [d[:150] for d in c.documents if d.shape[0] >= 150][:4]
+        for _ in range(2):
+            for r in reads:
+                s.submit(r, threshold=0.5)
+            s.drain()
+    assert args[:2] == [("repro.copy", "seq=7 grouped=3"),
+                        ("repro.copy", "grouped=0")]
+    launches = [a.split() for n, a in args if n == "repro.launch" and
+                "grouped" in (a or "")]
+    assert [g for _, g in launches] == ["grouped=0", "grouped=1"]
+    assert all(sq.startswith("seq=") for sq, _ in launches)
+
+
 def test_flushed_batches_are_numbered():
     b = MicroBatcher(term_pad=8, max_batch=2, max_wait_s=1.0)
     for i in range(5):

@@ -204,13 +204,23 @@ def finish(proc: subprocess.Popen, what: str) -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """A kernel's name in a mangled symbol: ...<len><name>E<args>, a
-    template's ...<len><name>I<args>EE... as name<args> (gather_kernel<4>).
-    """
-    m = re.search(r"\d+([A-Za-z_]+_kernel)(?:ILi(\d+)EE)?E", mangled)
-    if m is None:
+    """A kernel's name in a mangled symbol _ZN<len><part>...E<args>: its
+    part that ends in _kernel, after any namespace inside the anonymous
+    one (grouped::lookup_kernel), and a template's ILi<n>EE as <n>
+    (gather_kernel<4>)."""
+    at = mangled.find("_ZN")
+    parts, i = [], at + 3
+    while at >= 0 and i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    if not parts or not parts[-1].endswith("_kernel"):
         return mangled.strip()
-    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    ns = [p for p in parts[:-1] if not p.startswith("_")]
+    m = re.match(r"ILi(\d+)EE", mangled[i:])
+    return "::".join(ns + [parts[-1]]) + (f"<{m.group(1)}>" if m else "")
 
 
 def ptxas_lines(report: str) -> dict[str, str]:
